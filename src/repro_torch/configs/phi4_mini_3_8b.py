@@ -1,5 +1,5 @@
 """phi4-mini-3.8b [dense] — RoPE SwiGLU GQA [arXiv:2412.08905; hf]."""
-from repro_torch.configs.base import AttnConfig, ModelConfig
+from repro_torch.configs.base import AttnConfig, ModelConfig, ParallelConfig
 
 CONFIG = ModelConfig(
     name="phi4-mini-3.8b", family="dense",
@@ -9,3 +9,7 @@ CONFIG = ModelConfig(
     attn=AttnConfig(rope_theta=10_000.0),
     tie_embeddings=True,
 )
+
+# Training takes the pure-FSDP layout; on one device that routes the loss
+# through the chunked cross-entropy (``runtime.steps.train_par``).
+PARALLEL = ParallelConfig(pure_fsdp_train=True)

@@ -1,25 +1,33 @@
 """``--arch <id>`` registry of the architectures the port runs.
 
-It lists only what the port can serve today; each later slice adds the
-archs whose block kinds it ports.
+It lists only what the port can serve and train today; each later slice
+adds the archs whose block kinds it ports.  ``get_parallel`` returns an
+arch's ``PARALLEL`` (or the default), as in the JAX registry.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Tuple
 
-from repro_torch.configs.base import ModelConfig, smoke_config
+from repro_torch.configs.base import ModelConfig, ParallelConfig, smoke_config
 
 ARCHS: Tuple[str, ...] = ("phi4-mini-3.8b",)
 
 _MODULES = {"phi4-mini-3.8b": "phi4_mini_3_8b"}
 
 
-def get_config(arch: str) -> ModelConfig:
+def _module(arch: str):
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; the port runs {sorted(_MODULES)}")
-    return importlib.import_module(
-        f"repro_torch.configs.{_MODULES[arch]}").CONFIG
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_parallel(arch: str) -> ParallelConfig:
+    return getattr(_module(arch), "PARALLEL", ParallelConfig())
 
 
 def get_smoke(arch: str) -> ModelConfig:

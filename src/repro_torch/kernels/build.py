@@ -25,6 +25,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
+_c_longlong = ctypes.c_longlong
+_c_float = ctypes.c_float
 # name -> C entry point -> (argtypes, restype)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_attention": {
@@ -33,6 +35,26 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
              _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
              ctypes.POINTER(ctypes.c_longlong),              # 12 strides
              ctypes.c_float, _c_int, _c_ptr],                # scale causal stream
+            _c_int),
+    },
+    "xent": {
+        "repro_torch_xent_fwd": (
+            [_c_ptr, _c_ptr, _c_ptr, _c_ptr,                 # logits labels nll lse
+             _c_int, _c_int, _c_int, _c_longlong,            # dtype R V row_stride
+             _c_float, _c_ptr],                              # softcap stream
+            _c_int),
+        "repro_torch_xent_bwd": (
+            [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,         # logits labels lse dy dlogits
+             _c_int, _c_int, _c_int, _c_longlong,            # dtype R V row_stride
+             _c_float, _c_ptr],                              # softcap stream
+            _c_int),
+    },
+    "adamw_update": {
+        "repro_torch_adamw_update": (
+            [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,         # p g m v scalars
+             _c_int, _c_int, _c_longlong,                    # p/g dtype n
+             _c_float, _c_float, _c_float, _c_float,         # b1 1-b1 b2 1-b2
+             _c_float, _c_float, _c_ptr],                    # eps wd stream
             _c_int),
     },
 }

@@ -1,12 +1,16 @@
-"""GQA attention: projections, prefill attention and one-token decode.
+"""GQA attention: projections, prefill, training and one-token decode.
 
 Prefill (``causal_attention``) runs the port's flash kernel
 (``repro_torch.kernels.flash_attention``) on CUDA tensors, and the same
 wrapper's plain version (``ref.attention_ref`` with KV heads expanded) on
 CPU tensors.  The JAX package computes the same function in XLA
 (``models/attention.py`` ``_qchunk_attention``); its Pallas kernel is the
-hot-spot form of it.  Decode (``decode_attention``) is plain PyTorch, like
-the reference's XLA decode; a paged-decode kernel is later work.
+hot-spot form of it.  Training (``train_attention``) is a plain PyTorch
+port of ``_qchunk_attention``, differentiable, because the JAX package
+trains through that XLA function and never through its Pallas kernel,
+which has no backward; a flash backward kernel is later work.  Decode
+(``decode_attention``) is plain PyTorch, like the reference's XLA decode;
+a paged-decode kernel is later work.
 
 GQA grouping follows the JAX reshape of H into (KV, g): query head h reads
 KV head ``h // (H // KV)``.
@@ -16,6 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -60,6 +65,52 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal)
     return out.transpose(1, 2)
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor,
+          window: Optional[int]) -> torch.Tensor:
+    m = kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        m &= kpos[None, :] > qpos[:, None] - window
+    return m
+
+
+def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: Optional[int] = None,
+                    logit_softcap: Optional[float] = None,
+                    chunk: int = 512) -> torch.Tensor:
+    """q (B,S,H,dh); k,v (B,S,KV,dh) -> (B,S,H,dh), causal, differentiable.
+
+    The reference's q-chunked attention (``_qchunk_attention``): scores in
+    f32 after the product in the compute dtype, the -1e30 mask, the
+    softmax in f32, probabilities cast to ``v.dtype`` before the PV
+    product.  Under autograd each q chunk is checkpointed, as the reference
+    checkpoints it, so backward recomputes a chunk's probabilities instead
+    of keeping (S, S) of them per layer.
+    """
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qr = q.reshape(B, Sq, KV, H // KV, dh)
+    scale = dh ** -0.5
+    chunk = min(chunk, Sq)
+    if Sq % chunk:
+        chunk = Sq
+    kpos = torch.arange(Sk, device=q.device)
+
+    def one(i: int) -> torch.Tensor:
+        qs = qr[:, i * chunk:(i + 1) * chunk]
+        s = torch.einsum("bckgd,bskd->bkgcs", qs, k).float() * scale
+        s = softcap(s, logit_softcap)
+        qpos = i * chunk + torch.arange(chunk, device=q.device)
+        s = torch.where(_mask(qpos, kpos, window)[None, None, None], s,
+                        NEG_INF)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        return torch.einsum("bkgcs,bskd->bckgd", p, v)
+
+    grad = torch.is_grad_enabled()
+    outs = [checkpoint(one, i, use_reentrant=False, preserve_rng_state=False)
+            if grad else one(i) for i in range(Sq // chunk)]
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, dh)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

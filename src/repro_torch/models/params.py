@@ -28,13 +28,17 @@ class PSpec:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
-def tree_map_schema(fn, schema):
-    """Map fn(path, PSpec) over a schema, preserving structure."""
-    def rec(node, path):
-        if isinstance(node, PSpec):
-            return fn(path, node)
-        return {k: rec(v, f"{path}/{k}" if path else k) for k, v in node.items()}
-    return rec(schema, "")
+def tree_map_schema(fn, schema, path: str = ""):
+    """Map fn(path, PSpec) over a schema, preserving structure.
+
+    Plain recursion, not a nested closure: a closure that calls itself is a
+    reference cycle, which would keep ``fn`` (and the tensors it closes
+    over, such as ``init_params``'s leaves) alive until the next garbage
+    collection."""
+    if isinstance(schema, PSpec):
+        return fn(path, schema)
+    return {k: tree_map_schema(fn, v, f"{path}/{k}" if path else k)
+            for k, v in schema.items()}
 
 
 def leaves(schema) -> list[tuple[str, PSpec]]:

@@ -5,22 +5,33 @@ each block kind in ``cfg.block_pattern`` are stacked along a leading group
 axis G, and caches are (G, B, S, KV, dh).  The JAX model scans over groups;
 here ``forward`` is a Python loop over the group axis.
 
-This slice ports the kinds ``attn``/``global``/``local`` in the modes
-``prefill`` and ``decode``.  Training mode and the MoE, SSM, VLM and
-enc-dec kinds come with later slices.
+The port runs the kinds ``attn``/``global``/``local`` in the modes
+``prefill``, ``decode`` and ``train``.  The MoE, SSM, VLM and enc-dec kinds
+come with later slices.
 
 Decode writes the step's k/v into the cache tensors in place (the JAX
 functions return new caches); callers that need the old cache clone it.
+
+Train keeps the autograd graph and no caches.  With ``par.remat`` each
+layer group runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of the scan body), so backward keeps one group's
+input per group and recomputes the rest.  ``loss_fn`` follows the
+reference's routing: the chunked cross-entropy (through the fused xent
+kernel) unless the vocab and sequence divide 16 and the layout is not
+pure-FSDP.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import embed_tokens, rms_norm, swiglu, unembed
+from repro_torch.models import losses
+from repro_torch.models.layers import (compute_dtype, embed_tokens, rms_norm,
+                                       swiglu, unembed)
 from repro_torch.models.params import PSpec
 
 DENSE_KINDS = ("attn", "global", "local")
@@ -128,6 +139,9 @@ def _attn_block(cfg: ModelConfig, kind: str, p, x, *, mode, positions,
         out = attn_mod.decode_attention(
             q, cache["k"], cache["v"], pos, window=window,
             logit_softcap=cfg.attn.logit_softcap)
+    elif mode == "train":
+        out = attn_mod.train_attention(
+            q, k, v, window=window, logit_softcap=cfg.attn.logit_softcap)
     else:
         out = attn_mod.causal_attention(
             q, k, v, window=window, logit_softcap=cfg.attn.logit_softcap)
@@ -143,19 +157,49 @@ def _attn_block(cfg: ModelConfig, kind: str, p, x, *, mode, positions,
     return x + out, new_kv
 
 
+def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
+                   tokens: torch.Tensor) -> torch.Tensor:
+    x = embed_tokens(cfg, params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    # one unbind per stacked leaf: backward stacks its per-group grads in
+    # one op, where indexing each group would add a full-size zero tensor
+    # per group
+    groups = {key: {name: leaf.unbind(0) for name, leaf in grp.items()}
+              for key, grp in params["blocks"].items()}
+
+    def body(x, gp):
+        for i, kind in enumerate(cfg.block_pattern):
+            x, _ = _attn_block(cfg, kind, gp[f"{i}_{kind}"], x, mode="train",
+                               positions=positions, cache=None, pos=None)
+        return x
+
+    for gi in range(cfg.num_groups):
+        gp = {key: {name: sl[gi] for name, sl in grp.items()}
+              for key, grp in groups.items()}
+        if par.remat:
+            x = checkpoint(body, x, gp, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = body(x, gp)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
-            mode: str = "prefill", caches=None, pos=None):
-    """tokens (B,St) int.  prefill: St = S; decode: St = 1.
+            mode: str = "prefill", caches=None, pos=None,
+            par: Optional[ParallelConfig] = None):
+    """tokens (B,St) int.  prefill/train: St = S; decode: St = 1.
 
     Returns (final hidden states (B,St,D), caches).  Prefill returns new
     caches whose sequence axis covers the prompt; decode writes into
-    ``caches`` in place and returns them.
+    ``caches`` in place and returns them; train returns no caches and
+    remats per ``par`` (default ``ParallelConfig()``).
     """
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mode {mode!r}: the port runs prefill and decode; training "
-            f"comes with the training slice")
+    if mode not in ("prefill", "decode", "train"):
+        raise ValueError(f"mode {mode!r}: one of prefill, decode, train")
     _check_kinds(cfg)
+    if mode == "train":
+        return _train_forward(cfg, par or ParallelConfig(), params,
+                              tokens), None
     x = embed_tokens(cfg, params["embed"], tokens)
     if mode == "decode":
         p = torch.as_tensor(pos, device=tokens.device)
@@ -188,3 +232,17 @@ def lm_head(cfg: ModelConfig, params):
 def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     """Logits for a few positions (serving), with tied embeddings."""
     return unembed(cfg, lm_head(cfg, params), x, transpose=True)
+
+
+def loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
+    """Mean token NLL of ``batch`` ({"tokens", "labels"}: (B,S) int)."""
+    x, _ = forward(cfg, params, batch["tokens"], mode="train", par=par)
+    head = lm_head(cfg, params).to(compute_dtype(cfg))
+    S = x.shape[1]
+    # the reference's rule: the sharded head needs the vocab on the model
+    # axis, which pure-FSDP gives to the batch
+    if cfg.vocab_size % 16 == 0 and S % 16 == 0 and not par.pure_fsdp:
+        return losses.sharded_cross_entropy(
+            x, batch["labels"], head, softcap=cfg.final_logit_softcap)
+    return losses.chunked_cross_entropy(
+        x, batch["labels"], head, softcap=cfg.final_logit_softcap)

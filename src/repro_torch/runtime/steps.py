@@ -1,7 +1,16 @@
-"""Serving step functions and the KV cache layouts, in PyTorch.
+"""Train, serving step functions and the KV cache layouts, in PyTorch.
 
-Mirrors the prefill / decode half of the JAX package's
-``runtime/steps.py`` without meshes or shardings:
+Mirrors the JAX package's ``runtime/steps.py`` without meshes or
+shardings.  Training:
+
+  * ``init_opt_state`` — zero AdamW state for a config's params;
+  * ``train_step`` — one optimizer step on a (B, S) batch, folding
+    ``ocfg.accum_steps`` microbatches whose grads are summed in f32 (the
+    reference's scan), then ``optim.adamw.apply_updates`` in place;
+  * ``train_chunk`` — K steps on a (K, B, S) chunk with the metrics
+    stacked on the device, so the host syncs once per chunk.
+
+Serving:
 
   * ``prefill_step``  — B=1 prefill; unembeds only the last position;
   * ``slot_decode_step`` — one greedy step over all slots, each at its own
@@ -14,16 +23,23 @@ Mirrors the prefill / decode half of the JAX package's
     land on it; the decode mask turns its garbage into an exact 0.0
     contribution, which keeps paged decode bit-identical to slotted.
 
-The JAX functions return new caches (their inputs are donated); these
-write into the given cache or pool in place and return it.
+The JAX functions return new params, optimizer state and caches (their
+inputs are donated); these update the given params, moments, cache or pool
+in place and return them.  Train steps take ``device=`` (default
+``"cuda"``, which raises without a card) and move host batches there.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
+                                      ParallelConfig)
+from repro_torch.device import resolve_device
 from repro_torch.models import params as pr
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import adamw
 
 
 def prefill_step(cfg: ModelConfig, params, tokens: torch.Tensor):
@@ -164,3 +180,96 @@ def paged_decode_step(cfg: ModelConfig, params, pool, tables: torch.Tensor,
     views = paged_cache_view(pool, tables)
     next_tok, views = _greedy_decode(cfg, params, views, token, pos)
     return next_tok, paged_cache_scatter(pool, views, tables, pos)
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+def train_par(par: ParallelConfig) -> ParallelConfig:
+    """The reference's pure-FSDP switch for train steps: on when asked for
+    and the batch divides the devices, which one device always does."""
+    if par.pure_fsdp_train and not par.pure_fsdp:
+        return dataclasses.replace(par, pure_fsdp=True)
+    return par
+
+
+def init_opt_state(cfg: ModelConfig, ocfg: OptimizerConfig, device="cuda"):
+    """All-zeros AdamW state {"m", "v", "count"} for ``cfg``'s params."""
+    return _zeros(adamw.opt_state_schema(tfm.lm_schema(cfg), ocfg),
+                  "float32", resolve_device(device))
+
+
+def _value_and_grad(cfg: ModelConfig, par: ParallelConfig, params, batch):
+    """(loss, grads like params) for one (micro)batch."""
+    req = _map(lambda t: t.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = tfm.loss_fn(cfg, par, req, batch)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(req)))
+    return loss.detach(), _map(lambda _t: next(grads), req)
+
+
+def _batch_on(batch, dev: torch.device):
+    return {k: torch.as_tensor(batch[k]).to(dev)
+            for k in ("tokens", "labels")}
+
+
+def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
+               params, opt_state, batch, *, device="cuda"):
+    """One optimizer step -> (params, opt_state, metrics), params and
+    moments updated in place.
+
+    ``batch`` holds (B, S) int "tokens" and "labels" (numpy or tensors).
+    The step always consumes the whole batch: ``ocfg.accum_steps``
+    microbatches of B / accum rows each, their losses and grads summed in
+    f32 and divided by accum, so the trajectory does not depend on accum.
+    ``metrics`` holds f32 device tensors "loss", "grad_norm" and "lr".
+    """
+    dev = resolve_device(device)
+    if params["embed"].device.type != dev.type:
+        raise ValueError(f"params are on {params['embed'].device}, the step "
+                         f"on {dev}")
+    batch = _batch_on(batch, dev)
+    B = batch["tokens"].shape[0]
+    accum = max(ocfg.accum_steps, 1)
+    if B % accum:
+        raise ValueError(f"accum_steps={accum} must divide the batch {B}")
+    par = train_par(par)
+    if accum == 1:
+        loss, grads = _value_and_grad(cfg, par, params, batch)
+    else:
+        mb = B // accum
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        grads = _map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=dev), params)
+        for i in range(accum):
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            l, g = _value_and_grad(cfg, par, params, micro)
+            loss = loss + l
+            _map(lambda acc, new: acc.add_(new), grads, g)
+        loss = loss / accum
+        _map(lambda acc: acc.div_(accum), grads)
+    params, opt_state, stats = adamw.apply_updates(
+        tfm.lm_schema(cfg), params, grads, opt_state, ocfg)
+    return params, opt_state, {"loss": loss.to(torch.float32), **stats}
+
+
+def train_chunk(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
+                params, opt_state, batches, *, device="cuda"):
+    """K = ``batches["tokens"].shape[0]`` optimizer steps on a (K, B, S)
+    chunk -> (params, opt_state, metrics stacked (K,) on the device).
+
+    The chunk moves to the device in one copy per leaf, and nothing here
+    reads a device value back: the caller syncs once per chunk.  Each step
+    is ``train_step``, so the trajectory equals K per-step calls.
+    """
+    dev = resolve_device(device)
+    batches = _batch_on(batches, dev)
+    ms = []
+    for j in range(batches["tokens"].shape[0]):
+        params, opt_state, m = train_step(
+            cfg, par, ocfg, params, opt_state,
+            {k: v[j] for k, v in batches.items()}, device=dev)
+        ms.append(m)
+    return params, opt_state, {k: torch.stack([m[k] for m in ms])
+                               for k in ms[0]}

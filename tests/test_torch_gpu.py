@@ -6,15 +6,20 @@ counts none of them.  On a machine with an H100 and nvcc:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 This file imports nothing of JAX, so it runs where only PyTorch is
-installed.  Tolerances: 2e-5 for f32 (the same products summed in another
-order), 2e-2 for f16/bf16 (one rounding of the output).
+installed.  Tolerances: flash attention 2e-5 for f32 (the same products
+summed in another order), 2e-2 for f16/bf16 (one rounding of the output);
+xent 1e-4 on NLL (f32 sums over V in another order) and 1e-5 (f32) or
+2^-7 (bf16) on dlogits; AdamW 1e-6 on f32 (each step rounded as the plain
+version rounds it) and 2^-7 relative on a bf16 parameter.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import adamw_update as au               # noqa: E402
 from repro_torch.kernels import flash_attention as fa            # noqa: E402
+from repro_torch.kernels import xent                             # noqa: E402
 
 
 def _qkv(B, H, KV, Sq, Sk, dh, seed=0):
@@ -43,3 +48,71 @@ def test_cuda_kernel_matches_plain(dtype):
         tol = 2e-5 if dtype == "float32" else 2e-2
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,V,softcap,dtype", [
+    (1024, 200_064, None, "float32"),     # the train phase's loss chunk
+    (100, 777, None, "float32"),          # ragged rows and vocab
+    (32, 50, 30.0, "float32"),            # V below one block, softcap
+    (64, 1000, None, "bfloat16"),
+])
+def test_xent_kernels_match_plain(R, V, softcap, dtype):
+    _card()
+    rng = np.random.RandomState(R + V)
+    dt = getattr(torch, dtype)
+    logits = torch.as_tensor(4 * rng.standard_normal((R, V)).astype(
+        np.float32)).to("cuda", dt)
+    labels = torch.as_tensor(rng.randint(0, V, (R,)).astype(np.int32),
+                             device="cuda")
+    dy = torch.as_tensor(rng.standard_normal(R).astype(np.float32),
+                         device="cuda")
+    before = (xent.fwd_launches, xent.bwd_launches)
+    nll, lse = xent.xent_fwd(logits, labels, softcap)
+    d = xent.xent_bwd(logits, labels, lse, dy, softcap)
+    torch.cuda.synchronize()
+    assert (xent.fwd_launches, xent.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want_nll, want_lse = xent.xent_fwd_plain(logits, labels, softcap)
+    want_d = xent.xent_bwd_plain(logits, labels, lse, dy, softcap)
+    torch.testing.assert_close(nll, want_nll, rtol=1e-6, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-4)
+    assert d.dtype == dt
+    tol = 1e-5 if dtype == "float32" else 2 ** -7
+    torch.testing.assert_close(d.float(), want_d.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,pdtype,gdtype,wd", [
+    (1_000_003, "float32", "float32", 0.1),
+    (1_000_003, "bfloat16", "bfloat16", 0.0),
+    (4096, "bfloat16", "float32", 0.1),
+    (5, "float32", "bfloat16", 0.1),
+])
+def test_adamw_kernel_matches_plain(n, pdtype, gdtype, wd):
+    _card()
+    rng = np.random.RandomState(n % 1000)
+    p = torch.as_tensor(rng.standard_normal(n).astype(np.float32)).to(
+        "cuda", getattr(torch, pdtype))
+    g = torch.as_tensor(rng.standard_normal(n).astype(np.float32)).to(
+        "cuda", getattr(torch, gdtype))
+    m = torch.as_tensor(0.1 * rng.standard_normal(n).astype(np.float32),
+                        device="cuda")
+    v = torch.as_tensor(np.abs(rng.standard_normal(n)).astype(np.float32),
+                        device="cuda")
+    scalars = torch.tensor([3e-4, 0.271, 0.0297], device="cuda")
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=wd)
+    want = au.adamw_update_plain(p, g, m, v, scalars, **hyper)
+    before = au.launches
+    got = au.adamw_update(p, g, m, v, scalars, **hyper)
+    torch.cuda.synchronize()
+    assert au.launches == before + 1 and got[0] is p
+    torch.testing.assert_close(m, want[1], rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(v, want[2], rtol=1e-6, atol=1e-7)
+    tol = 1e-6 if pdtype == "float32" else 2 ** -7
+    torch.testing.assert_close(p.float(), want[0].float(), rtol=tol, atol=tol)

@@ -43,7 +43,8 @@ def test_import_leaves_no_jax_and_no_repro_in_sys_modules():
 def test_sources_never_import_jax_or_repro():
     pat = re.compile(r"^\s*(import\s+(jax|jaxlib|repro)\b|"
                      r"from\s+(jax|jaxlib|repro)(\.|\s))", re.M)
-    for path in PKG.rglob("*.py"):
+    smoke = PKG.parents[1] / "chip_smoke.py"
+    for path in [*PKG.rglob("*.py"), smoke]:
         assert not pat.search(path.read_text()), path
 
 
@@ -80,3 +81,33 @@ def test_cli_raises_without_a_card_unless_cpu_is_asked_for(monkeypatch,
     out = capsys.readouterr().out
     assert "[serve:continuous] completed 3 requests" in out
     assert "| requests | 3 |" in out
+
+
+def test_training_raises_without_a_card_unless_cpu_is_asked_for(
+        monkeypatch, capsys):
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import params as pr
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import steps
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = registry.get_smoke("phi4-mini-3.8b")
+    par, ocfg = registry.get_parallel("phi4-mini-3.8b"), OptimizerConfig()
+    params = pr.init_params(tfm.lm_schema(cfg), torch.Generator(),
+                            cfg.param_dtype, "cpu")
+    opt = steps.init_opt_state(cfg, ocfg, device="cpu")
+    batch = TokenPipeline(cfg.vocab_size, 8, 2).batch(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        steps.train_step(cfg, par, ocfg, params, opt, batch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        steps.init_opt_state(cfg, ocfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--smoke", "--steps", "1"])
+    _, _, m = steps.train_step(cfg, par, ocfg, params, opt, batch,
+                               device="cpu")
+    assert m["loss"].device.type == "cpu"
+    train.main(["--smoke", "--device", "cpu", "--steps", "2", "--seq", "8",
+                "--batch", "2"])
+    assert "[train] loss " in capsys.readouterr().out
