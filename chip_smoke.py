@@ -5,16 +5,22 @@
 Phases (any failure raises and the script exits non-zero):
   1. device  — a CUDA card is required; prints its name and power limit;
   2. build   — compiles every kernel of the port from ``src/repro_torch/csrc``
-               with nvcc, all sources at once, and prints the build time;
+               (five sources) with nvcc, all at once, and prints the build
+               time;
   3. kernels — each kernel against its plain PyTorch version on the card, at
                the main path's shape and at edge shapes, with stated
                tolerances; times the kernel, the plain version and the one
-               PyTorch call that computes the same function (a yardstick
-               only: the port never calls it); computes the card's bound.
-               Flash attention at phi4's prefill; xent forward and backward
-               at the train phase's loss chunk; AdamW at phi4's embedding;
+               PyTorch call that computes the same function where there is
+               one (a yardstick only: the port never calls it); computes the
+               card's bound.  Flash attention at phi4's prefill and at
+               zamba2's (dh 80); xent forward and backward at the train
+               phase's loss chunk; AdamW at phi4's embedding; the SSD scan at
+               zamba2's prefill and WKV6 at rwkv6's;
   4. small   — phi4 smoke config in f32: the card's prefill logits (through
                the kernel) against the CPU's (through the plain version);
+               then zamba2 smoke with two groups (12 layers) and rwkv6 smoke
+               in f32: prefill logits and every cache leaf, last states
+               included, card (kernels) against CPU (plain versions);
   5. small-train — phi4 smoke in f32 with two layers: two train steps on the
                card (through the kernels) against the CPU (through the plain
                versions) on the same params and batches;
@@ -23,7 +29,14 @@ Phases (any failure raises and the script exits non-zero):
                cache: every request completes, the prefix cache hits, and the
                flash kernel ran on every layer of every full prefill; then a
                short run shows paged tokens equal slotted tokens;
-  7. train   — full-width phi4-mini-3.8b, random weights from seed 0 with
+  7. serve-ssm — full-width zamba2-2.7b and rwkv6-1.6b in bf16 (random
+               weights from a seed) each serve the same 8 requests through
+               the slotted cache (their state caches do not page): a
+               full-width prefill gives finite logits and states, every
+               request completes with its stop length, and the SSD kernel
+               ran on all 54 zamba2 layers (flash on its 9 shared-attention
+               layers) and WKV6 on all 24 rwkv6 layers of every full prefill;
+  8. train   — full-width phi4-mini-3.8b, random weights from seed 0 with
                the attention projections at their contracted fan-in: first
                the grads of the first batch in bf16 against f32 on the same
                weights, each leaf's norm within GRAD_RTOL; then in bf16 it
@@ -31,9 +44,9 @@ Phases (any failure raises and the script exits non-zero):
                ``train_chunk`` calls of 3: every loss and grad norm finite,
                the last loss below the first, and exactly 2 xent forward,
                2 xent backward and 11 AdamW launches a step.
-Then it prints a ``{"kernels": [...]}`` line, ``{"serve": {...}}`` and
-``{"train": {...}}`` lines, the card's name and power limit, and as its last
-line ``{"ok": true, "device": {...}}``.
+Then it prints a ``{"kernels": [...]}`` line, a ``{"serve": {...}}`` line
+with one entry per arch, a ``{"train": {...}}`` line, the card's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -51,9 +64,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}           # H100 SXM dense, per second
 PEAK_BYTES = 3.35e12                           # H100 SXM HBM3, per second
 ARCH = "phi4-mini-3.8b"
+ZAMBA, RWKV = "zamba2-2.7b", "rwkv6-1.6b"
+SCAN_RTOL = 1e-4          # SSD/WKV6 kernel vs plain, of the output's scale
 PROMPT, GEN, SLOTS, BLOCK = 512, 64, 4, 16
 SYSTEM_PREFIX = 448                            # shared by half the requests
 GEN_LENS = (16, 64, 8, 32)                     # cycled stop lengths
+ZAMBA_ATTN = (1, 32, 32, PROMPT, PROMPT, 80)   # zamba2's shared attention
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_K = 2, 1024, 6, 3
 GRAD_RTOL = 0.05          # bf16 vs f32 first-batch grad norm, per leaf
 
@@ -120,6 +136,8 @@ def phase_kernels(main_shape):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [  # (B, H, KV, Sq, Sk, dh, causal, dtype, tolerance)
         main_shape + (True, torch.bfloat16, 2e-2),
+        ZAMBA_ATTN + (True, torch.bfloat16, 2e-2),               # dh 80
+        (2, 4, 2, 130, 130, 80, True, torch.float32, 2e-5),
         (1, 24, 8, 300, 300, 128, True, torch.bfloat16, 2e-2),   # ragged
         (2, 24, 8, 300, 300, 128, False, torch.bfloat16, 2e-2),
         (1, 8, 2, 200, 200, 64, True, torch.float32, 2e-5),
@@ -143,23 +161,29 @@ def phase_kernels(main_shape):
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version at {shape}: {err} > {tol}")
         rows.append((shape, err, q, k, v, causal))
-    shape, err, q, k, v, causal = rows[0]
-    ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
-    plain_ms = _time_ms(lambda: fa.attention_plain(q, k, v, causal=causal))
-    g = q.shape[1] // k.shape[1]
-    library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=g > 1))
-    bound_ms, bound_by = _attention_bound(*main_shape, causal, q.dtype)
-    log(f"[kernels] main shape {shape}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-        f"({bound_by})")
+    timed = {}
+    for i, shape_args in ((0, main_shape), (1, ZAMBA_ATTN)):
+        shape, err, q, k, v, causal = rows[i]
+        ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+        plain_ms = _time_ms(lambda: fa.attention_plain(q, k, v,
+                                                       causal=causal))
+        g = q.shape[1] // k.shape[1]
+        library_ms = _time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=g > 1))
+        bound_ms, bound_by = _attention_bound(*shape_args, causal, q.dtype)
+        log(f"[kernels] flash timed at {shape}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by})")
+        timed[i] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms, "shape": shape}
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:25",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "shape": shape,
-            "edge_shapes_max_abs_err": max(r[1] for r in rows[1:])}
+            "launches": None, **timed[0],
+            "edge_shapes_max_abs_err": max(r[1] for r in rows[2:]),
+            "zamba2_dh80": timed[1]}
 
 
 def _bound(nbytes: float, flops: float, dtype=torch.float32):
@@ -364,6 +388,148 @@ def phase_adamw(embed_shape):
             "library": "torch._fused_adamw_ on f32 p and g", "shape": name}
 
 
+def _scan_err(got, want):
+    """(max abs error, tolerance): SCAN_RTOL of the plain output's scale.
+    Kernel and plain version compute in f32 from the same inputs, chunked
+    differently, so their sums run in another order."""
+    err = (got - want).abs().max().item()
+    return err, SCAN_RTOL * max(1.0, want.abs().max().item())
+
+
+def _scan_check(name, case, pairs):
+    """Hold each (kernel, plain) output pair within its tolerance."""
+    errs = [_scan_err(g, w) for g, w in pairs]
+    log(f"[kernels] {name} {case}: max_abs_err "
+        f"{', '.join(f'{e:.3g} (tolerance {t:.3g})' for e, t in errs)}")
+    if not all(e <= t for e, t in errs):
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{case}")
+    return max(e for e, _ in errs)
+
+
+def _scan_phase(name, kernel, plain, cases, make, work, seed):
+    """Hold a scan kernel against its plain version on the card at each case
+    (y and the last state), then time both at the first case, the main
+    path's shape.  make(case, gen) -> (args, state, plain chunk, label);
+    work(*args) -> (bytes moved, f32 flops) of one call at that shape."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    errs = []
+    for case in cases:
+        args, state, chunk, label = make(case, gen)
+        got = kernel(*args, state, chunk=chunk)
+        torch.cuda.synchronize()
+        want = plain(*args, state, chunk=chunk)
+        errs.append(_scan_check(name, label, zip(got, want)))
+        if len(errs) == 1:
+            main_args, main_label = args, label
+    ms = _time_ms(lambda: kernel(*main_args))
+    plain_ms = _time_ms(lambda: plain(*main_args))
+    nbytes, flops = work(*main_args)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    log(f"[kernels] {name} main {main_label}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); no PyTorch call "
+        f"computes the scan")
+    return {"name": name, "route": "cuda", "launches": None,
+            "max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": main_label, "edge_shapes_max_abs_err": max(errs[1:])}
+
+
+def phase_ssd():
+    """The SSD scan against its plain version at zamba2's prefill (bf16 x,
+    B and C) and at edge shapes: y and the last state; timed at zamba2's."""
+    from repro_torch.kernels import ssm_scan
+    bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    main = (1, PROMPT, 80, 64, 64)      # zamba2: 2 * 2560 / 64 heads, N 64
+    cases = [  # (B, S, H, hd, N, dtype, h0, plain chunk, label)
+        main + (bf, False, 256, "zamba2 prefill bf16"),
+        main + (f32, True, 256, "zamba2 prefill f32, h0"),
+        (2, 100, 3, 32, 16, f32, True, 8, "ragged S=100 chunk 8, h0, N!=hd"),
+        (2, 100, 3, 32, 16, bf, True, 8, "ragged S=100 chunk 8 bf16, h0"),
+        (1, 40, 2, 24, 48, f32, True, 256, "S=40 below one chunk, hd 24"),
+        (1, 130, 4, 64, 64, f16, True, 256, "f16 S=130, h0"),
+    ]
+
+    def make(case, gen):
+        B, S, H, hd, N, dtype, h0, chunk, label = case
+        x = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
+        Bm = torch.randn(B, S, N, generator=gen, device="cuda").to(dtype)
+        Cm = torch.randn(B, S, N, generator=gen, device="cuda").to(dtype)
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, S, H, generator=gen, device="cuda"))
+        a = -torch.exp(torch.randn(H, generator=gen, device="cuda"))
+        state = (torch.randn(B, H, hd, N, generator=gen, device="cuda")
+                 if h0 else None)
+        return (x, dt, a, Bm, Cm), state, chunk, label
+
+    def work(x, dt, a, Bm, Cm):
+        # Bytes: x, B, C read in their dtype; dt, a read and y, h_last
+        # written in f32.  Flops per token, head and (d, n): the state
+        # update h = exp(dt a) h + (dt x) B is 3, the read-out y = C . h is 2.
+        B, S, H, hd = x.shape
+        N = Bm.shape[-1]
+        item = x.element_size()
+        nbytes = (B * S * H * hd * (item + 4) + B * S * H * 4 + H * 4
+                  + 2 * B * S * N * item + B * H * hd * N * 4)
+        return nbytes, 5.0 * hd * N * B * S * H
+
+    row = _scan_phase("ssd_scan", ssm_scan.ssd_scan, ssm_scan.ssd_scan_plain,
+                      cases, make, work, seed=8)
+    return {**row, "shape": f"B=1 S={PROMPT} H=80 hd=64 N=64 bf16",
+            "source": "src/repro_torch/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:21",
+            "library": "none: no single PyTorch call computes the SSD scan"}
+
+
+def phase_wkv():
+    """WKV6 against its plain version at rwkv6's prefill (bf16 r, k, v) and
+    at edge shapes: y and the last state; timed at rwkv6's."""
+    from repro_torch.kernels import wkv6
+    bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    main = (1, PROMPT, 32, 64)          # rwkv6: 2048 / 64 heads
+    cases = [  # (B, S, H, hd, dtype, s0, logw at the -8 floor, chunk, label)
+        main + (bf, False, False, 64, "rwkv6 prefill bf16"),
+        main + (f32, True, False, 64, "rwkv6 prefill f32, s0"),
+        (2, 100, 3, 16, f32, True, False, 8, "ragged S=100 chunk 8, s0"),
+        (2, 100, 3, 16, bf, True, False, 8, "ragged S=100 chunk 8 bf16, s0"),
+        (1, 20, 2, 40, f32, True, True, 64, "S=20 below one chunk, logw -8"),
+        (1, 77, 2, 128, f16, True, False, 64, "f16 hd 128, s0"),
+        (1, PROMPT, 32, 64, bf, True, True, 64, "rwkv6 shape, logw -8, s0"),
+    ]
+
+    def make(case, gen):
+        B, S, H, hd, dtype, s0, floor, chunk, label = case
+        r, k, v = (torch.randn(B, S, H, hd, generator=gen,
+                               device="cuda").to(dtype) for _ in range(3))
+        logw = torch.clamp(-torch.exp(torch.randn(B, S, H, hd, generator=gen,
+                                                  device="cuda")), min=-8.0)
+        if floor:
+            logw = torch.full_like(logw, -8.0)
+        u = torch.randn(H, hd, generator=gen, device="cuda")
+        state = (torch.randn(B, H, hd, hd, generator=gen, device="cuda")
+                 if s0 else None)
+        return (r, k, v, logw, u), state, chunk, label
+
+    def work(r, k, v, logw, u):
+        # Bytes: r, k, v read in their dtype; logw, u read and y, s_last
+        # written in f32.  Flops per token and head: the state update
+        # diag(w) S + k^T v is 3 hd^2, the read-out r S is 2 hd^2; the bonus
+        # (r . (u * k)) v is O(hd) and left out, so the bound stays a floor.
+        B, S, H, hd = r.shape
+        item = r.element_size()
+        nbytes = (B * S * H * hd * (3 * item + 4 + 4) + H * hd * 4
+                  + B * H * hd * hd * 4)
+        return nbytes, 5.0 * hd * hd * B * S * H
+
+    row = _scan_phase("wkv6", wkv6.wkv6, wkv6.wkv6_plain, cases, make, work,
+                      seed=9)
+    return {**row, "shape": f"B=1 S={PROMPT} H=32 hd=64 bf16",
+            "source": "src/repro_torch/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6.py:21",
+            "library": "none: no single PyTorch call computes the WKV6 scan"}
+
+
 def phase_small() -> None:
     """phi4 smoke in f32: prefill through the kernel on the card against the
     plain version on the CPU, on the same params."""
@@ -385,6 +551,74 @@ def phase_small() -> None:
         f"(tolerance 1e-4)")
     if not (err <= 1e-4 and torch.isfinite(caches["0_attn"]["k"]).all()):
         raise AssertionError(f"smoke prefill on the card disagrees: {err}")
+
+
+def _prefill_errs(got, got_c, want, want_c):
+    """(logits max abs error, cache leaves' max error relative to each
+    leaf's scale) of one prefill against another."""
+    from repro_torch.runtime import steps
+    err = (got.cpu() - want).abs().max().item()
+    leaf_err = max((g.cpu() - w).abs().max().item()
+                   / max(1.0, w.abs().max().item()) for g, w in
+                   zip(steps.tree_leaves(got_c), steps.tree_leaves(want_c)))
+    return err, leaf_err
+
+
+def phase_small_ssm() -> None:
+    """zamba2 smoke with two groups and rwkv6 smoke in f32: prefill through
+    the kernels on the card against the plain versions on the CPU, on the
+    same params: last logits and every cache leaf (conv, last states,
+    shared-attention k/v, token shifts).
+
+    The tolerance is the model's own conditioning: under the reference's
+    init the 12-layer zamba2 smoke model moves its logits by about 3e-4
+    when its weights move by one f32 rounding (1e-7 relative), more than
+    two correct f32 implementations differ by.  So each side must agree
+    within 4x what the CPU path moves under such a perturbation (and
+    within 1e-4 at least); a wrong kernel moves them by the logits'
+    whole scale."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan, wkv6
+    from repro_torch.models import params as pr
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import steps
+    for arch, layers, want_runs in ((ZAMBA, 12, (12, 0, 2)),
+                                    (RWKV, 1, (0, 1, 0))):
+        cfg = registry.get_smoke(arch).replace(
+            num_layers=layers, param_dtype="float32", compute_dtype="float32")
+        params = pr.init_params(tfm.lm_schema(cfg),
+                                torch.Generator().manual_seed(1), "float32",
+                                "cpu")
+        noise = torch.Generator().manual_seed(3)
+        nudged = steps._map(lambda t: t * (1 + 1e-7 * torch.randn(
+            t.shape, generator=noise)), params)
+        toks = torch.randint(1, cfg.vocab_size, (1, 100),
+                             generator=torch.Generator().manual_seed(2))
+        with torch.inference_mode():
+            want, want_c = steps.prefill_step(cfg, params, toks)
+            moved = _prefill_errs(*steps.prefill_step(cfg, nudged, toks),
+                                  want, want_c)
+            before = (ssm_scan.launches, wkv6.launches, fa.launches)
+            got, got_c = steps.prefill_step(cfg, _to(params, "cuda"),
+                                            toks.cuda())
+            torch.cuda.synchronize()
+        ran = (ssm_scan.launches - before[0], wkv6.launches - before[1],
+               fa.launches - before[2])
+        err, leaf_err = _prefill_errs(got, got_c, want, want_c)
+        tol, leaf_tol = (max(1e-4, 4 * m) for m in moved)
+        log(f"[small] {arch} smoke f32 ({layers} layers) prefill, card vs "
+            f"cpu: logits max_abs_err={err:.3g} (tolerance {tol:.3g}); cache "
+            f"leaves max error {leaf_err:.3g} of their scale (tolerance "
+            f"{leaf_tol:.3g}); the cpu path under a 1e-7 weight nudge moves "
+            f"{moved[0]:.3g} and {moved[1]:.3g}; launches ssd/wkv6/flash "
+            f"{ran}")
+        if not (err <= tol and leaf_err <= leaf_tol):
+            raise AssertionError(f"{arch} smoke prefill on the card "
+                                 f"disagrees with the CPU")
+        if ran != want_runs:
+            raise AssertionError(f"{arch} smoke launches {ran} != "
+                                 f"{want_runs}")
 
 
 def phase_small_train() -> None:
@@ -541,6 +775,92 @@ def phase_serve(smi: str):
     return serve, launches
 
 
+def phase_serve_ssm(smi: str, arch: str):
+    """Full-width zamba2 or rwkv6 in bf16 serves the phi4 phase's 8
+    requests through the slotted cache; the scan kernels (and zamba2's
+    flash) run on every layer of every full prefill."""
+    from repro_torch.configs import registry
+    from repro_torch.core.queue import WorkQueue
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan, wkv6
+    from repro_torch.models import params as pr
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import steps
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.report import GAUGES
+
+    torch.cuda.empty_cache()
+    cfg = registry.get_config(arch)
+    t0 = time.perf_counter()
+    params = pr.init_params(tfm.lm_schema(cfg),
+                            torch.Generator(device="cuda").manual_seed(0),
+                            cfg.param_dtype, "cuda")
+    torch.cuda.synchronize()
+    n_params = pr.param_count(tfm.lm_schema(cfg))
+    log(f"[serve:{arch}] {n_params / 1e9:.3f} B params in bf16 on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    reqs = _requests(cfg.vocab_size)
+    with torch.inference_mode():       # one full-width prefill: all finite
+        last, small = steps.prefill_step(
+            cfg, params, torch.tensor([reqs[0]["prompt"]], device="cuda"))
+        finite = bool(torch.isfinite(last).all()) and all(
+            bool(torch.isfinite(leaf).all())
+            for leaf in steps.tree_leaves(small))
+    del small
+    if not finite:
+        raise AssertionError(f"{arch} prefill logits or states not finite")
+    engine = ServingEngine(cfg, device="cuda", num_slots=SLOTS,
+                           prompt_len=PROMPT, max_new_tokens=GEN,
+                           params=params)
+    if engine.paged:
+        raise AssertionError(f"{arch}'s state cache was paged")
+    engine.warmup()
+    torch.cuda.synchronize()
+    queue = WorkQueue(reqs)
+    torch.cuda.reset_peak_memory_stats()
+    prefills_before = engine.metrics.series(GAUGES.PREFILL_S).stats()["count"]
+    counters = {"ssd_scan": ssm_scan, "wkv6": wkv6, "flash_attention": fa}
+    for mod in counters.values():
+        mod.launches = 0
+    results, metrics = engine.run(queue)
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sm = metrics.summary()
+    full_prefills = sm[GAUGES.PREFILL_S]["count"] - prefills_before
+    want_tokens = sum(r["max_new_tokens"] for r in reqs)
+    G = cfg.num_groups
+    layers = {k: G * sum(kind in kinds for kind in cfg.block_pattern)
+              for k, kinds in (("ssd_scan", ("mamba", "mamba_attn")),
+                               ("wkv6", ("rwkv",)),
+                               ("flash_attention", ("mamba_attn",)))}
+    want_launches = {k: n * full_prefills for k, n in layers.items()}
+    log(f"[serve:{arch}] completed {len(results)}/{len(reqs)}, tokens "
+        f"{sm[GAUGES.TOKENS]['total']:.0f}/{want_tokens}, full prefills "
+        f"{full_prefills}, launches {launches} (want {want_launches})")
+    if sorted(results) != list(range(len(reqs))):
+        raise AssertionError(f"requests not all completed: {sorted(results)}")
+    if any(len(results[r["id"]]) != r["max_new_tokens"] for r in reqs):
+        raise AssertionError("a request's token count is not its stop length")
+    if sm[GAUGES.TOKENS]["total"] != want_tokens:
+        raise AssertionError("token count is not the sum of stop lengths")
+    if launches != want_launches or full_prefills < 1:
+        raise AssertionError(f"{arch} kernel launches {launches} != "
+                             f"{want_launches}")
+    serve = {"arch": arch, "cache": "slotted", "requests": len(results),
+             "tokens": int(sm[GAUGES.TOKENS]["total"]),
+             "tok_s": sm[GAUGES.TOK_S]["last"],
+             "decode_tok_s": sm[GAUGES.DECODE_TOK_S]["last"],
+             "p50_ttft_s": sm[GAUGES.TTFT_S]["p50"],
+             "prefill_s_p50": sm[GAUGES.PREFILL_S]["p50"],
+             "wall_s": sm[GAUGES.WALL_S]["last"],
+             "decode_steps": int(sm[GAUGES.DECODE_STEPS]["total"]),
+             "full_prefills": full_prefills, "launches": launches,
+             "peak_mem_gb": peak_gb, "card": smi}
+    del engine, params
+    return serve, launches
+
+
 def phase_train(smi: str):
     """Full-width phi4 in bf16 trains 6 steps as two train_chunk calls of 3
     on TokenPipeline batches, through the xent and AdamW kernels."""
@@ -648,18 +968,28 @@ def main() -> int:
     flash = phase_kernels(main_shape)
     xent_fwd, xent_bwd = phase_xent(TRAIN_BATCH * 512, 200_064)
     adamw = phase_adamw((200_064, 3072))
+    ssd = phase_ssd()
+    wkv = phase_wkv()
     torch.cuda.empty_cache()
     phase_small()
+    phase_small_ssm()
     phase_small_train()
     serve, flash["launches"] = phase_serve(smi)
+    serve_zamba, ran_zamba = phase_serve_ssm(smi, ZAMBA)
+    serve_rwkv, ran_rwkv = phase_serve_ssm(smi, RWKV)
+    ssd["launches"] = ran_zamba["ssd_scan"]
+    wkv["launches"] = ran_rwkv["wkv6"]
+    flash["launches_by_path"] = {f"{ARCH} serve": flash["launches"],
+                                 f"{ZAMBA} serve": ran_zamba["flash_attention"]}
     train, launches = phase_train(smi)
     for row in (xent_fwd, xent_bwd, adamw):
         row["launches"] = launches[row["name"]]
-    kernels = [flash, xent_fwd, xent_bwd, adamw]
+    kernels = [flash, xent_fwd, xent_bwd, adamw, ssd, wkv]
     for row in kernels:
         row["card"] = smi
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"serve": serve}))
+    print(json.dumps({"serve": {ARCH: serve, ZAMBA: serve_zamba,
+                                RWKV: serve_rwkv}}))
     print(json.dumps({"train": train}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

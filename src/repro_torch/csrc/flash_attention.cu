@@ -17,6 +17,10 @@
 // the oracle, so a fully masked row averages v uniformly there too; keys
 // past Sk (the ragged tail of the last tile) are -inf and add nothing.
 //
+// Head dims 16, 32, 64, 80 and 128 are instantiated; each lane owns the
+// output columns lane + 32 c, so dh 80 leaves the third column's upper
+// lanes idle and needs no padding.
+//
 // Design.  One block owns one (batch, head, 64-row q tile); a loop inside
 // the block walks the 64-row k tiles (the Pallas grid's sequential k axis).
 // Q, K and V tiles are staged in shared memory as f32, so one code path
@@ -253,6 +257,7 @@ cudaError_t launch_dh(const Args& a, int B, int dh, cudaStream_t stream) {
     case 16: return launch<T, 16>(a, B, stream);
     case 32: return launch<T, 32>(a, B, stream);
     case 64: return launch<T, 64>(a, B, stream);
+    case 80: return launch<T, 80>(a, B, stream);    // zamba2's shared attention
     case 128: return launch<T, 128>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)   # 80: zamba2's shared attention
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 launches = 0          # kernel launches in this process (chip_smoke reads it)

@@ -3,8 +3,7 @@
 Each is a line-for-line port of the JAX package's ``kernels/ref.py``
 function of the same name: the naive, obviously-correct formulation that a
 kernel is held against, on the CPU in the tests and on the card in
-``chip_smoke.py``.  The grouped-matmul, SSD and WKV6 oracles arrive with
-their kernels.
+``chip_smoke.py``.  The grouped-matmul oracle arrives with its kernel.
 """
 from __future__ import annotations
 
@@ -24,6 +23,41 @@ def attention_ref(q, k, v, *, causal: bool = True, scale=None):
         s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def ssd_ref(x, dt, a, B_, C, h0):
+    """Naive Mamba2/SSD recurrence, step by step.
+
+    x (B,S,H,hd); dt (B,S,H) > 0; a (H,) < 0; B_/C (B,S,N); h0 (B,H,hd,N).
+    Returns (y (B,S,H,hd) f32, h_last (B,H,hd,N) f32).
+    """
+    h = h0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        da = torch.exp(dt[:, t] * a)                           # (B,H)
+        upd = torch.einsum("bh,bn,bhd->bhdn", dt[:, t].float(),
+                           B_[:, t].float(), x[:, t].float())
+        h = da[..., None, None] * h + upd
+        ys.append(torch.einsum("bn,bhdn->bhd", C[:, t].float(), h))
+    return torch.stack(ys, dim=1), h
+
+
+def wkv6_ref(r, k, v, logw, u, s0):
+    """Naive RWKV6 recurrence: S_t = diag(w_t) S_{t-1} + k_t^T v_t,
+    y_t = r_t (S_{t-1} + diag(u) k_t^T v_t).
+
+    r/k/v/logw (B,S,H,hd); u (H,hd); s0 (B,H,hd,hd).  Returns
+    (y (B,S,H,hd) f32, s_last (B,H,hd,hd) f32).
+    """
+    s = s0.float()
+    ys = []
+    for t in range(r.shape[1]):
+        rf, kf, vf = r[:, t].float(), k[:, t].float(), v[:, t].float()
+        kv = torch.einsum("bhi,bhj->bhij", kf, vf)
+        ys.append(torch.einsum("bhi,bhij->bhj", rf,
+                               s + u[None, :, :, None] * kv))
+        s = torch.exp(logw[:, t].float())[..., None] * s + kv
+    return torch.stack(ys, dim=1), s
 
 
 def softmax_xent_ref(logits, labels, *, softcap=None):

@@ -1,0 +1,154 @@
+"""Chunked Mamba2 SSD scan for the port's prefill: a hand-written Hopper kernel.
+
+Replaces the JAX package's Pallas TPU kernel
+``kernels/ssm_scan.py:_ssd_kernel`` (its ``pl.pallas_call`` in
+``ssd_scan``).  Per (batch, head) it computes the Mamba2 recurrence
+``h_t = exp(dt_t a) h_{t-1} + dt_t x_t B_t^T``, ``y_t = h_t C_t`` in chunked
+form: within a chunk the pairwise term ``sum_{s<=t} (C_t.B_s)
+exp(cum_t - cum_s) dt_s x_s``, plus the carried state ``exp(cum_t) C_t h``,
+then the chunk's state update.  The CUDA source is
+``repro_torch/csrc/ssm_scan.cu``; its header says how the Pallas grid maps
+onto CUDA blocks and what bounds the kernel on an H100.
+
+Beyond the Pallas kernel, which starts from a zero state and returns y
+only, this one takes an initial state ``h0`` and returns the last state
+``h_last`` in the decode cache's (B, H, hd, N) layout: the model's prefill
+caches it.  B and C are shared by all heads and read in place (the Pallas
+wrapper copies them to every head), as are x and dt, through their strides.
+The kernel walks its own 64-row chunks and handles a ragged last one; the
+chunked form is exact for any chunk, up to rounding.
+
+On a CPU tensor the wrapper runs the plain version (``ssd_scan_plain``, a
+transcription of the JAX model's ``models/ssm.py:_ssd_chunked`` with its
+chunk rule); on a CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+MAX_STATE = 256       # N: the kernel keeps a chunk of B and C in shared memory
+
+launches = 0          # kernel launches in this process (chip_smoke reads it)
+
+
+def _check(x, dt, a, B_, C, h0) -> None:
+    if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or B_.dim() != 3:
+        raise ValueError("x (B,S,H,hd), dt (B,S,H), a (H,), B/C (B,S,N)")
+    Bsz, S, H, hd = x.shape
+    N = B_.shape[-1]
+    if dt.shape != (Bsz, S, H) or a.shape != (H,):
+        raise ValueError(f"dt {tuple(dt.shape)} / a {tuple(a.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    if B_.shape != (Bsz, S, N) or C.shape != (Bsz, S, N):
+        raise ValueError(f"B {tuple(B_.shape)} / C {tuple(C.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    if h0 is not None and h0.shape != (Bsz, H, hd, N):
+        raise ValueError(f"h0 {tuple(h0.shape)} is not {(Bsz, H, hd, N)}")
+    if S < 1:
+        raise ValueError("empty sequence")
+
+
+def ssd_scan_plain(x, dt, a, B_, C, h0=None, *, chunk: int = 256):
+    """The kernel's plain version: the JAX model's ``_ssd_chunked``, with
+    C.B formed in f32 as the Pallas kernel forms it.
+
+    The chunk rule is the reference's: ``min(chunk, S)``, and the whole
+    sequence when that does not divide S.  Returns (y (B,S,H,hd) f32,
+    h_last (B,H,hd,N) f32).
+    """
+    _check(x, dt, a, B_, C, h0)
+    Bsz, S, H, hd = x.shape
+    N = B_.shape[-1]
+    h = (torch.zeros((Bsz, H, hd, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = S
+    nc = S // chunk
+
+    def r(t):  # (B,S,...) -> (nc,B,c,...)
+        return t.reshape(Bsz, nc, chunk, *t.shape[2:]).movedim(1, 0)
+
+    xh_c, dt_c, B_c, C_c = r(x), r(dt), r(B_), r(C)
+    cum = torch.cumsum(dt_c * a, dim=2)      # within-chunk cumulative log-decay
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for c in range(nc):
+        xc, dtc, bc, cc, cumc = xh_c[c], dt_c[c], B_c[c], C_c[c], cum[c]
+        # C.B in f32, as the Pallas kernel and the CUDA kernel form it; the
+        # JAX model's einsum rounds it to the compute dtype first (ROADMAP
+        # queue C), which in bf16 moves y by more than the kernels' tolerance
+        cb = torch.einsum("btn,bsn->bts", cc.float(), bc.float())
+        delta = cumc[:, :, None, :] - cumc[:, None, :, :]         # (B,t,s,H)
+        L = torch.where(tri[None, :, :, None], torch.exp(delta),
+                        torch.zeros((), device=x.device))
+        w = cb[..., None] * L
+        dx = dtc[..., None] * xc.float()                          # (B,s,H,hd)
+        y = torch.einsum("btsh,bshd->bthd", w, dx)
+        y = y + torch.einsum("btn,bth,bhdn->bthd", cc.float(),
+                             torch.exp(cumc), h)
+        decay_to_end = torch.exp(cumc[:, -1:, :] - cumc)          # (B,s,H)
+        s_chunk = torch.einsum("bsh,bsn,bshd->bhdn",
+                               (dtc * decay_to_end).float(), bc.float(),
+                               xc.float())
+        h = torch.exp(cumc[:, -1, :])[..., None, None] * h + s_chunk
+        ys.append(y)
+    return torch.stack(ys, dim=1).reshape(Bsz, S, H, hd), h
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             B_: torch.Tensor, C: torch.Tensor, h0=None, *,
+             chunk: int = 256):
+    """x (B,S,H,hd); dt (B,S,H) f32 > 0; a (H,) f32 < 0; B/C (B,S,N);
+    h0 (B,H,hd,N) f32 or None (zeros).  -> (y (B,S,H,hd) f32, h_last
+    (B,H,hd,N) f32).
+
+    x, B and C share one dtype (f32, f16 or bf16); each may be a strided
+    view whose last axis is contiguous.  ``chunk`` is the plain version's
+    (the CPU path); the kernel walks its own 64-row chunks.
+    """
+    global launches
+    _check(x, dt, a, B_, C, h0)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, a, B_, C, h0, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+    Bsz, S, H, hd = x.shape
+    N = B_.shape[-1]
+    if not (x.dtype == B_.dtype == C.dtype) or x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x/B/C dtypes {x.dtype}/{B_.dtype}/{C.dtype}: the "
+                        f"kernel takes one of {list(_DTYPE_CODE)}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32 or (
+            h0 is not None and h0.dtype != torch.float32):
+        raise TypeError("dt, a and h0 must be f32")
+    if N > MAX_STATE:
+        raise ValueError(f"state dim {N} > {MAX_STATE}")
+    tensors = (x, dt, a, B_, C) + (() if h0 is None else (h0,))
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("x, dt, a, B, C and h0 must be on one device")
+    if x.stride(3) != 1 or B_.stride(2) != 1 or C.stride(2) != 1:
+        raise ValueError("the last axis of x, B and C must be contiguous")
+    if not a.is_contiguous() or (h0 is not None and not h0.is_contiguous()):
+        raise ValueError("a and h0 must be contiguous")
+    y = torch.empty((Bsz, S, H, hd), dtype=torch.float32, device=x.device)
+    h_last = torch.empty((Bsz, H, hd, N), dtype=torch.float32,
+                         device=x.device)
+    strides = (ctypes.c_longlong * 10)(
+        *x.stride()[:3], *dt.stride(), *B_.stride()[:2], *C.stride()[:2])
+    lib = build.load("ssm_scan")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.repro_torch_ssd_scan(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), B_.data_ptr(),
+            C.data_ptr(), None if h0 is None else h0.data_ptr(),
+            y.data_ptr(), h_last.data_ptr(), _DTYPE_CODE[x.dtype],
+            Bsz, S, H, hd, N, strides, stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
+    launches += 1
+    return y, h_last

@@ -1,0 +1,151 @@
+"""Chunked RWKV6 WKV scan for the port's prefill: a hand-written Hopper kernel.
+
+Replaces the JAX package's Pallas TPU kernel ``kernels/wkv6.py:_wkv_kernel``
+(its ``pl.pallas_call`` in ``wkv6``).  Per (batch, head) it computes
+``S_t = diag(w_t) S_{t-1} + k_t^T v_t`` and ``y_t = r_t (S_{t-1} +
+diag(u) k_t^T v_t)`` with data-dependent per-channel decays ``w_t =
+exp(logw_t)``, in chunked form: within a chunk the pairwise term
+``sum_{s<t} (sum_i r_t,i k_s,i exp(cum_{t-1},i - cum_s,i)) v_s``, the
+current-token bonus through u, the carried state ``(r_t exp(cum_{t-1})) S``,
+then the chunk's state update.  The CUDA source is
+``repro_torch/csrc/wkv6.cu``; its header says how the Pallas grid maps onto
+CUDA blocks and what bounds the kernel on an H100.
+
+Beyond the Pallas kernel, which starts from a zero state and returns y
+only, this one takes an initial state ``s0`` and returns the last state in
+the decode cache's (B, H, hd_k, hd_v) layout.  r, k, v and logw are read
+in place through their strides (no per-head copies).  The kernel walks its
+own 32-row chunks and handles a ragged last one.
+
+On a CPU tensor the wrapper runs the plain version (``wkv6_plain``, a
+transcription of the JAX model's ``models/ssm.py:_wkv_chunked`` with its
+chunk rule); on a CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+MAX_HEAD_DIM = 128    # the kernel keeps a chunk's (32, hd) tiles in shared memory
+
+launches = 0          # kernel launches in this process (chip_smoke reads it)
+
+
+def _check(r, k, v, logw, u, s0) -> None:
+    if r.dim() != 4:
+        raise ValueError("r, k, v, logw (B,S,H,hd); u (H,hd)")
+    B, S, H, hd = r.shape
+    if not (k.shape == v.shape == logw.shape == r.shape):
+        raise ValueError(f"r {tuple(r.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, logw {tuple(logw.shape)} differ")
+    if u.shape != (H, hd):
+        raise ValueError(f"u {tuple(u.shape)} is not {(H, hd)}")
+    if s0 is not None and s0.shape != (B, H, hd, hd):
+        raise ValueError(f"s0 {tuple(s0.shape)} is not {(B, H, hd, hd)}")
+    if S < 1:
+        raise ValueError("empty sequence")
+
+
+def wkv6_plain(r, k, v, logw, u, s0=None, *, chunk: int = 64):
+    """The kernel's plain version: the JAX model's ``_wkv_chunked``.
+
+    The chunk rule is the reference's: ``min(chunk, S)``, and the whole
+    sequence when that does not divide S.  Returns (y (B,S,H,hd) f32,
+    s_last (B,H,hd,hd) f32).
+    """
+    _check(r, k, v, logw, u, s0)
+    B, S, H, hd = r.shape
+    s = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = S
+    nc = S // chunk
+
+    def rs(t):
+        return t.reshape(B, nc, chunk, H, hd).movedim(1, 0)
+
+    r_c, k_c, v_c, w_c = rs(r), rs(k), rs(v), rs(logw)
+    cum = torch.cumsum(w_c.float(), dim=2)      # (nc,B,c,H,hd)
+    tri_lt = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=r.device).tril(diagonal=-1)
+    uf = u.float()
+    ys = []
+    for c in range(nc):
+        rf, kf, vf = r_c[c].float(), k_c[c].float(), v_c[c].float()
+        cumc, wc = cum[c], w_c[c]
+        # y_t reads S_{t-1}: pair (s<t) decays by w_{s+1..t-1} =
+        # exp(cum[t] - w[t] - cum[s]) — one-step shift vs the state update
+        cum_prev = cumc - wc.float()
+        delta = cum_prev[:, :, None] - cumc[:, None, :, :]    # (B,t,s,H,hd)
+        decay = torch.where(tri_lt[None, :, :, None, None], torch.exp(delta),
+                            torch.zeros((), device=r.device))
+        att = torch.einsum("bthi,bshi,btshi->btsh", rf, kf, decay)
+        y = torch.einsum("btsh,bshj->bthj", att, vf)
+        # current-token bonus: y[t,j] += (sum_i r[t,i] u[i] k[t,i]) v[t,j]
+        y = y + torch.einsum("bthi,bthj->bthj", rf * uf[None, None] * kf, vf)
+        # carried state contribution: r_t exp(cum[t-1]) @ S
+        y = y + torch.einsum("bthi,bhij->bthj", rf * torch.exp(cum_prev), s)
+        # new state: S' = exp(cum[last]) S + sum_s exp(cum[last]-cum[s]) k_s v_s
+        dec_end = torch.exp(cumc[:, -1:] - cumc)              # (B,s,H,hd)
+        s = torch.exp(cumc[:, -1])[..., None] * s + \
+            torch.einsum("bshi,bshj->bhij", kf * dec_end, vf)
+        ys.append(y)
+    return torch.stack(ys, dim=1).reshape(B, S, H, hd), s
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor, s0=None, *, chunk: int = 64):
+    """r/k/v (B,S,H,hd); logw (B,S,H,hd) f32 < 0; u (H,hd) f32; s0
+    (B,H,hd,hd) f32 or None (zeros).  -> (y (B,S,H,hd) f32, s_last
+    (B,H,hd,hd) f32).
+
+    r, k and v share one dtype (f32, f16 or bf16); each of r, k, v and
+    logw may be a strided view whose last axis is contiguous.  ``chunk`` is
+    the plain version's (the CPU path); the kernel walks its own 32-row
+    chunks.
+    """
+    global launches
+    _check(r, k, v, logw, u, s0)
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, logw, u, s0, chunk=chunk)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
+    B, S, H, hd = r.shape
+    if not (r.dtype == k.dtype == v.dtype) or r.dtype not in _DTYPE_CODE:
+        raise TypeError(f"r/k/v dtypes {r.dtype}/{k.dtype}/{v.dtype}: the "
+                        f"kernel takes one of {list(_DTYPE_CODE)}")
+    if logw.dtype != torch.float32 or u.dtype != torch.float32 or (
+            s0 is not None and s0.dtype != torch.float32):
+        raise TypeError("logw, u and s0 must be f32")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} > {MAX_HEAD_DIM}")
+    tensors = (r, k, v, logw, u) + (() if s0 is None else (s0,))
+    if any(t.device != r.device for t in tensors):
+        raise ValueError("r, k, v, logw, u and s0 must be on one device")
+    if any(t.stride(3) != 1 for t in (r, k, v, logw)):
+        raise ValueError("the head dim of r, k, v and logw must be contiguous")
+    if not u.is_contiguous() or (s0 is not None and not s0.is_contiguous()):
+        raise ValueError("u and s0 must be contiguous")
+    y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
+    s_last = torch.empty((B, H, hd, hd), dtype=torch.float32,
+                         device=r.device)
+    strides = (ctypes.c_longlong * 12)(
+        *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *logw.stride()[:3])
+    lib = build.load("wkv6")
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = lib.repro_torch_wkv6(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), None if s0 is None else s0.data_ptr(),
+            y.data_ptr(), s_last.data_ptr(), _DTYPE_CODE[r.dtype],
+            B, S, H, hd, strides, stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6 launch failed: CUDA error {rc}")
+    launches += 1
+    return y, s_last

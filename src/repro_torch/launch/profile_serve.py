@@ -1,19 +1,24 @@
 """Where serving time goes on the card: one prefill and a few decode steps.
 
-    python -m repro_torch.launch.profile_serve
+    python -m repro_torch.launch.profile_serve [--arch zamba2-2.7b]
 
-Builds the full-width ``phi4-mini-3.8b`` serving engine (bf16, random
-weights from ``SEED``, paged pool of ``SLOTS`` slots), runs one untimed
-prefill and decode step, then times one B=1 prefill of ``PROMPT`` tokens
-and ``STEPS`` fused decode steps under ``torch.profiler``.  For each
-phase it prints one JSON line: host wall time, device busy time (the
-union of kernel intervals), the device's idle share of the window, the
-flash kernel's share, and the top kernels by device time, after the
-profiler's table for the phase.  Needs a CUDA card.
+Builds the full-width serving engine of ``--arch`` (default
+``phi4-mini-3.8b``; bf16, random weights from ``SEED``, ``SLOTS`` slots:
+the paged pool where the cache pages, the slotted cache for the
+recurrent-state families), runs one untimed prefill and decode step, then
+times one B=1 prefill of ``PROMPT`` tokens and ``STEPS`` fused decode
+steps under ``torch.profiler``.  For each phase it prints one JSON line:
+host wall time, device busy time (the union of kernel intervals), the
+device's idle share of the window, the kernel count, the time of each of
+the port's own kernels (flash, SSD, WKV6) and their share of busy time,
+and the top kernels by device time, after the profiler's table for the
+phase.  Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
 import json
+import subprocess
 import time
 from collections import defaultdict
 
@@ -22,10 +27,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import registry
+from repro_torch.runtime import steps as steps_mod
 from repro_torch.serving.engine import ServingEngine
 
-ARCH = "phi4-mini-3.8b"
-PROMPT, GEN, SLOTS, STEPS, SEED = 512, 64, 4, 8, 0
+PROMPT, GEN, SLOTS, STEPS, SEED, BLOCK = 512, 64, 4, 8, 0, 16
+# the port's kernels, by the name of their CUDA function
+OWN_KERNELS = {"flash": "flash_fwd", "ssd": "ssd_fwd", "wkv6": "wkv_fwd"}
 
 
 def _kernel_stats(prof) -> tuple[float, dict]:
@@ -59,14 +66,16 @@ def _phase(name: str, fn) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy_us, by_name = _kernel_stats(prof)
-    flash_us = sum(v for k, v in by_name.items() if "flash_fwd" in k)
+    own = {k: sum(v for n, v in by_name.items() if fn in n) / 1e3
+           for k, fn in OWN_KERNELS.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     row = {"phase": name, "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy_us / 1e3,
            "device_idle_share": 1.0 - busy_us / wall_us,
-           "flash_ms": flash_us / 1e3,
            "kernels": len([e for e in prof.events()
                            if e.device_type == torch.autograd.DeviceType.CUDA]),
+           **{f"{k}_ms": v for k, v in own.items()},
+           "own_kernels_share_of_busy": sum(own.values()) * 1e3 / busy_us,
            "top_kernels_ms": [(k[:60], v / 1e3) for k, v in top]}
     print(f"== {name}")
     print(prof.key_averages().table(sort_by="self_device_time_total",
@@ -74,14 +83,19 @@ def _phase(name: str, fn) -> dict:
     return row
 
 
-def main() -> None:
-    cfg = registry.get_config(ARCH)
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="phi4-mini-3.8b", choices=registry.ARCHS)
+    args = ap.parse_args(argv)
+    cfg = registry.get_config(args.arch)
+    paged = steps_mod.paged_compatible(cfg, PROMPT + GEN, BLOCK)
     engine = ServingEngine(cfg, device="cuda", num_slots=SLOTS,
                            prompt_len=PROMPT, max_new_tokens=GEN, seed=SEED,
-                           paged=True, block_size=16, prefix_cache=False)
-    nb = PROMPT // 16
-    for s in range(SLOTS):      # every slot holds a prompt's blocks
-        engine._tables[s, :nb + 1] = 1 + s * (nb + 1) + np.arange(nb + 1)
+                           paged=paged, block_size=BLOCK, prefix_cache=False)
+    if paged:
+        nb = PROMPT // BLOCK
+        for s in range(SLOTS):      # every slot holds a prompt's blocks
+            engine._tables[s, :nb + 1] = 1 + s * (nb + 1) + np.arange(nb + 1)
     prompt = torch.randint(1, cfg.vocab_size, (PROMPT,),
                            generator=torch.Generator().manual_seed(1)).tolist()
     engine.prefill_into(0, prompt)
@@ -92,9 +106,12 @@ def main() -> None:
         for i in range(STEPS):
             engine.decode_step([1] * SLOTS, [PROMPT + i] * SLOTS)
     rows.append(_phase(f"decode x{STEPS}", decode))
-    card = torch.cuda.get_device_name(0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
     for row in rows:
-        print(json.dumps(dict(row, card=card)))
+        print(json.dumps(dict(row, arch=args.arch, paged=paged, card=card)))
 
 
 if __name__ == "__main__":

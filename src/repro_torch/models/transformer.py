@@ -1,28 +1,36 @@
-"""Decoder-only LM over layer groups, for the dense attention kinds.
+"""Decoder-only LM over heterogeneous layer groups.
 
 The schema is the JAX package's (``models/transformer.py``): parameters of
 each block kind in ``cfg.block_pattern`` are stacked along a leading group
-axis G, and caches are (G, B, S, KV, dh).  The JAX model scans over groups;
-here ``forward`` is a Python loop over the group axis.
+axis G, and caches are stacked the same way.  The JAX model scans over
+groups; here ``forward`` is a Python loop over the group axis.
 
-The port runs the kinds ``attn``/``global``/``local`` in the modes
-``prefill``, ``decode`` and ``train``.  The MoE, SSM, VLM and enc-dec kinds
-come with later slices.
+Each block kind registers (schema, cache schema, apply) in ``KINDS``, as in
+the reference: the dense attention kinds ``attn``/``global``/``local``
+live here, Mamba2 (``mamba``), zamba2's ``mamba_attn`` and RWKV6
+(``rwkv``) in ``models.ssm``.  ``apply(cfg, p, x, *, mode, positions,
+cache, pos, shared) -> (x, new_cache)``; ``shared`` is zamba2's one set of
+shared attention weights (``params["shared_attn"]``, no G axis).  The MoE
+and cross-attention kinds come with later slices and raise
+``NotImplementedError``.
 
-Decode writes the step's k/v into the cache tensors in place (the JAX
-functions return new caches); callers that need the old cache clone it.
+Prefill returns new caches: each kind's cache dict per layer, every leaf
+stacked across groups.  Decode writes the step's k/v and recurrent state
+into the cache tensors in place (the JAX functions return new caches);
+callers that need the old cache clone it.
 
-Train keeps the autograd graph and no caches.  With ``par.remat`` each
-layer group runs under ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint`` of the scan body), so backward keeps one group's
-input per group and recomputes the rest.  ``loss_fn`` follows the
-reference's routing: the chunked cross-entropy (through the fused xent
-kernel) unless the vocab and sequence divide 16 and the layout is not
-pure-FSDP.
+Train runs the dense kinds only (the recurrent kinds need backward scan
+kernels, ROADMAP queue B item 7), keeps the autograd graph and no caches.
+With ``par.remat`` each layer group runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
+body), so backward keeps one group's input per group and recomputes the
+rest.  ``loss_fn`` follows the reference's routing: the chunked
+cross-entropy (through the fused xent kernel) unless the vocab and
+sequence divide 16 and the layout is not pure-FSDP.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -34,15 +42,35 @@ from repro_torch.models.layers import (compute_dtype, embed_tokens, rms_norm,
                                        swiglu, unembed)
 from repro_torch.models.params import PSpec
 
-DENSE_KINDS = ("attn", "global", "local")
+# kind -> {"schema": (cfg, G) -> {name: PSpec},
+#          "cache": (cfg, B, S, G) -> {name: PSpec or dict},
+#          "apply": (cfg, p, x, *, mode, positions, cache, pos, shared)
+#                   -> (x, new_cache)}
+KINDS: Dict[str, Dict[str, Callable]] = {}
+TRAIN_KINDS = ("attn", "global", "local")
 
 
-def _check_kinds(cfg: ModelConfig) -> None:
-    other = [k for k in cfg.block_pattern if k not in DENSE_KINDS]
+def register_kind(name: str, schema, cache, apply) -> None:
+    KINDS[name] = {"schema": schema, "cache": cache, "apply": apply}
+
+
+def _kind(kind: str) -> Dict[str, Callable]:
+    if kind not in KINDS:
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet; the port runs "
+            f"{sorted(KINDS)} (ROADMAP queue A, item 9)")
+    return KINDS[kind]
+
+
+def _check_train(cfg: ModelConfig) -> None:
+    for kind in cfg.block_pattern:
+        _kind(kind)
+    other = sorted({k for k in cfg.block_pattern if k not in TRAIN_KINDS})
     if other:
         raise NotImplementedError(
-            f"block kinds {other} are not ported yet; the port runs "
-            f"{DENSE_KINDS}")
+            f"training the block kinds {other} is not ported yet: it needs "
+            f"backward SSD/WKV6 scan kernels, which the JAX package never "
+            f"had (ROADMAP queue B, item 7); the port serves them")
 
 
 def _attn_mlp_schema(cfg: ModelConfig, G: int) -> Dict[str, PSpec]:
@@ -80,25 +108,26 @@ def _attn_cache_schema(cfg: ModelConfig, B: int, S: int, G: int):
 
 
 def lm_schema(cfg: ModelConfig) -> Dict[str, Any]:
-    _check_kinds(cfg)
     G = cfg.num_groups
     schema: Dict[str, Any] = {
         "embed": PSpec((cfg.vocab_size, cfg.d_model), ("tp_vocab", "fsdp"),
                        scale=0.02),
-        "blocks": {f"{i}_{kind}": _attn_mlp_schema(cfg, G)
+        "blocks": {f"{i}_{kind}": _kind(kind)["schema"](cfg, G)
                    for i, kind in enumerate(cfg.block_pattern)},
         "final_norm": PSpec((cfg.d_model,), (None,), "zeros"),
     }
     if not cfg.tie_embeddings:
         schema["lm_head"] = PSpec((cfg.vocab_size, cfg.d_model),
                                   ("tp_vocab", "fsdp"))
+    if "mamba_attn" in cfg.block_pattern:   # zamba2 shared attention weights
+        from repro_torch.models import ssm
+        schema["shared_attn"] = ssm.shared_attn_schema(cfg)
     return schema
 
 
 def cache_schema(cfg: ModelConfig, B: int, S: int) -> Dict[str, Any]:
-    _check_kinds(cfg)
     G = cfg.num_groups
-    return {f"{i}_{kind}": _attn_cache_schema(cfg, B, S, G)
+    return {f"{i}_{kind}": _kind(kind)["cache"](cfg, B, S, G)
             for i, kind in enumerate(cfg.block_pattern)}
 
 
@@ -123,38 +152,69 @@ def insert_kv(cache, k, v, pos) -> None:
     vc[rows, at] = torch.where(hit, v[:, 0].to(vc.dtype), vc[rows, at])
 
 
-def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
-    return cfg.attn.window if kind == "local" else None
-
-
-def _attn_block(cfg: ModelConfig, kind: str, p, x, *, mode, positions,
-                cache, pos):
-    """Pre-norm attention + SwiGLU MLP; returns (x, prefill k/v or None)."""
-    window = _window(cfg, kind)
+def attention_part(cfg: ModelConfig, p, x, *, window, mode, positions,
+                   cache, pos):
+    """Pre-norm attention sub-block shared by the dense and hybrid kinds.
+    Returns (x, new_cache): prefill's k/v, decode's cache (written in place)
+    or {} in train."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn_mod.qkv_proj(cfg, p, h, positions)
-    new_kv = None
+    new_cache = {}
     if mode == "decode":
         insert_kv(cache, k, v, pos)
         out = attn_mod.decode_attention(
             q, cache["k"], cache["v"], pos, window=window,
             logit_softcap=cfg.attn.logit_softcap)
+        new_cache = cache
     elif mode == "train":
         out = attn_mod.train_attention(
             q, k, v, window=window, logit_softcap=cfg.attn.logit_softcap)
     else:
         out = attn_mod.causal_attention(
             q, k, v, window=window, logit_softcap=cfg.attn.logit_softcap)
-        new_kv = (k, v)
+        new_cache = {"k": k, "v": v}
     out = attn_mod.attn_out(cfg, p, out)
     if cfg.post_norm:
         out = rms_norm(out, p["ln1_post"], cfg.norm_eps)
-    x = x + out
+    return x + out, new_cache
+
+
+def mlp_part(cfg: ModelConfig, p, x):
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     out = swiglu(cfg, {"wg": p["wg"], "wu": p["wu"], "wo": p["wo_mlp"]}, h)
     if cfg.post_norm:
         out = rms_norm(out, p["ln2_post"], cfg.norm_eps)
-    return x + out, new_kv
+    return x + out
+
+
+def _make_attn_apply(window_of: Callable[[ModelConfig], Optional[int]]):
+    def apply(cfg, p, x, *, mode, positions, cache, pos, shared):
+        x, new_cache = attention_part(
+            cfg, p, x, window=window_of(cfg), mode=mode, positions=positions,
+            cache=cache, pos=pos)
+        return mlp_part(cfg, p, x), new_cache
+    return apply
+
+
+for _name, _window_of in (("attn", lambda cfg: None),
+                          ("global", lambda cfg: None),
+                          ("local", lambda cfg: cfg.attn.window)):
+    register_kind(_name, schema=_attn_mlp_schema, cache=_attn_cache_schema,
+                  apply=_make_attn_apply(_window_of))
+
+
+def _index(tree, gi: int):
+    """Group ``gi`` of every stacked leaf (views)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, gi) for k, v in tree.items()}
+    return tree[gi]
+
+
+def _stack(trees: list):
+    """Stack a list of same-shaped cache trees along a new group axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
@@ -169,8 +229,9 @@ def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
 
     def body(x, gp):
         for i, kind in enumerate(cfg.block_pattern):
-            x, _ = _attn_block(cfg, kind, gp[f"{i}_{kind}"], x, mode="train",
-                               positions=positions, cache=None, pos=None)
+            x, _ = KINDS[kind]["apply"](
+                cfg, gp[f"{i}_{kind}"], x, mode="train", positions=positions,
+                cache=None, pos=None, shared=None)
         return x
 
     for gi in range(cfg.num_groups):
@@ -196,32 +257,32 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     """
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode {mode!r}: one of prefill, decode, train")
-    _check_kinds(cfg)
     if mode == "train":
+        _check_train(cfg)
         return _train_forward(cfg, par or ParallelConfig(), params,
                               tokens), None
+    kinds = [_kind(kind) for kind in cfg.block_pattern]
     x = embed_tokens(cfg, params["embed"], tokens)
     if mode == "decode":
         p = torch.as_tensor(pos, device=tokens.device)
         positions = p[:, None] if p.dim() == 1 else p.reshape(1)
     else:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-    kvs: Dict[str, list] = {}
+    shared = params.get("shared_attn")
+    new: Dict[str, list] = {}
     for gi in range(cfg.num_groups):
         for i, kind in enumerate(cfg.block_pattern):
             key = f"{i}_{kind}"
             p = {name: leaf[gi] for name, leaf in params["blocks"][key].items()}
-            cache = (None if caches is None else
-                     {name: leaf[gi] for name, leaf in caches[key].items()})
-            x, kv = _attn_block(cfg, kind, p, x, mode=mode,
-                                positions=positions, cache=cache, pos=pos)
-            if kv is not None:
-                kvs.setdefault(key, []).append(kv)
+            cache = None if caches is None else _index(caches[key], gi)
+            x, nc = kinds[i]["apply"](cfg, p, x, mode=mode,
+                                      positions=positions, cache=cache,
+                                      pos=pos, shared=shared)
+            if mode == "prefill":
+                new.setdefault(key, []).append(nc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if mode == "prefill":
-        caches = {key: {"k": torch.stack([k for k, _ in layers]),
-                        "v": torch.stack([v for _, v in layers])}
-                  for key, layers in kvs.items()}
+        caches = {key: _stack(layers) for key, layers in new.items()}
     return x, caches
 
 
@@ -246,3 +307,15 @@ def loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
             x, batch["labels"], head, softcap=cfg.final_logit_softcap)
     return losses.chunked_cross_entropy(
         x, batch["labels"], head, softcap=cfg.final_logit_softcap)
+
+
+# the recurrent kinds (module import after the definitions above: models.ssm
+# reaches back for attention_part, mlp_part and the attention schemas)
+from repro_torch.models import ssm as _ssm  # noqa: E402
+
+register_kind("mamba", schema=_ssm.mamba_schema, cache=_ssm.mamba_cache_schema,
+              apply=_ssm.apply_mamba)
+register_kind("mamba_attn", schema=_ssm.mamba_attn_schema,
+              cache=_ssm.mamba_attn_cache_schema, apply=_ssm.apply_mamba_attn)
+register_kind("rwkv", schema=_ssm.rwkv_schema, cache=_ssm.rwkv_cache_schema,
+              apply=_ssm.apply_rwkv)

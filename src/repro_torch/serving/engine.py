@@ -4,17 +4,19 @@ The ContinuousScheduler (scheduler.py) decides which requests occupy which
 decode slots; this engine owns the params, the KV cache and the steps:
 
   * a B=1 prefill — each admitted request is prefilled alone (its
-    attention runs the port's flash kernel on the card) and its
-    prompt-length cache is spliced into its slot, or into its prompt
+    attention and recurrent scans run the port's kernels on the card) and
+    its prompt-length cache is spliced into its slot, or into its prompt
     blocks of the paged pool;
   * one fused per-slot decode step (runtime.steps) that advances all
     active slots one token per call, each at its own position;
-  * the cache — the slotted layout (layers, slots, S, KV, dh) or, by
-    default where the model allows it, a paged block pool addressed by
-    per-slot block tables, refcounted by the host-side ``BlockPool``, with
-    a radix-style prefix cache: a request sharing a cached prompt prefix
-    skips re-prefilling the shared blocks and replays its suffix through
-    the decode step.  Paged decode is bit-identical to slotted.
+  * the cache — the slotted layout (layers, slots, ...: KV, or the conv
+    and recurrent state of the Mamba2/RWKV6 kinds, which a prefill
+    overwrites whole) or, by default where the model allows it (attention
+    caches only), a paged block pool addressed by per-slot block tables,
+    refcounted by the host-side ``BlockPool``, with a radix-style prefix
+    cache: a request sharing a cached prompt prefix skips re-prefilling
+    the shared blocks and replays its suffix through the decode step.
+    Paged decode is bit-identical to slotted.
 
 The lifecycle is the JAX engine's (``serving/engine.py``): admission,
 prefill-and-insert, prefix replay, lazy block growth, preempt-youngest,
@@ -48,7 +50,7 @@ class ServingEngine:
     Parameters
     ----------
     cfg:
-        Model config (dense attention kinds).
+        Model config (any block kind the port serves).
     device:
         ``"cuda"`` (default) or ``"cpu"``; ``"cuda"`` without a card raises.
     num_slots:
@@ -62,8 +64,9 @@ class ServingEngine:
     params:
         Optional pre-initialised params (e.g. carried over by ``bridge``).
     paged:
-        True forces the paged pool (raises if incompatible), False the
-        slotted cache, None (default) picks paged whenever compatible.
+        True forces the paged pool (raises if incompatible, as for the
+        state caches of zamba2 and rwkv6), False the slotted cache, None
+        (default) picks paged whenever compatible.
     block_size:
         Tokens per KV block; must divide the prompt pad and cache length.
     pool_blocks:

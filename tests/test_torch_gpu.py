@@ -10,7 +10,10 @@ installed.  Tolerances: flash attention 2e-5 for f32 (the same products
 summed in another order), 2e-2 for f16/bf16 (one rounding of the output);
 xent 1e-4 on NLL (f32 sums over V in another order) and 1e-5 (f32) or
 2^-7 (bf16) on dlogits; AdamW 1e-6 on f32 (each step rounded as the plain
-version rounds it) and 2^-7 relative on a bf16 parameter.
+version rounds it) and 2^-7 relative on a bf16 parameter; the SSD and
+WKV6 scans 1e-4 of the output's scale (kernel and plain version compute in
+f32 from the same inputs, chunked differently: the sums run in another
+order).
 """
 import numpy as np
 import pytest
@@ -19,7 +22,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import adamw_update as au               # noqa: E402
 from repro_torch.kernels import flash_attention as fa            # noqa: E402
-from repro_torch.kernels import xent                             # noqa: E402
+from repro_torch.kernels import ssm_scan, wkv6, xent             # noqa: E402
 
 
 def _qkv(B, H, KV, Sq, Sk, dh, seed=0):
@@ -36,6 +39,7 @@ def test_cuda_kernel_matches_plain(dtype):
         pytest.skip("needs an NVIDIA GPU and nvcc")
     dt = getattr(torch, dtype)
     for (B, H, KV, Sq, Sk, dh, causal) in [(1, 24, 8, 512, 512, 128, True),
+                                           (1, 32, 32, 512, 512, 80, True),
                                            (2, 4, 2, 100, 100, 64, False),
                                            (1, 4, 4, 48, 130, 32, True)]:
         q, k, v = (torch.as_tensor(x).to("cuda", dt)
@@ -116,3 +120,66 @@ def test_adamw_kernel_matches_plain(n, pdtype, gdtype, wd):
     torch.testing.assert_close(v, want[2], rtol=1e-6, atol=1e-7)
     tol = 1e-6 if pdtype == "float32" else 2 ** -7
     torch.testing.assert_close(p.float(), want[0].float(), rtol=tol, atol=tol)
+
+
+def _scan_close(got, want):
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,hd,N,dtype,h0", [
+    (1, 512, 80, 64, 64, "bfloat16", False),   # zamba2's prefill
+    (2, 100, 3, 32, 16, "float32", True),      # ragged last chunk, N != hd
+    (1, 40, 2, 24, 48, "float32", True),       # S below one chunk, hd % 16
+    (1, 130, 4, 64, 64, "float16", True),
+])
+def test_ssd_kernel_matches_plain(B, S, H, hd, N, dtype, h0):
+    _card()
+    rng = np.random.RandomState(S + N)
+    dt_ = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device="cuda")
+    x, Bm, Cm = rnd(B, S, H, hd).to(dt_), rnd(B, S, N).to(dt_), \
+        rnd(B, S, N).to(dt_)
+    d = torch.nn.functional.softplus(rnd(B, S, H))
+    a = -torch.exp(rnd(H))
+    state = rnd(B, H, hd, N) if h0 else None
+    before = ssm_scan.launches
+    y, h = ssm_scan.ssd_scan(x, d, a, Bm, Cm, state)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    want_y, want_h = ssm_scan.ssd_scan_plain(x, d, a, Bm, Cm, state)
+    _scan_close(y, want_y)
+    _scan_close(h, want_h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,hd,dtype,s0,floor", [
+    (1, 512, 32, 64, "bfloat16", False, False),   # rwkv6's prefill
+    (2, 100, 3, 16, "float32", True, False),      # ragged last chunk
+    (1, 20, 2, 40, "float32", True, True),        # S below one chunk, -8
+    (1, 77, 2, 128, "float16", True, False),
+])
+def test_wkv6_kernel_matches_plain(B, S, H, hd, dtype, s0, floor):
+    _card()
+    rng = np.random.RandomState(S + hd)
+    dt_ = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device="cuda")
+    r, k, v = (rnd(B, S, H, hd).to(dt_) for _ in range(3))
+    logw = torch.full((B, S, H, hd), -8.0, device="cuda") if floor else \
+        torch.clamp(-torch.exp(rnd(B, S, H, hd)), min=-8.0)
+    u = rnd(H, hd)
+    state = rnd(B, H, hd, hd) if s0 else None
+    before = wkv6.launches
+    y, s = wkv6.wkv6(r, k, v, logw, u, state)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    want_y, want_s = wkv6.wkv6_plain(r, k, v, logw, u, state)
+    _scan_close(y, want_y)
+    _scan_close(s, want_s)

@@ -1,0 +1,446 @@
+"""The port's recurrent-state families (Mamba2, zamba2, RWKV6) against JAX.
+
+Kernel functions: the port's SSD and WKV6 wrappers take their plain
+versions on CPU tensors (transcriptions of the JAX model's
+``_ssd_chunked``/``_wkv_chunked``, with an initial state and the last state
+returned); they are held against the JAX Pallas kernels run with
+``interpret=True`` (zero initial state, y only, as tests/test_kernels.py
+runs them) and against the step-by-step oracles of ``repro.kernels.ref``
+(non-zero initial state, y and the last state).  Inputs come from numpy
+seeds.  Tolerances are tests/test_kernels.py's: SSD 1e-4 and WKV6 2e-3 in
+f32 (the chunked and the step-by-step forms sum the same terms in another
+order, WKV6 through per-channel exps over a longer chain), 4e-2 / 5e-2 in
+bf16 (inputs rounded to 8 bits of mantissa at different places); relative
+to the values' scale where the state grows.
+
+Blocks and whole models: smoke configs in f32 with JAX-made params carried
+over by ``bridge``; prefill and decode against ``repro.models.ssm`` and
+``repro.models.transformer.forward`` (``mesh=None``) within 1e-4 (f32 sums
+in another order), relative to each cache leaf's scale in the whole
+models: under the reference's init the shared attention's k/v reach
+|20| at two groups, and the error grows with them.  The engine's greedy tokens must equal the JAX
+engine's.  The CUDA kernels run only on a card (tests/test_torch_gpu.py,
+``chip_smoke.py``).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import registry as jreg                       # noqa: E402
+from repro.core.queue import WorkQueue as JQueue                 # noqa: E402
+from repro.kernels import ref as jref                            # noqa: E402
+from repro.kernels.ssm_scan import ssd_scan as jssd              # noqa: E402
+from repro.kernels.wkv6 import wkv6 as jwkv                      # noqa: E402
+from repro.launch.mesh import single_device_mesh                 # noqa: E402
+from repro.models import params as jpr                           # noqa: E402
+from repro.models import ssm as jssm                             # noqa: E402
+from repro.models import transformer as jtfm                     # noqa: E402
+from repro.models.layers import ModelCtx                         # noqa: E402
+from repro.runtime import steps as jsteps                        # noqa: E402
+from repro.serving.engine import ServingEngine as JEngine        # noqa: E402
+
+from repro_torch import bridge                                   # noqa: E402
+from repro_torch.configs import registry as treg                 # noqa: E402
+from repro_torch.configs.base import OptimizerConfig             # noqa: E402
+from repro_torch.core.queue import WorkQueue as TQueue           # noqa: E402
+from repro_torch.kernels import ref as tref                      # noqa: E402
+from repro_torch.kernels import ssm_scan, wkv6                   # noqa: E402
+from repro_torch.models import params as tpr                     # noqa: E402
+from repro_torch.models import ssm as tssm                       # noqa: E402
+from repro_torch.models import transformer as ttfm               # noqa: E402
+from repro_torch.runtime import steps as tsteps                  # noqa: E402
+from repro_torch.serving.engine import ServingEngine as TEngine  # noqa: E402
+
+ZAMBA, RWKV = "zamba2-2.7b", "rwkv6-1.6b"
+ARCHS = (ZAMBA, RWKV)
+F32 = dict(param_dtype="float32", compute_dtype="float32")
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+def _np(x):
+    return x.float().numpy() if torch.is_tensor(x) else np.asarray(x,
+                                                                   np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def _scaled(tol, want):
+    """tol with atol scaled to the largest |value| (states grow with S)."""
+    return dict(rtol=tol, atol=tol * max(1.0, float(np.abs(_np(want)).max())))
+
+
+# ---------------------------------------------------------------------------
+# kernel functions
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(B, S, H, hd, N, seed=1):
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((B, S, H)), 0).astype(np.float32)
+    a = -np.exp(rng.standard_normal(H)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, N)).astype(np.float32)
+    h0 = rng.standard_normal((B, H, hd, N)).astype(np.float32)
+    return x, dt, a, Bm, Cm, h0
+
+
+def _wkv_inputs(B, S, H, hd, seed=2):
+    rng = np.random.RandomState(seed)
+    r, k, v = (rng.standard_normal((B, S, H, hd)).astype(np.float32)
+               for _ in range(3))
+    logw = np.maximum(-np.exp(rng.standard_normal((B, S, H, hd))),
+                      -8.0).astype(np.float32)
+    u = rng.standard_normal((H, hd)).astype(np.float32)
+    s0 = rng.standard_normal((B, H, hd, hd)).astype(np.float32)
+    return r, k, v, logw, u, s0
+
+
+def _cast(arrs, dtype):
+    """(JAX arrays, torch tensors) of ``arrs`` in ``dtype``."""
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    return ([jnp.asarray(a, jd) for a in arrs],
+            [torch.as_tensor(a).to(td) for a in arrs])
+
+
+SSD_SHAPES = [(1, 64, 1, 16, 8, 16), (2, 128, 3, 32, 16, 32),
+              (1, 256, 2, 64, 64, 128)]          # tests/test_kernels.py:41-59
+WKV_SHAPES = [(1, 64, 1, 16, 16), (2, 128, 2, 32, 32),
+              (1, 128, 4, 64, 64)]               # tests/test_kernels.py:62-81
+
+
+@pytest.mark.parametrize("B,S,H,hd,N,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_plain_matches_pallas_interpret(B, S, H, hd, N, chunk, dtype):
+    x, dt, a, Bm, Cm, _ = _ssd_inputs(B, S, H, hd, N)
+    (jx, jB, jC), (tx, tB, tC) = _cast((x, Bm, Cm), dtype)
+    want = jssd(jx, jnp.asarray(dt), jnp.asarray(a), jB, jC, chunk=chunk,
+                interpret=True)
+    _, h_want = jref.ssd_ref(jx, jnp.asarray(dt), jnp.asarray(a), jB, jC,
+                             jnp.zeros((B, H, hd, N), jnp.float32))
+    y, h = ssm_scan.ssd_scan(tx, _t(dt), _t(a), tB, tC, chunk=chunk)
+    assert y.dtype == h.dtype == torch.float32
+    tol = 4e-2 if dtype == "bfloat16" else 1e-4
+    _close(y, want, dict(rtol=tol, atol=tol))
+    _close(h, h_want, _scaled(tol, h_want))
+
+
+def test_jax_model_rounds_cb_to_bf16_and_the_port_does_not():
+    """The JAX model's ``_ssd_chunked`` forms C.B in the compute dtype
+    (``einsum(...).astype(f32)``), its Pallas kernel in f32.  In bf16 at
+    N = 64 the model lands outside the kernel tolerance on some outputs;
+    the port forms C.B in f32 like both kernels (ROADMAP queue C).  Both
+    sides' y are compared after one rounding to bf16."""
+    B, S, H, hd, N, chunk = SSD_SHAPES[-1]
+    x, dt, a, Bm, Cm, _ = _ssd_inputs(B, S, H, hd, N)
+    (jx, jB, jC), (tx, tB, tC) = _cast((x, Bm, Cm), "bfloat16")
+    want = np.asarray(jssd(jx, jnp.asarray(dt), jnp.asarray(a), jB, jC,
+                           chunk=chunk, interpret=True))
+    y_model, _ = jssm._ssd_chunked(jx, jnp.asarray(dt), jnp.asarray(a), jB,
+                                   jC, jnp.zeros((B, H, hd, N)), chunk)
+    y_port, _ = ssm_scan.ssd_scan(tx, _t(dt), _t(a), tB, tC, chunk=chunk)
+
+    def outside(y):
+        return int((np.abs(_np(y) - want) > 4e-2 + 4e-2 * np.abs(want)).sum())
+    assert outside(y_model) > 0
+    assert outside(y_port.to(torch.bfloat16)) == 0
+
+
+@pytest.mark.parametrize("B,S,H,hd,N,chunk", SSD_SHAPES + [
+    (2, 100, 3, 32, 16, 8),      # ragged: 8 does not divide 100
+    (1, 5, 2, 16, 24, 8),        # S below one chunk, N != hd
+])
+def test_ssd_plain_matches_ref_with_initial_state(B, S, H, hd, N, chunk):
+    x, dt, a, Bm, Cm, h0 = _ssd_inputs(B, S, H, hd, N, seed=3)
+    y_want, h_want = jref.ssd_ref(*map(jnp.asarray, (x, dt, a, Bm, Cm, h0)))
+    y, h = ssm_scan.ssd_scan(*map(_t, (x, dt, a, Bm, Cm, h0)), chunk=chunk)
+    _close(y, y_want, _scaled(1e-4, y_want))
+    _close(h, h_want, _scaled(1e-4, h_want))
+    # the port's step-by-step oracle is the JAX one
+    y_ref, h_ref = tref.ssd_ref(*map(_t, (x, dt, a, Bm, Cm, h0)))
+    _close(y_ref, y_want, _scaled(1e-5, y_want))
+    _close(h_ref, h_want, _scaled(1e-5, h_want))
+
+
+@pytest.mark.parametrize("B,S,H,hd,chunk", WKV_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_plain_matches_pallas_interpret(B, S, H, hd, chunk, dtype):
+    r, k, v, logw, u, _ = _wkv_inputs(B, S, H, hd)
+    (jr, jk, jv), (tr, tk, tv) = _cast((r, k, v), dtype)
+    want = jwkv(jr, jk, jv, jnp.asarray(logw), jnp.asarray(u), chunk=chunk,
+                interpret=True)
+    _, s_want = jref.wkv6_ref(jr, jk, jv, jnp.asarray(logw), jnp.asarray(u),
+                              jnp.zeros((B, H, hd, hd), jnp.float32))
+    y, s = wkv6.wkv6(tr, tk, tv, _t(logw), _t(u), chunk=chunk)
+    assert y.dtype == s.dtype == torch.float32
+    tol = 5e-2 if dtype == "bfloat16" else 2e-3
+    _close(y, want, dict(rtol=tol, atol=tol))
+    _close(s, s_want, _scaled(tol, s_want))
+
+
+@pytest.mark.parametrize("B,S,H,hd,chunk", WKV_SHAPES + [
+    (2, 100, 3, 16, 8),          # ragged: 8 does not divide 100
+    (1, 5, 2, 16, 8),            # S below one chunk
+])
+@pytest.mark.parametrize("floor", [False, True])
+def test_wkv6_plain_matches_ref_with_initial_state(B, S, H, hd, chunk, floor):
+    r, k, v, logw, u, s0 = _wkv_inputs(B, S, H, hd, seed=4)
+    if floor:                    # every decay at the model's -8 floor
+        logw = np.full_like(logw, -8.0)
+    y_want, s_want = jref.wkv6_ref(*map(jnp.asarray, (r, k, v, logw, u, s0)))
+    y, s = wkv6.wkv6(*map(_t, (r, k, v, logw, u, s0)), chunk=chunk)
+    _close(y, y_want, _scaled(2e-3, y_want))
+    _close(s, s_want, _scaled(2e-3, s_want))
+    y_ref, s_ref = tref.wkv6_ref(*map(_t, (r, k, v, logw, u, s0)))
+    _close(y_ref, y_want, _scaled(1e-5, y_want))
+    _close(s_ref, s_want, _scaled(1e-5, s_want))
+
+
+def test_scan_wrappers_reject_what_the_kernels_do_not_take():
+    x, dt, a, Bm, Cm, h0 = map(_t, _ssd_inputs(1, 8, 2, 16, 8))
+    with pytest.raises(ValueError, match="h0"):
+        ssm_scan.ssd_scan(x, dt, a, Bm, Cm, h0[:, :1])
+    with pytest.raises(ValueError, match="do not match"):
+        ssm_scan.ssd_scan(x, dt[:, :4], a, Bm, Cm)
+    r, k, v, logw, u, s0 = map(_t, _wkv_inputs(1, 8, 2, 16))
+    with pytest.raises(ValueError, match="u "):
+        wkv6.wkv6(r, k, v, logw, u[:1])
+    with pytest.raises(ValueError, match="differ"):
+        wkv6.wkv6(r, k[:, :4], v, logw, u)
+
+
+# ---------------------------------------------------------------------------
+# configs, schemas, blocks
+# ---------------------------------------------------------------------------
+
+def _jax_params(jcfg, seed=0):
+    return jpr.init_params(jtfm.lm_schema(jcfg), jax.random.key(seed),
+                           jcfg.param_dtype)
+
+
+def _to_port(tree):
+    return bridge.to_torch(jax.tree.map(np.asarray, tree), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_and_schema_copies_match_reference(arch):
+    assert dataclasses.asdict(treg.get_config(arch)) == dataclasses.asdict(
+        jreg.get_config(arch))
+    assert dataclasses.asdict(treg.get_smoke(arch)) == dataclasses.asdict(
+        jreg.get_smoke(arch))
+    assert dataclasses.asdict(treg.get_parallel(arch)) == dataclasses.asdict(
+        jreg.get_parallel(arch))
+    jcfg, tcfg = jreg.get_config(arch), treg.get_config(arch)
+    for jschema, tschema in [
+            (jtfm.lm_schema(jcfg), ttfm.lm_schema(tcfg)),
+            (jtfm.cache_schema(jcfg, 4, 576), ttfm.cache_schema(tcfg, 4, 576))]:
+        want = {k: (v.shape, v.init, v.scale, v.dtype)
+                for k, v in jpr._leaves(jschema)}
+        got = {k: (v.shape, v.init, v.scale, v.dtype)
+               for k, v in tpr.leaves(tschema)}
+        assert got == want
+    assert tpr.param_count(ttfm.lm_schema(tcfg)) == jpr.param_count(
+        jtfm.lm_schema(jcfg))
+
+
+def _block_setup(arch, key):
+    """(jcfg, tcfg, JAX group-0 params of block ``key``, port copy, JAX
+    shared params or None, port copy or None)."""
+    jcfg = jreg.get_smoke(arch).replace(**F32)
+    tcfg = treg.get_smoke(arch).replace(**F32)
+    jp = _jax_params(jcfg, seed=5)
+    gp = jax.tree.map(lambda a: a[0], jp["blocks"][key])
+    shared = jp.get("shared_attn")
+    return (jcfg, tcfg, gp, _to_port(gp), shared,
+            None if shared is None else _to_port(shared))
+
+
+def _random_cache(jcfg, key, B, S, seed):
+    """Group 0 of a random (not all-zero) cache for block ``key``."""
+    rng = np.random.RandomState(seed)
+    schema = jtfm.cache_schema(jcfg, B, S)[key]
+    return jpr.tree_map_schema(
+        lambda _p, p: rng.standard_normal(p.shape[1:]).astype(np.float32),
+        schema)
+
+
+BLOCKS = [(ZAMBA, "0_mamba", jssm.apply_mamba, tssm.apply_mamba),
+          (ZAMBA, "5_mamba_attn", jssm.apply_mamba_attn,
+           tssm.apply_mamba_attn),
+          (RWKV, "0_rwkv", jssm.apply_rwkv, tssm.apply_rwkv)]
+
+
+@pytest.mark.parametrize("arch,key,japply,tapply", BLOCKS,
+                         ids=[b[1] for b in BLOCKS])
+def test_block_prefill_and_decode_match_f32(arch, key, japply, tapply):
+    jcfg, tcfg, jgp, tgp, jsh, tsh = _block_setup(arch, key)
+    ctx = ModelCtx(jcfg, jreg.get_parallel(arch), None)
+    B, S = 2, 13                 # 13: not a multiple of the smoke chunk 8
+    x = np.random.RandomState(6).standard_normal(
+        (B, S, jcfg.d_model)).astype(np.float32)
+    positions = np.arange(S, dtype=np.int32)
+    jx, jc, _ = japply(ctx, jgp, jnp.asarray(x), mode="prefill",
+                       positions=jnp.asarray(positions), cache=None, pos=None,
+                       shared=jsh, extras=None)
+    tx, tc = tapply(tcfg, tgp, _t(x), mode="prefill",
+                    positions=_t(positions), cache=None, pos=None, shared=tsh)
+    _close(tx, jx, TOL)
+    jleaves = dict(jax.tree_util.tree_leaves_with_path(jc))
+    tleaves = dict(jax.tree_util.tree_leaves_with_path(tc))
+    assert sorted(map(str, tleaves)) == sorted(map(str, jleaves))
+    for path, leaf in jleaves.items():
+        _close(tleaves[path], leaf, TOL)
+
+    # decode one token against a random cache of 16 positions; slot 1 at
+    # a later position than slot 0
+    cache = _random_cache(jcfg, key, B, 16, seed=7)
+    x1 = np.random.RandomState(8).standard_normal(
+        (B, 1, jcfg.d_model)).astype(np.float32)
+    pos = np.array([5, 11], np.int32)
+    jx, jc, _ = japply(ctx, jgp, jnp.asarray(x1), mode="decode",
+                       positions=jnp.asarray(pos)[:, None],
+                       cache=jax.tree.map(jnp.asarray, cache),
+                       pos=jnp.asarray(pos), shared=jsh, extras=None)
+    tcache = bridge.to_torch(cache, device="cpu")
+    tx, tc = tapply(tcfg, tgp, _t(x1), mode="decode",
+                    positions=_t(pos)[:, None], cache=tcache, pos=_t(pos),
+                    shared=tsh)
+    _close(tx, jx, TOL)
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jc):
+        got = dict(jax.tree_util.tree_leaves_with_path(tcache))[path]
+        _close(got, leaf, TOL)       # written in place
+
+
+# ---------------------------------------------------------------------------
+# whole models
+# ---------------------------------------------------------------------------
+
+def _model_cfgs(arch):
+    kw = dict(F32)
+    if arch == ZAMBA:
+        kw["num_layers"] = 12    # two groups: the shared block runs twice
+    return jreg.get_smoke(arch).replace(**kw), treg.get_smoke(arch).replace(
+        **kw)
+
+
+def _leaves(tree):
+    return dict(jax.tree_util.tree_leaves_with_path(tree))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_prefill_and_decode_match_f32(arch):
+    jcfg, tcfg = _model_cfgs(arch)
+    ctx = ModelCtx(jcfg, jreg.get_parallel(arch), None)
+    jp = _jax_params(jcfg)
+    tp = _to_port(jp)
+    P, steps = 11, 4
+    rng = np.random.RandomState(9)
+    toks = rng.randint(1, jcfg.vocab_size, (1, P))
+    jx, jcache, _ = jtfm.forward(ctx, jp, jnp.asarray(toks, jnp.int32),
+                                 mode="prefill")
+    tx, tcache = ttfm.forward(tcfg, tp, _t(toks), mode="prefill")
+    _close(ttfm.lm_logits(tcfg, tp, tx[:, -1:]),
+           jtfm.lm_logits(ctx, jp, jx[:, -1:]), TOL)
+    jl, tl = _leaves(jcache), _leaves(tcache)
+    assert sorted(map(str, tl)) == sorted(map(str, jl))
+    for path, leaf in jl.items():
+        _close(tl[path], leaf, _scaled(1e-4, leaf))
+
+    # room for the decode steps, as the engine's slotted cache has
+    jbig = jsteps.cache_batch_insert(jsteps.init_cache(jcfg, 1, P + steps),
+                                     jcache, 0)
+    tbig = tsteps.cache_batch_insert(tsteps.init_cache(tcfg, 1, P + steps,
+                                                       "cpu"), tcache, 0)
+    for i in range(steps):
+        tok = rng.randint(1, jcfg.vocab_size, (1, 1))
+        jx, jbig, _ = jtfm.forward(ctx, jp, jnp.asarray(tok, jnp.int32),
+                                   mode="decode", caches=jbig,
+                                   pos=jnp.int32(P + i))
+        tx, tbig = ttfm.forward(tcfg, tp, _t(tok), mode="decode",
+                                caches=tbig, pos=P + i)
+        _close(ttfm.lm_logits(tcfg, tp, tx), jtfm.lm_logits(ctx, jp, jx),
+               TOL)
+    jl, tl = _leaves(jbig), _leaves(tbig)
+    for path, leaf in jl.items():
+        _close(tl[path], leaf, _scaled(1e-4, leaf))
+
+
+# ---------------------------------------------------------------------------
+# serving engine and rules
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_greedy_tokens_equal_jax_engine(arch):
+    """3 requests with different stop lengths on 2 slots: one slot is
+    reused, so a later prefill overwrites a whole state slot."""
+    jcfg = jreg.get_smoke(arch).replace(**F32)
+    tcfg = treg.get_smoke(arch).replace(**F32)
+    jp = _jax_params(jcfg, seed=1)
+    kw = dict(num_slots=2, prompt_len=8, max_new_tokens=6)
+    j = JEngine(jcfg, jreg.get_parallel(arch), single_device_mesh(),
+                params=jp, **kw)
+    t = TEngine(tcfg, device="cpu", params=_to_port(jp), **kw)
+    assert not j.paged and not t.paged
+    rng = np.random.RandomState(10)
+    gens = [6, 2, 4]
+    reqs = [{"id": i, "prompt": rng.randint(1, jcfg.vocab_size, 8).tolist(),
+             "max_new_tokens": g} for i, g in enumerate(gens)]
+    r_j, _ = j.run(JQueue(reqs))
+    r_t, _ = t.run(TQueue(reqs))
+    assert r_t == r_j
+    assert [len(r_t[i]) for i in range(len(gens))] == gens
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_state_caches_are_slotted_and_never_paged(arch):
+    cfg = treg.get_smoke(arch)
+    assert not tsteps.paged_compatible(cfg, 16, 8)
+    assert jsteps.paged_compatible(jreg.get_smoke(arch), 16, 8) is False
+    engine = TEngine(cfg, device="cpu", num_slots=2, prompt_len=8,
+                     max_new_tokens=8)
+    assert not engine.paged and engine.block_pool is None
+    with pytest.raises(ValueError, match="cannot be paged"):
+        TEngine(cfg, device="cpu", num_slots=2, prompt_len=8,
+                max_new_tokens=8, paged=True)
+    # state leaves stay f32 under bf16 params; an insert overwrites a slot
+    caches = tsteps.init_cache(cfg, 2, 16, "cpu")
+    states = {str(p): leaf for p, leaf in _leaves(caches).items()
+              if "state" in str(p)}
+    assert states and all(s.dtype == torch.float32 for s in states.values())
+    src = jax.tree.map(lambda a: torch.ones_like(a[:, :1]), caches)
+    tsteps.cache_batch_insert(caches, src, 1)
+    for leaf in states.values():
+        assert bool((leaf[:, 1] == 1).all()) and bool((leaf[:, 0] == 0).all())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_training_these_kinds_raises(arch):
+    cfg = treg.get_smoke(arch)
+    params = tpr.init_params(ttfm.lm_schema(cfg), torch.Generator(),
+                             cfg.param_dtype, "cpu")
+    toks = torch.ones((1, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B, item 7"):
+        ttfm.forward(cfg, params, toks, mode="train")
+    ocfg = OptimizerConfig()
+    with pytest.raises(NotImplementedError, match="backward SSD/WKV6"):
+        tsteps.train_step(cfg, treg.get_parallel(arch), ocfg, params,
+                          tsteps.init_opt_state(cfg, ocfg, "cpu"),
+                          {"tokens": toks, "labels": toks}, device="cpu")
+
+
+def test_unported_kinds_still_raise():
+    cfg = jreg.get_smoke("granite-moe-1b-a400m")
+    tcfg = treg.get_smoke(ZAMBA).replace(block_pattern=cfg.block_pattern,
+                                         num_layers=cfg.num_layers)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ttfm.lm_schema(tcfg)
