@@ -5,7 +5,7 @@
 Phases (any failure raises and the script exits non-zero):
   1. device  — a CUDA card is required; prints its name and power limit;
   2. build   — compiles every kernel of the port from ``src/repro_torch/csrc``
-               (five sources) with nvcc, all at once, and prints the build
+               (six sources) with nvcc, all at once, and prints the build
                time;
   3. kernels — each kernel against its plain PyTorch version on the card, at
                the main path's shape and at edge shapes, with stated
@@ -15,20 +15,27 @@ Phases (any failure raises and the script exits non-zero):
                card's bound.  Flash attention at phi4's prefill and at
                zamba2's (dh 80); xent forward and backward at the train
                phase's loss chunk; AdamW at phi4's embedding; the SSD scan at
-               zamba2's prefill and WKV6 at rwkv6's;
+               zamba2's prefill and WKV6 at rwkv6's; the grouped matmul at
+               granite-moe's prefill and decode buckets (f32, f16, bf16),
+               ragged and strided shapes;
   4. small   — phi4 smoke config in f32: the card's prefill logits (through
                the kernel) against the CPU's (through the plain version);
                then zamba2 smoke with two groups (12 layers) and rwkv6 smoke
                in f32: prefill logits and every cache leaf, last states
-               included, card (kernels) against CPU (plain versions);
+               included, card (kernels) against CPU (plain versions); then
+               granite-moe smoke with two layers in f32: a prefill and 4
+               decode steps, logits and the KV cache, card against CPU;
   5. small-train — phi4 smoke in f32 with two layers: two train steps on the
                card (through the kernels) against the CPU (through the plain
                versions) on the same params and batches;
-  6. serve   — full-width phi4-mini-3.8b in bf16 (random weights from a
-               seed) serves 8 requests through the paged pool with the prefix
-               cache: every request completes, the prefix cache hits, and the
-               flash kernel ran on every layer of every full prefill; then a
-               short run shows paged tokens equal slotted tokens;
+  6. serve   — full-width phi4-mini-3.8b and granite-moe-1b-a400m in bf16
+               (random weights from a seed) each serve 8 requests through
+               the paged pool with the prefix cache: every request
+               completes, the prefix cache hits, flash ran on every layer of
+               every full prefill and on no decode step, and (granite) the
+               grouped matmul ran 3 times a layer in every full prefill and
+               every decode step; then a short run shows paged tokens equal
+               slotted tokens;
   7. serve-ssm — full-width zamba2-2.7b and rwkv6-1.6b in bf16 (random
                weights from a seed) each serve the same 8 requests through
                the slotted cache (their state caches do not page): a
@@ -65,7 +72,13 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 PEAK_BYTES = 3.35e12                           # H100 SXM HBM3, per second
 ARCH = "phi4-mini-3.8b"
 ZAMBA, RWKV = "zamba2-2.7b", "rwkv6-1.6b"
+GRANITE = "granite-moe-1b-a400m"
 SCAN_RTOL = 1e-4          # SSD/WKV6 kernel vs plain, of the output's scale
+# gmm kernel vs plain, of the output's scale: f32 sums over D in another
+# order; in f16/bf16 one rounding of the output, which the other f32 sum
+# can push across a rounding boundary
+GMM_RTOL = {torch.float32: 1e-5, torch.float16: 2 ** -7,
+            torch.bfloat16: 2 ** -7}
 PROMPT, GEN, SLOTS, BLOCK = 512, 64, 4, 16
 SYSTEM_PREFIX = 448                            # shared by half the requests
 GEN_LENS = (16, 64, 8, 32)                     # cycled stop lengths
@@ -530,6 +543,98 @@ def phase_wkv():
             "library": "none: no single PyTorch call computes the WKV6 scan"}
 
 
+def _gmm_work(x, w):
+    """(bytes, flops) of one grouped matmul: x and w read once, the output
+    written once, 2 E C D F operations."""
+    E, C, D = x.shape
+    F = w.shape[2]
+    return (x.element_size() * (E * C * D + E * D * F + E * C * F),
+            2.0 * E * C * D * F)
+
+
+def phase_gmm():
+    """The grouped matmul against its plain version on the card at
+    granite-moe's buckets (prefill C 200, decode C 2; gate/up and out) in
+    bf16, f32 and f16, at tests/test_kernels.py's shapes, and at ragged and
+    strided edge shapes; timed (with torch.bmm as the yardstick) at the
+    four bf16 bucket shapes."""
+    from repro_torch.kernels import moe_gmm
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    prefill, decode = (32, 200, 1024, 512), (32, 2, 1024, 512)
+    out_pre, out_dec = (32, 200, 512, 1024), (32, 2, 512, 1024)
+    cases = [  # (E, C, D, F, dtype, layout, label)
+        prefill + (bf, "", "granite prefill gate/up bf16"),
+        out_pre + (bf, "", "granite prefill out bf16"),
+        decode + (bf, "", "granite decode gate/up bf16"),
+        out_dec + (bf, "", "granite decode out bf16"),
+        prefill + (f32, "", "granite prefill f32"),
+        prefill + (f16, "", "granite prefill f16"),
+        decode + (f32, "", "granite decode f32"),
+        decode + (f16, "", "granite decode f16"),
+        (2, 128, 64, 128, f32, "", "test_kernels shape 1 f32"),
+        (4, 256, 128, 256, f32, "", "test_kernels shape 2 f32"),
+        (1, 128, 256, 128, f32, "", "test_kernels shape 3 f32"),
+        (2, 128, 64, 128, bf, "", "test_kernels shape 1 bf16"),
+        (4, 256, 128, 256, bf, "", "test_kernels shape 2 bf16"),
+        (1, 128, 256, 128, bf, "", "test_kernels shape 3 bf16"),
+        (3, 1, 72, 40, f32, "", "ragged C=1 D=72 F=40"),
+        (3, 2, 72, 40, bf, "", "ragged C=2 D=72 F=40 bf16"),
+        (2, 200, 72, 40, f16, "", "ragged C=200 D=72 F=40 f16"),
+        (1, 130, 1024, 512, bf, "", "one expert, C=130"),
+        (4, 37, 72, 40, f32, "group", "group slice of (G,E,D,F), F=40 of 64"),
+        (4, 37, 72, 40, bf, "expert", "expert-strided w and x views"),
+    ]
+    errs, timed = [], []
+    for E, C, D, F, dtype, layout, label in cases:
+        x = torch.randn(E, C, D, generator=gen, device="cuda").to(dtype)
+        if layout == "group":          # (G,E,D,F) of 64 columns: group 1,
+            w = torch.randn(2, E, D, 64, generator=gen,   # 40 of them
+                            device="cuda").to(dtype)[1, :, :, :F]
+        elif layout == "expert":       # every other expert of wider buffers
+            w = torch.randn(2 * E, D, F, generator=gen,
+                            device="cuda").to(dtype)[::2]
+            x = torch.randn(2 * E, C, D + 8, generator=gen,
+                            device="cuda").to(dtype)[::2, :, :D]
+        else:
+            w = torch.randn(E, D, F, generator=gen, device="cuda").to(dtype)
+        got = moe_gmm.gmm(x, w)
+        torch.cuda.synchronize()
+        want = moe_gmm.gmm_plain(x, w)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = GMM_RTOL[dtype] * max(1.0, want.float().abs().max().item())
+        log(f"[kernels] gmm {label} (E={E} C={C} D={D} F={F}, x strides "
+            f"{x.stride()}, w strides {w.stride()}): max_abs_err={err:.3g} "
+            f"(tolerance {tol:.3g})")
+        if not (err <= tol and got.dtype == dtype):
+            raise AssertionError(f"gmm disagrees with its plain version at "
+                                 f"{label}")
+        errs.append(err)
+        if len(timed) < 4:
+            timed.append((label, x, w, err))
+    rows = []
+    for label, x, w, err in timed:
+        ms = _time_ms(lambda: moe_gmm.gmm(x, w))
+        plain_ms = _time_ms(lambda: moe_gmm.gmm_plain(x, w))
+        library_ms = _time_ms(lambda: torch.bmm(x, w))
+        nbytes, flops = _gmm_work(x, w)
+        bound_ms, bound_by = _bound(nbytes, flops, x.dtype)
+        log(f"[kernels] gmm timed at {label}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP)")
+        rows.append({"shape": label, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms})
+    return {"name": "moe_gmm", "route": "cuda",
+            "source": "src/repro_torch/csrc/moe_gmm.cu",
+            "replaces": "src/repro/kernels/moe_gmm.py:21", "launches": None,
+            **rows[0], "library": "torch.bmm",
+            "edge_shapes_max_abs_err": max(errs[4:]),
+            "prefill_out": rows[1], "decode_gate_up": rows[2],
+            "decode_out": rows[3]}
+
+
 def phase_small() -> None:
     """phi4 smoke in f32: prefill through the kernel on the card against the
     plain version on the CPU, on the same params."""
@@ -621,6 +726,61 @@ def phase_small_ssm() -> None:
                                  f"{want_runs}")
 
 
+def phase_small_moe() -> None:
+    """granite-moe smoke with two layers (two groups) in f32: a B=1 prefill
+    of 100 tokens and 4 decode steps through the kernels on the card
+    against the plain versions on the CPU, on the same params: the logits
+    of every step and the KV cache after the last.
+
+    The limit is 1e-4 of the logits' (and each cache leaf's) scale: both
+    sides compute in f32 from the same weights and route the same entries,
+    and sums run in another order (the kernels' against the CPU's).  The
+    config's capacity factor 1.25 holds: the prefill's 200 entries go to 4
+    buckets of 78 rows, a decode step's 2 to buckets of 1."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.models import params as pr
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import steps
+    cfg = registry.get_smoke(GRANITE).replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    params = pr.init_params(tfm.lm_schema(cfg),
+                            torch.Generator().manual_seed(1), "float32", "cpu")
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(1, cfg.vocab_size, (1, 100), generator=gen)
+    nxt = torch.randint(1, cfg.vocab_size, (4, 1, 1), generator=gen)
+    runs = {}
+    before = (moe_gmm.launches, fa.launches)
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        with torch.inference_mode():
+            last, small = steps.prefill_step(cfg, p, toks.to(dev))
+            cache = steps.cache_batch_insert(
+                steps.init_cache(cfg, 1, 104, dev), small, 0)
+            logits = [last]
+            for i in range(4):
+                x, cache = tfm.forward(cfg, p, nxt[i].to(dev), mode="decode",
+                                       caches=cache, pos=100 + i)
+                logits.append(tfm.lm_logits(cfg, p, x)[:, -1])
+        runs[dev] = ([t.cpu() for t in logits],
+                     [t.cpu() for t in steps.tree_leaves(cache)])
+    ran = (moe_gmm.launches - before[0], fa.launches - before[1])
+    errs = [(g - w).abs().max().item() / max(1.0, w.abs().max().item())
+            for g, w in zip(runs["cuda"][0] + runs["cuda"][1],
+                            runs["cpu"][0] + runs["cpu"][1])]
+    log(f"[small] {GRANITE} smoke f32 (2 layers) prefill + 4 decode steps, "
+        f"card vs cpu: logits max error {max(errs[:5]):.3g} of their scale, "
+        f"cache {max(errs[5:]):.3g} (tolerance 1e-4); launches gmm/flash "
+        f"{ran}")
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f"{GRANITE} smoke on the card disagrees with "
+                             f"the CPU: {errs}")
+    if ran != (3 * 2 * 5, 2):
+        raise AssertionError(f"{GRANITE} smoke launches gmm/flash {ran} != "
+                             f"(30, 2)")
+
+
 def phase_small_train() -> None:
     """phi4 smoke in f32 with two layers: two train steps on the card
     (kernels) against the CPU (plain versions), same params and batches."""
@@ -688,23 +848,47 @@ def _requests(vocab: int, n: int = 8):
     return reqs
 
 
-def phase_serve(smi: str):
+def _count_per_call(engine, counters):
+    """Wrap the engine's prefill and decode step so each call records how
+    many launches of each counted kernel it made."""
+    per = {"prefill": [], "decode": []}
+
+    def wrap(fn, key):
+        def run(*args, **kwargs):
+            before = {n: mod.launches for n, mod in counters.items()}
+            out = fn(*args, **kwargs)
+            per[key].append({n: mod.launches - before[n]
+                             for n, mod in counters.items()})
+            return out
+        return run
+    engine.prefill_into = wrap(engine.prefill_into, "prefill")
+    engine.decode_step = wrap(engine.decode_step, "decode")
+    return per
+
+
+def phase_serve(smi: str, arch: str = ARCH):
+    """Full-width phi4 or granite-moe in bf16 serves 8 requests through the
+    paged pool with the prefix cache; flash runs on every layer of every
+    full prefill and granite's gmm 3 times a layer in every full prefill
+    and decode step; then paged equals slotted on a short run."""
     from repro_torch.configs import registry
     from repro_torch.core.queue import WorkQueue
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm
     from repro_torch.models import params as pr
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.report import GAUGES
 
-    cfg = registry.get_config(ARCH)
+    torch.cuda.empty_cache()
+    cfg = registry.get_config(arch)
     t0 = time.perf_counter()
     params = pr.init_params(tfm.lm_schema(cfg),
                             torch.Generator(device="cuda").manual_seed(0),
                             cfg.param_dtype, "cuda")
     torch.cuda.synchronize()
     n_params = pr.param_count(tfm.lm_schema(cfg))
-    log(f"[serve] {ARCH}: {n_params / 1e9:.3f} B params in bf16 on the card "
+    log(f"[serve:{arch}] {n_params / 1e9:.3f} B params in bf16 on the card "
         f"in {time.perf_counter() - t0:.1f} s")
     engine = ServingEngine(cfg, device="cuda", num_slots=SLOTS,
                            prompt_len=PROMPT, max_new_tokens=GEN,
@@ -714,21 +898,41 @@ def phase_serve(smi: str):
     torch.cuda.synchronize()
     reqs = _requests(cfg.vocab_size)
     queue = WorkQueue(reqs)
+    counters = {"flash_attention": fa}
+    moe_layers = cfg.num_groups * cfg.block_pattern.count("moe")
+    if moe_layers:
+        counters["moe_gmm"] = moe_gmm
+    per = _count_per_call(engine, counters)
     torch.cuda.reset_peak_memory_stats()
     prefills_before = engine.metrics.series(GAUGES.PREFILL_S).stats()["count"]
-    fa.launches = 0
+    for mod in counters.values():
+        mod.launches = 0
     results, metrics = engine.run(queue)
     torch.cuda.synchronize()
-    launches = fa.launches
+    launches = {name: mod.launches for name, mod in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the wrappers close over the engine's bound methods: unhook them, or
+    # the cycle keeps the engine and its params alive past this phase
+    del engine.prefill_into, engine.decode_step
     sm = metrics.summary()
     full_prefills = sm[GAUGES.PREFILL_S]["count"] - prefills_before
+    decode_steps = int(sm[GAUGES.DECODE_STEPS]["total"])
     want_tokens = sum(r["max_new_tokens"] for r in reqs)
     hits = sm.get(GAUGES.PREFIX_HITS, {}).get("total", 0)
-    log(f"[serve] completed {len(results)}/{len(reqs)}, tokens "
+    # every full prefill: flash on each layer, gmm 3 a MoE layer; every
+    # decode step: no flash, gmm 3 a MoE layer
+    want_call = {"prefill": {"flash_attention": cfg.num_layers,
+                             "moe_gmm": 3 * moe_layers},
+                 "decode": {"flash_attention": 0, "moe_gmm": 3 * moe_layers}}
+    want_call = {k: {n: want[n] for n in counters}
+                 for k, want in want_call.items()}
+    bad_calls = sorted({(k, n, c[n]) for k, calls in per.items()
+                        for c in calls for n in c if c[n] != want_call[k][n]})
+    log(f"[serve:{arch}] completed {len(results)}/{len(reqs)}, tokens "
         f"{sm[GAUGES.TOKENS]['total']:.0f}/{want_tokens}, full prefills "
-        f"{full_prefills}, prefix-hit blocks {hits:.0f}, flash launches "
-        f"{launches}")
+        f"{full_prefills}, decode steps {decode_steps}, prefix-hit blocks "
+        f"{hits:.0f}, launches {launches} ({want_call['prefill']} a full "
+        f"prefill, {want_call['decode']} a decode step wanted)")
     if sorted(results) != list(range(len(reqs))):
         raise AssertionError(f"requests not all completed: {sorted(results)}")
     if any(len(results[r["id"]]) != r["max_new_tokens"] for r in reqs):
@@ -737,19 +941,24 @@ def phase_serve(smi: str):
         raise AssertionError("token count is not the sum of stop lengths")
     if not hits > 0:
         raise AssertionError("the prefix cache never hit")
-    if launches != cfg.num_layers * full_prefills or full_prefills < 1:
-        raise AssertionError(f"flash kernel launches {launches} != "
-                             f"{cfg.num_layers} x {full_prefills} prefills")
-    serve = {"arch": ARCH, "requests": len(results),
+    if (full_prefills < 1 or len(per["prefill"]) != full_prefills
+            or len(per["decode"]) != decode_steps or bad_calls):
+        raise AssertionError(f"kernel launches per call off: {bad_calls}")
+    for name in counters:
+        total = sum(c[name] for calls in per.values() for c in calls)
+        if launches[name] != total or launches[name] < 1:
+            raise AssertionError(f"{name} launches {launches[name]} != "
+                                 f"{total} counted by call")
+    serve = {"arch": arch, "cache": "paged", "requests": len(results),
              "tokens": int(sm[GAUGES.TOKENS]["total"]),
              "tok_s": sm[GAUGES.TOK_S]["last"],
              "decode_tok_s": sm[GAUGES.DECODE_TOK_S]["last"],
              "p50_ttft_s": sm[GAUGES.TTFT_S]["p50"],
              "prefill_s_p50": sm[GAUGES.PREFILL_S]["p50"],
              "wall_s": sm[GAUGES.WALL_S]["last"],
-             "decode_steps": int(sm[GAUGES.DECODE_STEPS]["total"]),
+             "decode_steps": decode_steps,
              "full_prefills": full_prefills, "prefix_hit_blocks": hits,
-             "peak_mem_gb": peak_gb, "card": smi}
+             "launches": launches, "peak_mem_gb": peak_gb, "card": smi}
     del engine
 
     # paged (no prefix cache) against slotted on the same requests, short
@@ -764,14 +973,16 @@ def phase_serve(smi: str):
         del eng
     same = outs[True] == outs[False]
     # requests that replayed a cached prefix computed their prompt's K/V
-    # through decode steps, so their tokens may differ in bf16: reported only
+    # through decode steps (and, for MoE, routed it in decode batches), so
+    # their tokens may differ in bf16: reported only
     agree = sum(results[r["id"]][:len(outs[False][r["id"]])]
                 == outs[False][r["id"]] for r in reqs)
-    log(f"[serve] paged vs slotted greedy tokens on {len(short)} requests: "
-        f"{'identical' if same else 'DIFFER'}; the main run agrees with "
-        f"slotted on {agree}/{len(reqs)}")
+    log(f"[serve:{arch}] paged vs slotted greedy tokens on {len(short)} "
+        f"requests: {'identical' if same else 'DIFFER'}; the main run agrees "
+        f"with slotted on {agree}/{len(reqs)}")
     if not same:
         raise AssertionError("paged greedy tokens differ from slotted")
+    del params
     return serve, launches
 
 
@@ -970,26 +1181,33 @@ def main() -> int:
     adamw = phase_adamw((200_064, 3072))
     ssd = phase_ssd()
     wkv = phase_wkv()
+    gmm = phase_gmm()
     torch.cuda.empty_cache()
     phase_small()
     phase_small_ssm()
+    phase_small_moe()
     phase_small_train()
-    serve, flash["launches"] = phase_serve(smi)
+    serve, ran_phi4 = phase_serve(smi)
+    serve_granite, ran_granite = phase_serve(smi, GRANITE)
     serve_zamba, ran_zamba = phase_serve_ssm(smi, ZAMBA)
     serve_rwkv, ran_rwkv = phase_serve_ssm(smi, RWKV)
+    flash["launches"] = ran_phi4["flash_attention"]
     ssd["launches"] = ran_zamba["ssd_scan"]
     wkv["launches"] = ran_rwkv["wkv6"]
-    flash["launches_by_path"] = {f"{ARCH} serve": flash["launches"],
-                                 f"{ZAMBA} serve": ran_zamba["flash_attention"]}
+    gmm["launches"] = ran_granite["moe_gmm"]
+    flash["launches_by_path"] = {
+        f"{ARCH} serve": ran_phi4["flash_attention"],
+        f"{GRANITE} serve": ran_granite["flash_attention"],
+        f"{ZAMBA} serve": ran_zamba["flash_attention"]}
     train, launches = phase_train(smi)
     for row in (xent_fwd, xent_bwd, adamw):
         row["launches"] = launches[row["name"]]
-    kernels = [flash, xent_fwd, xent_bwd, adamw, ssd, wkv]
+    kernels = [flash, xent_fwd, xent_bwd, adamw, ssd, wkv, gmm]
     for row in kernels:
         row["card"] = smi
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"serve": {ARCH: serve, ZAMBA: serve_zamba,
-                                RWKV: serve_rwkv}}))
+    print(json.dumps({"serve": {ARCH: serve, GRANITE: serve_granite,
+                                ZAMBA: serve_zamba, RWKV: serve_rwkv}}))
     print(json.dumps({"train": train}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -75,6 +75,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
              _c_ptr],                                         # stream
             _c_int),
     },
+    "moe_gmm": {
+        "repro_torch_gmm": (
+            [_c_ptr, _c_ptr, _c_ptr,                          # x w out
+             _c_int, _c_int, _c_int, _c_int, _c_int,          # dtype E C D F
+             ctypes.POINTER(ctypes.c_longlong),               # 4 strides
+             _c_ptr],                                         # stream
+            _c_int),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,86 @@
+"""Grouped matmul for the MoE experts: a hand-written Hopper kernel.
+
+Replaces the JAX package's Pallas TPU kernel ``kernels/moe_gmm.py:_gmm_kernel``
+(its ``pl.pallas_call`` in ``gmm``): for every expert e,
+``out[e] = x[e] @ w[e]`` with x (E,C,D), w (E,D,F) and out (E,C,F) in x's
+dtype, summed in f32.  The model's gate, up and out products of its
+expert buckets all run through it, in prefill and in decode.  The CUDA
+source is ``repro_torch/csrc/moe_gmm.cu``; its header says how the Pallas
+grid maps onto CUDA blocks and what bounds the kernel on an H100.
+
+Beyond the Pallas kernel, which asserts that C, D and F divide its
+128-wide blocks, this one masks ragged C, D and F: the model's bucket
+capacities (200 rows in a 512-token prefill, 2 in a 4-slot decode step)
+divide nothing.  x and w are read through their strides (unit stride on
+the last axis), so one group's slice of the stacked weights goes in
+without a copy.
+
+On a CPU tensor the wrapper runs the plain version (``gmm_plain``, the
+oracle ``ref.gmm_ref``); on a CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import gmm_ref
+
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+launches = 0          # kernel launches in this process (chip_smoke reads it)
+
+
+def _check(x, w) -> None:
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"x (E,C,D) and w (E,D,F), not {tuple(x.shape)} "
+                         f"and {tuple(w.shape)}")
+    if w.shape[0] != x.shape[0] or w.shape[1] != x.shape[2]:
+        raise ValueError(f"w {tuple(w.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+
+
+def gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version: an f32 einsum cast to x's dtype."""
+    _check(x, w)
+    return gmm_ref(x, w)
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E,C,D) @ w (E,D,F) -> (E,C,F) in x.dtype, summed in f32.
+
+    x and w share one dtype (f32, f16 or bf16) on the card; each may be a
+    strided view whose last axis is contiguous.  Nothing is launched when
+    the output is empty.
+    """
+    global launches
+    _check(x, w)
+    if x.device.type == "cpu":
+        return gmm_plain(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"gmm runs on cuda or cpu, not {x.device}")
+    if w.device != x.device:
+        raise ValueError("x and w must be on one device")
+    if x.dtype != w.dtype or x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x/w dtypes {x.dtype}/{w.dtype}: the kernel takes "
+                        f"one of {list(_DTYPE_CODE)} for both")
+    if x.stride(2) != 1 or w.stride(2) != 1:
+        raise ValueError("the last axis of x and w must be contiguous")
+    E, C, D = x.shape
+    F = w.shape[2]
+    out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 4)(x.stride(0), x.stride(1), w.stride(0),
+                                      w.stride(1))
+    lib = build.load("moe_gmm")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.repro_torch_gmm(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                 _DTYPE_CODE[x.dtype], E, C, D, F, strides,
+                                 stream)
+    if rc != 0:
+        raise RuntimeError(f"gmm launch failed: CUDA error {rc}")
+    launches += 1
+    return out

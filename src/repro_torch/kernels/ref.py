@@ -3,7 +3,7 @@
 Each is a line-for-line port of the JAX package's ``kernels/ref.py``
 function of the same name: the naive, obviously-correct formulation that a
 kernel is held against, on the CPU in the tests and on the card in
-``chip_smoke.py``.  The grouped-matmul oracle arrives with its kernel.
+``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -58,6 +58,11 @@ def wkv6_ref(r, k, v, logw, u, s0):
                                s + u[None, :, :, None] * kv))
         s = torch.exp(logw[:, t].float())[..., None] * s + kv
     return torch.stack(ys, dim=1), s
+
+
+def gmm_ref(x, w):
+    """Grouped matmul: x (E,C,D) @ w (E,D,F) -> (E,C,F) in x.dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
 def softmax_xent_ref(logits, labels, *, softcap=None):

@@ -1,6 +1,6 @@
 """Where serving time goes on the card: one prefill and a few decode steps.
 
-    python -m repro_torch.launch.profile_serve [--arch zamba2-2.7b]
+    python -m repro_torch.launch.profile_serve [--arch granite-moe-1b-a400m]
 
 Builds the full-width serving engine of ``--arch`` (default
 ``phi4-mini-3.8b``; bf16, random weights from ``SEED``, ``SLOTS`` slots:
@@ -10,9 +10,9 @@ times one B=1 prefill of ``PROMPT`` tokens and ``STEPS`` fused decode
 steps under ``torch.profiler``.  For each phase it prints one JSON line:
 host wall time, device busy time (the union of kernel intervals), the
 device's idle share of the window, the kernel count, the time of each of
-the port's own kernels (flash, SSD, WKV6) and their share of busy time,
-and the top kernels by device time, after the profiler's table for the
-phase.  Needs a CUDA card.
+the port's own kernels (flash, SSD, WKV6, gmm) and their share of busy
+time, and the top kernels by device time, after the profiler's table for
+the phase.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -32,7 +32,8 @@ from repro_torch.serving.engine import ServingEngine
 
 PROMPT, GEN, SLOTS, STEPS, SEED, BLOCK = 512, 64, 4, 8, 0, 16
 # the port's kernels, by the name of their CUDA function
-OWN_KERNELS = {"flash": "flash_fwd", "ssd": "ssd_fwd", "wkv6": "wkv_fwd"}
+OWN_KERNELS = {"flash": "flash_fwd", "ssd": "ssd_fwd", "wkv6": "wkv_fwd",
+               "gmm": "gmm_fwd"}
 
 
 def _kernel_stats(prof) -> tuple[float, dict]:

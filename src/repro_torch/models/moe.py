@@ -1,0 +1,158 @@
+"""Top-k MoE block on one device: capacity-bounded dispatch, grouped matmul.
+
+A port of the JAX package's ``models/moe.py``, single-rank path only (the
+reference's ``ctx.mesh is None or tp == 1`` branch, which its serving
+prefill and decode both take on one device):
+
+  router (compute dtype) -> softmax in f32 -> top-k -> renormalise
+  -> each (token, k) entry takes the next free row of its expert's bucket
+     (E, cap_e, D), in (token, k) order, while the bucket has room
+  -> gate, up and out products of every bucket through the port's grouped
+     matmul (``kernels.moe_gmm``: the hand-written CUDA kernel on a CUDA
+     tensor, its plain version on a CPU tensor)
+  -> weighted combine in f32 over each token's K entries.
+
+The capacities are the reference's: ``cap = int(ceil(T*K / tp) * cf)``
+rows for the exchange (tp = 1 here) and ``cap_e = int(ceil(cap / E) * cf)``
+rows a bucket.  An entry past its bucket's capacity is dropped and adds
+nothing (the block's residual keeps the token: the Switch rule).
+
+Deliberate difference from the reference: the JAX bucket scatter sends
+every entry it does not keep (the padding rows of the exchange buffer,
+present whenever cap > T*K, and the over-capacity entries) as a zero row to
+``bucket[0, cap_e - 1]``, and that write lands after the real one, so
+when expert 0 fills its bucket its last kept token loses its expert-0
+term (ROADMAP queue C).  Here those entries go to a spare row that nothing
+reads, and every kept entry computes.  Where no expert fills, the two
+agree.
+
+The shard_map / all_to_all expert-parallel paths of the reference are
+multi-device work (ROADMAP queue A, item 12).  Training this kind is not
+ported (ROADMAP queue B, item 8): ``moe_mlp`` returns the load-balance
+aux loss so the module can be held against the reference, and serving
+drops it.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.moe_gmm import gmm
+from repro_torch.models.layers import compute_dtype, rms_norm
+from repro_torch.models.params import PSpec
+
+
+def moe_schema(cfg: ModelConfig, G: int) -> Dict[str, PSpec]:
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    return {
+        "router": PSpec((G, D, E), ("layers", "fsdp", None), scale=0.02),
+        "moe_wg": PSpec((G, E, D, Fd), ("layers", "expert", "fsdp", None)),
+        "moe_wu": PSpec((G, E, D, Fd), ("layers", "expert", "fsdp", None)),
+        "moe_wo": PSpec((G, E, Fd, D), ("layers", "expert", None, "fsdp")),
+    }
+
+
+def capacities(T: int, K: int, E: int, cf: float) -> tuple[int, int]:
+    """(cap, cap_e) for T tokens of K entries on one rank, as the
+    reference computes them (``moe.py:64,94`` with tp = 1)."""
+    cap = int(T * K * cf)
+    return cap, int(-(-cap // E) * cf)
+
+
+def _dispatch_compute_combine(x2d, top_idx, top_w, wg, wu, wo, *, E: int,
+                              cf: float, compute_dtype):
+    """x2d (T, D); top_idx/top_w (T, K); wg/wu (E, D, F), wo (E, F, D).
+    Returns (T, D) in ``compute_dtype``.
+
+    Entry i = t*K + k is kept when i < cap (the exchange buffer) and fewer
+    than cap_e earlier entries chose its expert.  Its bucket row is that
+    count (a running sum of hits, so (token, k) order, as the reference's
+    stable sort gives); dropped entries write to and read from a spare row
+    past the buckets and add nothing.
+    """
+    T, D = x2d.shape
+    K = top_idx.shape[-1]
+    TK = T * K
+    cap, cap_e = capacities(T, K, E, cf)
+    flat_e = top_idx.reshape(TK).long()
+    # (E, TK) hits, summed along the contiguous axis (a scan down the
+    # other one runs one thread per expert on the card)
+    hits = flat_e[None, :] == torch.arange(E, device=x2d.device)[:, None]
+    rank = hits.cumsum(1).gather(0, flat_e[None, :])[0] - 1
+    kept = rank < cap_e
+    if cap < TK:
+        kept &= torch.arange(TK, device=x2d.device) < cap
+    spare = E * cap_e
+    row = torch.where(kept, flat_e * cap_e + rank, spare)      # (TK,)
+
+    bucket = torch.zeros((spare + 1, D), dtype=compute_dtype,
+                         device=x2d.device)
+    bucket[row] = x2d.to(compute_dtype).repeat_interleave(K, dim=0)
+    bucket = bucket[:spare].view(E, cap_e, D)
+
+    gate = gmm(bucket, wg.to(compute_dtype))
+    up = gmm(bucket, wu.to(compute_dtype))
+    h = F.silu(gate.float()).to(compute_dtype) * up
+    y = gmm(h, wo.to(compute_dtype)).view(spare, D)
+
+    # each token's K entries are rows t*K..t*K+K-1 of the flat order: a
+    # gather and a sum over K in f32, as the reference's scatter-add (the
+    # K terms in another order), and deterministic on the card, where a
+    # scatter-add's atomics are not; a dropped entry reads some kept row
+    # and weighs it 0
+    w = torch.where(kept, top_w.reshape(TK).float(), 0.0)
+    got = y[row.clamp(max=spare - 1)].float() * w[:, None]
+    return got.view(T, K, D).sum(1).to(compute_dtype)
+
+
+def _routed(cfg: ModelConfig, p, x):
+    """(routed MLP output (B,S,D), router probs (B,S,E) f32, top_idx)."""
+    mcfg = cfg.moe
+    E, K = mcfg.num_experts, mcfg.top_k
+    cd = compute_dtype(cfg)
+    B, S, D = x.shape
+    logits = (x @ p["router"].to(cd)).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_idx = torch.topk(probs, K, dim=-1)
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    out = _dispatch_compute_combine(
+        x.reshape(B * S, D), top_idx.reshape(B * S, K),
+        top_w.reshape(B * S, K), p["moe_wg"], p["moe_wu"], p["moe_wo"],
+        E=E, cf=mcfg.capacity_factor, compute_dtype=cd)
+    return out.reshape(B, S, D), probs, top_idx
+
+
+def moe_mlp(cfg: ModelConfig, p, x):
+    """x (B,S,D) -> (B,S,D), plus the load-balance aux loss (f32 scalar):
+    ``aux_weight * E * sum_e f_e * p_e`` (Shazeer et al.), f_e the share of
+    entries routed to e and p_e its mean router probability."""
+    E = cfg.moe.num_experts
+    out, probs, top_idx = _routed(cfg, p, x)
+    f = F.one_hot(top_idx, E).float().sum(2).mean(dim=(0, 1))
+    pbar = probs.mean(dim=(0, 1))
+    return out, cfg.moe.router_aux_weight * E * (f * pbar).sum()
+
+
+def moe_block_schema(cfg: ModelConfig, G: int) -> Dict[str, PSpec]:
+    from repro_torch.models.transformer import _attn_mlp_schema
+    s = _attn_mlp_schema(cfg, G)
+    del s["wg"], s["wu"], s["wo_mlp"]  # replaced by routed experts
+    s.update(moe_schema(cfg, G))
+    return s
+
+
+def apply_moe_block(cfg: ModelConfig, p, x, *, mode, positions, cache, pos,
+                    shared):
+    """Attention sub-block, then the routed MLP.  -> (x, new_cache); the
+    aux loss is not computed (serving has no use for it)."""
+    from repro_torch.models.transformer import attention_part
+    x, new_cache = attention_part(cfg, p, x, window=None, mode=mode,
+                                  positions=positions, cache=cache, pos=pos)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    out = _routed(cfg, p, h)[0]
+    if cfg.post_norm:
+        out = rms_norm(out, p["ln2_post"], cfg.norm_eps)
+    return x + out, new_cache

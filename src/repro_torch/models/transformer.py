@@ -7,11 +7,13 @@ groups; here ``forward`` is a Python loop over the group axis.
 
 Each block kind registers (schema, cache schema, apply) in ``KINDS``, as in
 the reference: the dense attention kinds ``attn``/``global``/``local``
-live here, Mamba2 (``mamba``), zamba2's ``mamba_attn`` and RWKV6
+live here, the top-k MoE kind (``moe``: attention, then routed experts
+through the grouped-matmul kernel, with the attention cache, so it pages)
+in ``models.moe``, Mamba2 (``mamba``), zamba2's ``mamba_attn`` and RWKV6
 (``rwkv``) in ``models.ssm``.  ``apply(cfg, p, x, *, mode, positions,
 cache, pos, shared) -> (x, new_cache)``; ``shared`` is zamba2's one set of
-shared attention weights (``params["shared_attn"]``, no G axis).  The MoE
-and cross-attention kinds come with later slices and raise
+shared attention weights (``params["shared_attn"]``, no G axis).  The
+cross-attention kind comes with a later slice and raises
 ``NotImplementedError``.
 
 Prefill returns new caches: each kind's cache dict per layer, every leaf
@@ -20,7 +22,8 @@ into the cache tensors in place (the JAX functions return new caches);
 callers that need the old cache clone it.
 
 Train runs the dense kinds only (the recurrent kinds need backward scan
-kernels, ROADMAP queue B item 7), keeps the autograd graph and no caches.
+kernels, ROADMAP queue B item 7; MoE needs the backward grouped products
+and the aux loss, item 8), keeps the autograd graph and no caches.
 With ``par.remat`` each layer group runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
 body), so backward keeps one group's input per group and recomputes the
@@ -65,6 +68,12 @@ def _kind(kind: str) -> Dict[str, Callable]:
 def _check_train(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
         _kind(kind)
+    if "moe" in cfg.block_pattern:
+        raise NotImplementedError(
+            "training the block kind 'moe' is not ported yet: its backward "
+            "is two more grouped products through the gmm kernel "
+            "(dx = dy w^T, dw = x^T dy) plus the aux loss (ROADMAP queue B, "
+            "item 8); the port serves it")
     other = sorted({k for k in cfg.block_pattern if k not in TRAIN_KINDS})
     if other:
         raise NotImplementedError(
@@ -309,9 +318,14 @@ def loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
         x, batch["labels"], head, softcap=cfg.final_logit_softcap)
 
 
-# the recurrent kinds (module import after the definitions above: models.ssm
-# reaches back for attention_part, mlp_part and the attention schemas)
+# the MoE and recurrent kinds (module imports after the definitions above:
+# models.moe and models.ssm reach back for attention_part, mlp_part and the
+# attention schemas)
+from repro_torch.models import moe as _moe  # noqa: E402
 from repro_torch.models import ssm as _ssm  # noqa: E402
+
+register_kind("moe", schema=_moe.moe_block_schema, cache=_attn_cache_schema,
+              apply=_moe.apply_moe_block)
 
 register_kind("mamba", schema=_ssm.mamba_schema, cache=_ssm.mamba_cache_schema,
               apply=_ssm.apply_mamba)

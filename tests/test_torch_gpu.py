@@ -13,7 +13,9 @@ xent 1e-4 on NLL (f32 sums over V in another order) and 1e-5 (f32) or
 version rounds it) and 2^-7 relative on a bf16 parameter; the SSD and
 WKV6 scans 1e-4 of the output's scale (kernel and plain version compute in
 f32 from the same inputs, chunked differently: the sums run in another
-order).
+order); the grouped matmul 1e-5 of the output's scale in f32 (sums over D
+in another order) and 2^-7 of it in f16/bf16 (one rounding of the output,
+which a different f32 sum can push across a rounding boundary).
 """
 import numpy as np
 import pytest
@@ -22,7 +24,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import adamw_update as au               # noqa: E402
 from repro_torch.kernels import flash_attention as fa            # noqa: E402
-from repro_torch.kernels import ssm_scan, wkv6, xent             # noqa: E402
+from repro_torch.kernels import moe_gmm, ssm_scan, wkv6, xent    # noqa: E402
 
 
 def _qkv(B, H, KV, Sq, Sk, dh, seed=0):
@@ -183,3 +185,33 @@ def test_wkv6_kernel_matches_plain(B, S, H, hd, dtype, s0, floor):
     want_y, want_s = wkv6.wkv6_plain(r, k, v, logw, u, state)
     _scan_close(y, want_y)
     _scan_close(s, want_s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("E,C,D,F,strided", [
+    (32, 200, 1024, 512, False),   # granite-moe's prefill: gate and up
+    (32, 200, 512, 1024, False),   # its out product
+    (32, 2, 1024, 512, False),     # its decode step over 4 slots
+    (3, 1, 72, 40, False),         # ragged C, D and F
+    (1, 200, 72, 40, False),       # one expert
+    (4, 130, 72, 40, True),        # an expert-strided weight slice
+])
+def test_gmm_kernel_matches_plain(E, C, D, F, strided, dtype):
+    _card()
+    rng = np.random.RandomState(C + D + F)
+    dt_ = getattr(torch, dtype)
+    x = torch.as_tensor(rng.standard_normal((E, C, D)).astype(np.float32),
+                        device="cuda").to(dt_)
+    stacked = torch.as_tensor(rng.standard_normal((E, 2, D, F)).astype(
+        np.float32), device="cuda").to(dt_)
+    w = stacked[:, 1] if strided else stacked[:, 1].contiguous()
+    assert w.is_contiguous() != strided
+    before = moe_gmm.launches
+    got = moe_gmm.gmm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 1 and got.dtype == dt_
+    want = moe_gmm.gmm_plain(x, w)
+    scale = max(1.0, want.float().abs().max().item())
+    tol = (1e-5 if dtype == "float32" else 2 ** -7) * scale
+    assert (got.float() - want.float()).abs().max().item() <= tol

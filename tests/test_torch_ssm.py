@@ -439,7 +439,7 @@ def test_training_these_kinds_raises(arch):
 
 
 def test_unported_kinds_still_raise():
-    cfg = jreg.get_smoke("granite-moe-1b-a400m")
+    cfg = jreg.get_smoke("llama-3.2-vision-90b")      # its "cross" kind
     tcfg = treg.get_smoke(ZAMBA).replace(block_pattern=cfg.block_pattern,
                                          num_layers=cfg.num_layers)
     with pytest.raises(NotImplementedError, match="not ported yet"):
