@@ -12,12 +12,18 @@ Phases (any failure raises and the script exits non-zero):
                tolerances; times the kernel, the plain version and the one
                PyTorch call that computes the same function where there is
                one (a yardstick only: the port never calls it); computes the
-               card's bound.  Flash attention at phi4's prefill and at
-               zamba2's (dh 80); xent forward and backward at the train
+               card's bound.  Times are device times: CUDA events around
+               launches enqueued while a sleep kernel holds the stream, so
+               the host's launch cost is not counted; the median of three.  Flash attention at phi4's prefill, zamba2's
+               (dh 80) and granite-moe's (dh 64); xent forward and backward
+               at the train
                phase's loss chunk; AdamW at phi4's embedding; the SSD scan at
                zamba2's prefill and WKV6 at rwkv6's; the grouped matmul at
                granite-moe's prefill and decode buckets (f32, f16, bf16),
-               ragged and strided shapes;
+               ragged and strided shapes, timed warm (20 launches on one
+               copy) and cold (rotating through copies of x and w that
+               together exceed the 50 MB L2 several times, as a decode
+               step walks 72 distinct weight matrices), torch.bmm alike;
   4. small   — phi4 smoke config in f32: the card's prefill logits (through
                the kernel) against the CPU's (through the plain version);
                then zamba2 smoke with two groups (12 layers) and rwkv6 smoke
@@ -83,6 +89,8 @@ PROMPT, GEN, SLOTS, BLOCK = 512, 64, 4, 16
 SYSTEM_PREFIX = 448                            # shared by half the requests
 GEN_LENS = (16, 64, 8, 32)                     # cycled stop lengths
 ZAMBA_ATTN = (1, 32, 32, PROMPT, PROMPT, 80)   # zamba2's shared attention
+GRANITE_ATTN = (1, 16, 8, PROMPT, PROMPT, 64)  # granite-moe's attention
+COLD_BYTES = 150e6        # cold timing: > 2x a prefill bucket, > 3x a decode
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_K = 2, 1024, 6, 3
 GRAD_RTOL = 0.05          # bf16 vs f32 first-batch grad norm, per leaf
 
@@ -103,33 +111,106 @@ def phase_device() -> str:
     return smi
 
 
+def _ptxas_report(text: str):
+    """(kernel, registers, static shared memory, spill line) for each entry
+    function in nvcc's -Xptxas -v output, names demangled by c++filt where
+    the machine has it."""
+    rows, name, spill = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used " in line and name:
+            regs = line.split("Used ")[1].split(" registers")[0]
+            smem = (line.split(", ")[-1].split(" bytes smem")[0]
+                    if "bytes smem" in line else "0")
+            rows.append([name, regs, smem, spill])
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for row, demangled in zip(rows, names):
+                row[0] = demangled.replace("(anonymous namespace)::", "")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return rows
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     out = build.build_all()
     log(f"[build] {sorted(out)} in {time.perf_counter() - t0:.2f} s")
     for name, text in out.items():
-        regs = sorted({line.split("Used ")[1].split(",")[0]
-                       for line in text.splitlines() if "Used " in line})
-        spills = [line.strip() for line in text.splitlines()
-                  if "spill" in line and "0 bytes spill stores, 0 bytes "
-                  "spill loads" not in line]
-        log(f"[build:{name}] ptxas: {', '.join(regs)} per instantiation; "
-            f"spills: {spills or 'none'}")
+        for kernel, regs, smem, spill in _ptxas_report(text):
+            log(f"[build:{name}] {kernel}: {regs} registers, {smem} bytes "
+                f"static shared memory; {spill}")
 
 
-def _time_ms(fn, iters: int = 20) -> float:
-    for _ in range(3):
-        fn()
+MAX_CLOCK_HZ = 2.0e9      # above any H100 SM clock, so holds last long enough
+
+
+def _hold_stream(ms: float) -> None:
+    """Keep the current stream busy for at least `ms` with a sleep kernel,
+    so that launches enqueued meanwhile wait behind it: events recorded
+    after it then time the device's work, not the host's launch rate (a
+    wrapper call costs tens of microseconds of Python, as long as the fast
+    kernels themselves)."""
+    torch.cuda._sleep(int(ms * 1e-3 * MAX_CLOCK_HZ))
+
+
+def _device_ms(calls) -> float:
+    """Device time of the calls (a list of thunks) run back to back, in ms
+    a call: the stream is held while the host enqueues them."""
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls[0]()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    _hold_stream(2.0 + 3.0 * host_ms * len(calls))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for call in calls:
+        call()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / len(calls)
+
+
+def _host_us(fn, calls: int = 50) -> float:
+    """Host time of one call of fn in microseconds: what the Python around
+    a launch costs, the floor of a host-bound loop of such calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def _time_ms(fn, iters: int = 20) -> float:
+    """Warm device time of fn, one launch after another on one input: the
+    median of three runs of `iters` launches."""
+    for _ in range(3):
+        fn()
+    return statistics.median(_device_ms([fn] * iters) for _ in range(3))
+
+
+def _time_cold_ms(fn, args_list, rounds: int = 4) -> float:
+    """Device time of fn(*args) over `rounds` passes through args_list, whose
+    entries are distinct copies of the inputs: when their bytes exceed the
+    L2 cache several times over, each launch finds its inputs in HBM.  The
+    median of three such runs."""
+    for args in args_list:
+        fn(*args)
+    calls = [lambda a=args: fn(*a) for args in args_list] * rounds
+    return statistics.median(_device_ms(calls) for _ in range(3))
 
 
 def _attention_bound(B, H, KV, Sq, Sk, dh, causal, dtype):
@@ -150,6 +231,7 @@ def phase_kernels(main_shape):
     cases = [  # (B, H, KV, Sq, Sk, dh, causal, dtype, tolerance)
         main_shape + (True, torch.bfloat16, 2e-2),
         ZAMBA_ATTN + (True, torch.bfloat16, 2e-2),               # dh 80
+        GRANITE_ATTN + (True, torch.bfloat16, 2e-2),             # dh 64
         (2, 4, 2, 130, 130, 80, True, torch.float32, 2e-5),
         (1, 24, 8, 300, 300, 128, True, torch.bfloat16, 2e-2),   # ragged
         (2, 24, 8, 300, 300, 128, False, torch.bfloat16, 2e-2),
@@ -175,7 +257,8 @@ def phase_kernels(main_shape):
                                  f"version at {shape}: {err} > {tol}")
         rows.append((shape, err, q, k, v, causal))
     timed = {}
-    for i, shape_args in ((0, main_shape), (1, ZAMBA_ATTN)):
+    for i, shape_args in ((0, main_shape), (1, ZAMBA_ATTN),
+                          (2, GRANITE_ATTN)):
         shape, err, q, k, v, causal = rows[i]
         ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
         plain_ms = _time_ms(lambda: fa.attention_plain(q, k, v,
@@ -184,19 +267,23 @@ def phase_kernels(main_shape):
         library_ms = _time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=g > 1))
+        host_us = _host_us(lambda: fa.flash_attention(q, k, v,
+                                                      causal=causal))
         bound_ms, bound_by = _attention_bound(*shape_args, causal, q.dtype)
         log(f"[kernels] flash timed at {shape}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by})")
+            f"{bound_ms:.5f} ms ({bound_by}); the wrapper's host time "
+            f"{host_us:.1f} us a call")
         timed[i] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": library_ms, "shape": shape}
+                    "library_ms": library_ms, "shape": shape,
+                    "host_us": host_us}
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:25",
             "launches": None, **timed[0],
-            "edge_shapes_max_abs_err": max(r[1] for r in rows[2:]),
-            "zamba2_dh80": timed[1]}
+            "edge_shapes_max_abs_err": max(r[1] for r in rows[3:]),
+            "zamba2_dh80": timed[1], "granite_dh64": timed[2]}
 
 
 def _bound(nbytes: float, flops: float, dtype=torch.float32):
@@ -555,9 +642,10 @@ def _gmm_work(x, w):
 def phase_gmm():
     """The grouped matmul against its plain version on the card at
     granite-moe's buckets (prefill C 200, decode C 2; gate/up and out) in
-    bf16, f32 and f16, at tests/test_kernels.py's shapes, and at ragged and
-    strided edge shapes; timed (with torch.bmm as the yardstick) at the
-    four bf16 bucket shapes."""
+    bf16, f32 and f16, at tests/test_kernels.py's shapes, on both sides of
+    the small-C path's limit (C 8 and 9, 16 and 17), and at ragged and
+    strided edge shapes; timed at the four bf16 bucket shapes, warm and
+    cold, with torch.bmm as the yardstick timed alike."""
     from repro_torch.kernels import moe_gmm
     gen = torch.Generator(device="cuda").manual_seed(10)
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
@@ -584,6 +672,10 @@ def phase_gmm():
         (1, 130, 1024, 512, bf, "", "one expert, C=130"),
         (4, 37, 72, 40, f32, "group", "group slice of (G,E,D,F), F=40 of 64"),
         (4, 37, 72, 40, bf, "expert", "expert-strided w and x views"),
+        (32, 8, 1024, 512, bf, "", "C=8, the small-C path's largest"),
+        (32, 9, 1024, 512, bf, "", "C=9, the tensor-core path's smallest"),
+        (32, 16, 512, 1024, f16, "", "C=16 f16"),
+        (32, 17, 512, 1024, bf, "expert", "C=17, expert-strided views"),
     ]
     errs, timed = [], []
     for E, C, D, F, dtype, layout, label in cases:
@@ -612,24 +704,42 @@ def phase_gmm():
         errs.append(err)
         if len(timed) < 4:
             timed.append((label, x, w, err))
+        del x, w, got, want
     rows = []
     for label, x, w, err in timed:
-        ms = _time_ms(lambda: moe_gmm.gmm(x, w))
-        plain_ms = _time_ms(lambda: moe_gmm.gmm_plain(x, w))
-        library_ms = _time_ms(lambda: torch.bmm(x, w))
         nbytes, flops = _gmm_work(x, w)
+        copies = [(x, w)] + [
+            (torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype),
+             torch.randn(w.shape, generator=gen, device="cuda").to(w.dtype))
+            for _ in range(max(1, math.ceil(COLD_BYTES / nbytes) - 1))]
+        ms = _time_cold_ms(moe_gmm.gmm, copies)
+        library_ms = _time_cold_ms(torch.bmm, copies)
+        ms_warm = _time_ms(lambda: moe_gmm.gmm(x, w))
+        library_warm = _time_ms(lambda: torch.bmm(x, w))
+        plain_ms = _time_ms(lambda: moe_gmm.gmm_plain(x, w))
+        host_us = _host_us(lambda: moe_gmm.gmm(x, w))
+        n_copies = len(copies)
+        del copies
         bound_ms, bound_by = _bound(nbytes, flops, x.dtype)
-        log(f"[kernels] gmm timed at {label}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms, bound "
+        log(f"[kernels] gmm timed at {label}: cold ({n_copies} copies, "
+            f"{n_copies * nbytes / 1e6:.0f} MB) kernel {ms:.4f} ms, torch.bmm "
+            f"{library_ms:.4f} ms; warm kernel {ms_warm:.4f} ms, torch.bmm "
+            f"{library_warm:.4f} ms; plain {plain_ms:.4f} ms; bound "
             f"{bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.2f} MB, "
-            f"{flops / 1e9:.3f} GFLOP)")
+            f"{flops / 1e9:.3f} GFLOP); the wrapper's host time "
+            f"{host_us:.1f} us a call")
         rows.append({"shape": label, "max_abs_err": err, "ms": ms,
+                     "host_us": host_us,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms})
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "ms_warm": ms_warm, "library_ms_warm": library_warm,
+                     "cold_copies": n_copies})
     return {"name": "moe_gmm", "route": "cuda",
             "source": "src/repro_torch/csrc/moe_gmm.cu",
             "replaces": "src/repro/kernels/moe_gmm.py:21", "launches": None,
             **rows[0], "library": "torch.bmm",
+            "timing": "ms and library_ms cold (inputs rotated through "
+                      "copies beyond L2); *_warm and plain_ms on one copy",
             "edge_shapes_max_abs_err": max(errs[4:]),
             "prefill_out": rows[1], "decode_gate_up": rows[2],
             "decode_out": rows[3]}

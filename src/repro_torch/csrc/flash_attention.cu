@@ -3,50 +3,67 @@
 // Replaces the JAX package's Pallas TPU kernel
 // kernels/flash_attention.py:_flash_kernel (launched by flash_attention):
 //   out = softmax(q k^T * scale [causal]) v
-// with an online max and sum over k tiles, f32 accumulators, and the
-// result written in q's dtype.
+// with an online max and sum over k tiles, f32 accumulators and row
+// statistics, and the result written in q's dtype.
 //
 // Layout: q (B,H,Sq,dh), k/v (B,KV,Sk,dh), o (B,H,Sq,dh), each given by its
 // (batch, head, seq) strides in elements with a unit stride on dh, so the
 // caller may pass transposed views without a copy.  Query head h reads KV
-// head h / (H / KV) (native GQA; KV == H is the Pallas kernel's case).
+// head h / (H / KV) (native GQA; KV == H is the Pallas kernel's case).  For
+// f16/bf16 the base pointers and strides must be 16-byte aligned (the
+// wrapper checks): every copy is 16 bytes.
 //
 // Mask: the causal mask is bottom-right aligned like the oracle
 // (kernels/ref.py attention_ref, tril(k = Sk - Sq)): key j is visible to
 // query i iff j <= i + Sk - Sq.  Masked scores are NEG_INF (-1e30), as in
 // the oracle, so a fully masked row averages v uniformly there too; keys
 // past Sk (the ragged tail of the last tile) are -inf and add nothing.
-//
-// Head dims 16, 32, 64, 80 and 128 are instantiated; each lane owns the
-// output columns lane + 32 c, so dh 80 leaves the third column's upper
-// lanes idle and needs no padding.
-//
-// Design.  One block owns one (batch, head, 64-row q tile); a loop inside
-// the block walks the 64-row k tiles (the Pallas grid's sequential k axis).
-// Q, K and V tiles are staged in shared memory as f32, so one code path
-// serves f32, f16 and bf16.  256 threads: for S = Q K^T each thread owns a
-// 4x4 micro-tile; for the softmax and for P V each warp owns 8 query rows,
-// so the row statistics and the output accumulator stay in registers.
-// Scores carry scale * log2(e), and exp2 replaces exp.  When every row of
-// the q tile sees key 0 (causal with Sq <= Sk), k tiles wholly above the
-// diagonal are skipped: their probabilities are exactly 0.
+// When every row of a q tile sees key 0 (causal with Sq <= Sk), k tiles
+// wholly above the diagonal are skipped: their probabilities are exactly 0.
+// Head dims 16, 32, 64, 80 and 128 are instantiated.
 //
 // Bound on an H100 at phi4-mini prefill shapes (B=1, H=24, KV=8, S=512,
 // dh=128, bf16): q, k, v and o are 8.4 MB and the causal work 1.6 GFLOP,
 // so the card's floor is the 2.5 us of memory traffic, not the 1.6 us of
-// tensor-core math.  This first version does its math on the CUDA cores
-// in f32 and reloads each K/V tile once per q tile; it is far from that
-// floor.  Tensor-core MMAs (wgmma) and TMA loads are the later work.
+// tensor-core math; a kernel near it keeps scores out of device memory,
+// reads k and v once per q tile from L2 and keeps the tensor cores fed.
+//
+// f16/bf16: flash_fwd_mma, FlashAttention-2 style.  One block of 4 warps
+// owns one (batch, head, 64-row q tile); each warp owns 16 query rows, and
+// its Q fragments are loaded once and held in registers over the k loop.
+// K and V tiles of 64 keys are double-buffered in shared memory by
+// 16-byte cp.async copies (rows padded by 16 bytes, so ldmatrix hits all
+// 32 banks; rows past Sq and Sk are zero-filled), the next tile in flight
+// while this one is multiplied.  S = Q K^T is mma.sync m16n8k16 with f32
+// accumulators (K fragments through ldmatrix); the online max and sum run
+// on the accumulator fragments, with two quad shuffles for a row's max and
+// one reduction of its sum at the end; P is rounded to q's type in
+// registers (as the JAX model rounds its probabilities to v's dtype before
+// P V) and fed straight back as the A operand of P V, whose V fragments
+// come through ldmatrix.trans.  dh 80 is five k16 steps.  Q and two K/V
+// stages take 87 KB of shared memory at dh 128 (two blocks an SM).  The
+// grid walks the q tiles from the last, so the causal tiles with the most
+// k tiles start first, one an SM; the blocks past the first SM-count take
+// the lightest tiles first, so an SM's second block pairs light with
+// heavy.  At phi4's prefill shape this is about 9x the byte
+// bound and 1.7x PyTorch's SDPA (PERF.md); wgmma with TMA and warp
+// specialization (FlashAttention-3's design) is the next step.
+//
+// f32: flash_fwd, the CUDA-core kernel of the first port (one block of 256
+// threads per 64-row q tile, Q, K and V staged as f32 in shared memory,
+// f32 FMA); TF32 products would not hold f32's 2e-5 tolerance.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_sm80.cuh"
+
 namespace {
 
-constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 64;                 // key rows per tile
+constexpr int BQ = 64;                 // f32: query rows per block
+constexpr int BK = 64;                 // f32: key rows per tile
 constexpr int NT = 256;                // threads per block
 constexpr int WARPS = NT / 32;
 constexpr int ROWS = BQ / WARPS;       // query rows per warp (softmax, PV)
@@ -92,11 +109,17 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
-  int H, KV, Sq, Sk;
+  int B, H, KV, Sq, Sk;
   long long qs[3], ks[3], vs[3], os[3];  // (batch, head, seq) strides
   float scale_log2;                       // softmax scale * log2(e)
   int causal;
 };
+
+// ---------------------------------------------------------------- f32,
+// CUDA cores (the first port's kernel).  256 threads: for S = Q K^T each
+// thread owns a 4x4 micro-tile; for the softmax and for P V each warp owns
+// 8 query rows, and lane owns the output columns lane + 32 c.  Q is
+// pre-scaled by scale * log2(e), and exp2 replaces exp.
 
 template <int DH>
 constexpr int smem_floats() {
@@ -240,6 +263,244 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
   }
 }
 
+// ---------------------------------------------------------------- f16/bf16,
+// tensor cores
+
+constexpr int MQ = 64;                 // query rows per block, 16 a warp
+constexpr int MK = 64;                 // keys per tile
+constexpr int MNT = 128;               // 4 warps
+
+template <int DH>
+constexpr int mma_smem_bytes() {       // Q, then K and V in two stages
+  return (MQ + 4 * MK) * (DH + 8) * 2;
+}
+
+// Copies rows [row0, row0 + 64) of a (rows, DH) matrix with row stride
+// `stride` into a padded tile, zero from row `limit` on.
+template <typename T, int DH>
+__device__ __forceinline__ void load_rows(T* dst, const T* src,
+                                          long long stride, int row0,
+                                          int limit, int tid) {
+  constexpr int CH = DH / 8;           // 16-byte chunks a row
+  static_assert(64 * CH % MNT == 0, "whole chunks a thread");
+#pragma unroll
+  for (int i = 0; i < 64 * CH / MNT; ++i) {
+    const int c = tid + i * MNT;
+    const int r = c / CH, col = (c % CH) * 8;
+    const bool in = row0 + r < limit;
+    tc::cp_async16(dst + r * (DH + 8) + col,
+                   in ? src + (row0 + r) * stride + col : src, in ? 16 : 0);
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(MNT) flash_fwd_mma(Args a, int q_tiles,
+                                                     int first_wave) {
+  constexpr int LD = DH + 8;           // padded row, elements
+  constexpr int KS = DH / 16;          // k16 steps of Q K^T, n16 pairs of P V
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);   // [MQ][LD]
+  T* sK = sQ + MQ * LD;                     // [2][MK][LD]
+  T* sV = sK + 2 * MK * LD;                 // [2][MK][LD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // Work items run from the heaviest (the last q tile of every head) to
+  // the lightest.  The first block an SM takes the heaviest ones; the
+  // blocks after them take the lightest first, so an SM that holds two
+  // blocks pairs a heavy item with a light one.
+  int item = blockIdx.x;
+  if (item >= first_wave)
+    item = gridDim.x - 1 - (item - first_wave);
+  const int BH = a.B * a.H;
+  const int h = item % a.H, b = (item / a.H) % a.B;
+  const int q0 = (q_tiles - 1 - item / BH) * MQ;
+  const int kvh = h / (a.H / a.KV);
+  const T* qp = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[1];
+  const T* kp = static_cast<const T*>(a.k) + b * a.ks[0] + kvh * a.ks[1];
+  const T* vp = static_cast<const T*>(a.v) + b * a.vs[0] + kvh * a.vs[1];
+  T* op = static_cast<T*>(a.o) + b * a.os[0] + h * a.os[1];
+  const int diag = a.Sk - a.Sq;         // j visible to i iff j <= i + diag
+
+  // Skip k tiles wholly above the diagonal only when every query row sees
+  // key 0; otherwise a fully masked row must still average all of v.
+  int kv_end = a.Sk;
+  if (a.causal && diag >= 0) kv_end = min(a.Sk, q0 + MQ + diag);
+  const int n_tiles = (kv_end + MK - 1) / MK;
+
+  load_rows<T, DH>(sQ, qp, a.qs[2], q0, a.Sq, tid);
+  tc::cp_async_commit();
+  load_rows<T, DH>(sK, kp, a.ks[2], 0, a.Sk, tid);
+  load_rows<T, DH>(sV, vp, a.vs[2], 0, a.Sk, tid);
+  tc::cp_async_commit();
+
+  // ldmatrix lane offsets.  A fragments (Q) and V (transposed): rows
+  // (l % 8) + 8 ((l / 8) % 2), columns 8 (l / 16).  K: keys (l % 8) +
+  // 8 (l / 16), columns 8 ((l / 8) % 2).
+  const int ar = (lane & 7) + ((lane >> 3) & 1) * 8, ac = (lane >> 4) * 8;
+  const int kr = (lane & 7) + (lane >> 4) * 8, kc = ((lane >> 3) & 1) * 8;
+  const int g = lane >> 2, qd = lane & 3;
+  const int i0 = q0 + warp * 16 + g;    // this lane's rows: i0 and i0 + 8
+
+  // Q fragments, held in registers over the whole k loop
+  tc::cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    tc::ldmatrix_x4(qf[ks], sQ + (warp * 16 + ar) * LD + ks * 16 + ac);
+
+  float o[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o[n][r] = 0.f;
+  float m_row[2] = {NEG_INF, NEG_INF}, l_row[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {
+      load_rows<T, DH>(sK + (buf ^ 1) * MK * LD, kp, a.ks[2], (t + 1) * MK,
+                       a.Sk, tid);
+      load_rows<T, DH>(sV + (buf ^ 1) * MK * LD, vp, a.vs[2], (t + 1) * MK,
+                       a.Sk, tid);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();                    // tile t landed
+    const T* kb = sK + buf * MK * LD;
+    const T* vb = sV + buf * MK * LD;
+
+    float s[MK / 8][4];
+#pragma unroll
+    for (int j = 0; j < MK / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < MK / 16; ++np) {
+        uint32_t bk[4];
+        tc::ldmatrix_x4(bk, kb + (np * 16 + kr) * LD + ks * 16 + kc);
+        tc::mma16816<T>(s[2 * np], qf[ks], bk[0], bk[1]);
+        tc::mma16816<T>(s[2 * np + 1], qf[ks], bk[2], bk[3]);
+      }
+    }
+
+    // Scores in log2 units; mask only the tiles that cross an edge.
+    const int k0 = t * MK;
+    const bool edge =
+        k0 + MK > a.Sk || (a.causal && k0 + MK - 1 > q0 + diag);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < MK / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float x = s[j][r] * a.scale_log2;
+        if (edge) {
+          const int key = k0 + j * 8 + 2 * qd + (r & 1);
+          if (key >= a.Sk)
+            x = -INFINITY;
+          else if (a.causal && key > i0 + (r >> 1) * 8 + diag)
+            x = NEG_INF;
+        }
+        s[j][r] = x;
+        mx[r >> 1] = fmaxf(mx[r >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {   // a row's four lanes share a quad
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m_row[hh], mx[hh]);
+      alpha[hh] = exp2f(m_row[hh] - m_new);
+      m_row[hh] = m_new;
+      l_row[hh] *= alpha[hh];
+    }
+#pragma unroll
+    for (int j = 0; j < MK / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p = exp2f(s[j][r] - m_row[r >> 1]);
+        s[j][r] = p;
+        l_row[r >> 1] += p;             // this lane's part, in f32
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V: two n8 tiles of S are one k16 A fragment of P.
+#pragma unroll
+    for (int kk = 0; kk < MK / 16; ++kk) {
+      const uint32_t pa[4] = {tc::pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                              tc::pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                              tc::pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              tc::pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < KS; ++dp) {
+        uint32_t bv[4];
+        tc::ldmatrix_x4_trans(bv, vb + (kk * 16 + ar) * LD + dp * 16 + ac);
+        tc::mma16816<T>(o[2 * dp], pa, bv[0], bv[1]);
+        tc::mma16816<T>(o[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();                    // buffer buf is free for tile t + 2
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = l_row[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float den = fmaxf(l, 1e-30f);
+    const int i = i0 + hh * 8;
+    if (i >= a.Sq) continue;
+    T* row = op + i * a.os[2];
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * qd) =
+          tc::pack2<T>(o[n][2 * hh] / den, o[n][2 * hh + 1] / den);
+  }
+}
+
+template <typename T, int DH>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes<DH>();
+  static unsigned long long smem_set = 0;
+  const cudaError_t e = tc::allow_smem(flash_fwd_mma<T, DH>, smem, smem_set);
+  if (e != cudaSuccess) return e;
+  int sms = 0;
+  const cudaError_t e2 = tc::sm_count(&sms);
+  if (e2 != cudaSuccess) return e2;
+  const int q_tiles = (a.Sq + MQ - 1) / MQ;
+  const long long blocks = (long long)q_tiles * a.B * a.H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_mma<T, DH><<<static_cast<unsigned>(blocks), MNT, smem, stream>>>(
+      a, q_tiles, sms);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_mma_dh(const Args& a, int dh, cudaStream_t stream) {
+  switch (dh) {
+    case 16: return launch_mma<T, 16>(a, stream);
+    case 32: return launch_mma<T, 32>(a, stream);
+    case 64: return launch_mma<T, 64>(a, stream);
+    case 80: return launch_mma<T, 80>(a, stream);   // zamba2's shared attention
+    case 128: return launch_mma<T, 128>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------- f32
+// launch
+
 template <typename T, int DH>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const int smem = smem_floats<DH>() * static_cast<int>(sizeof(float));
@@ -281,6 +542,7 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
   a.k = k;
   a.v = v;
   a.o = o;
+  a.B = B;
   a.H = H;
   a.KV = KV;
   a.Sq = Sq;
@@ -296,8 +558,8 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_dh<float>(a, B, dh, s);
-    case 1: return launch_dh<__half>(a, B, dh, s);
-    case 2: return launch_dh<__nv_bfloat16>(a, B, dh, s);
+    case 1: return launch_mma_dh<__half>(a, dh, s);
+    case 2: return launch_mma_dh<__nv_bfloat16>(a, dh, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C entry point.  At its
-first launch in a process, ``load(name)`` compiles it for Hopper
-(``sm_90a``) into ``<repo>/build/kernels/lib<name>-<hash>.so``, where the
-hash covers the source and the flags, and loads it.  A file with a plain C
+Each kernel is one ``csrc/<name>.cu`` with a plain C entry point (the
+tensor-core kernels share ``csrc/*.cuh`` headers).  At its first launch in
+a process, ``load(name)`` compiles it for Hopper (``sm_90a``) into
+``<repo>/build/kernels/lib<name>-<hash>.so``, where the hash covers the
+source, the headers and the flags, and loads it.  A file with a plain C
 interface builds in seconds; nothing includes PyTorch's headers.
 ``build_all`` compiles every kernel at once, one ``nvcc`` per source.
 """
@@ -99,8 +100,27 @@ def nvcc() -> str:
                        "from source on a machine with the CUDA toolkit")
 
 
+def require_aligned16(name: str, t) -> None:
+    """Raise ``ValueError`` unless every row of ``t`` starts on 16 bytes:
+    its data pointer and the stride of each axis but the last (of size
+    above 1) are multiples of 16 bytes.  The f16/bf16 kernels copy 16-byte
+    chunks with ``cp.async`` or vector loads, which need that."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}'s data pointer is {t.data_ptr() % 16} bytes "
+                         f"past a 16-byte boundary: the kernel copies "
+                         f"16-byte chunks")
+    item = t.element_size()
+    for dim in range(t.dim() - 1):
+        if t.shape[dim] > 1 and t.stride(dim) * item % 16:
+            raise ValueError(f"{name}.stride({dim}) is {t.stride(dim)} "
+                             f"elements ({t.stride(dim) * item} bytes), not a "
+                             f"multiple of 16 bytes: the kernel copies "
+                             f"16-byte chunks")
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

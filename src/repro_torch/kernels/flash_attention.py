@@ -12,9 +12,14 @@ S=512, dh=128, bf16) the inputs and output are 8.4 MB against 1.6 GFLOP of
 causal work, so the floor is memory traffic (2.5 us at 3.35 TB/s), not the
 tensor cores (1.6 us at 989 TFLOP/s).  The design reads q, k and v in place
 through their strides (no repeat of KV heads, no transpose copy), keeps
-scores and probabilities in shared memory and never writes them out, and
-skips k tiles above the causal diagonal.  This first version does its math
-on the CUDA cores in f32; tensor-core MMAs are later work.
+scores and probabilities on chip (registers; shared memory in f32) and
+never writes them out, and skips k tiles above the causal diagonal.  In
+f16/bf16 it is FlashAttention-2 on the tensor cores: ``mma.sync`` for
+Q K^T and P V, K/V tiles double-buffered by ``cp.async``, P rounded to q's
+dtype before P V (as the JAX model rounds its probabilities,
+``models/attention.py``), row statistics and the final rescale in f32.
+f32 keeps the first port's CUDA-core kernel: TF32 products would not hold
+its tolerance.
 
 Differences from the Pallas kernel, on purpose:
   * GQA is native: k/v are (B, KV, Sk, dh) with KV dividing H, and query
@@ -71,9 +76,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,H,Sq,dh); k/v (B,KV,Sk,dh) -> (B,H,Sq,dh) in q.dtype.
 
     The inputs may be strided views (e.g. ``x.transpose(1, 2)`` of a
-    (B,S,H,dh) projection) as long as dh is contiguous.  On CUDA the
-    result is a (B,H,Sq,dh) view of a (B,Sq,H,dh) buffer, so transposing
-    it back to the model layout costs no copy.
+    (B,S,H,dh) projection) as long as dh is contiguous, and in f16/bf16
+    their rows start on 16 bytes (``ValueError`` otherwise, naming the
+    stride).  On CUDA the result is a (B,H,Sq,dh) view of a (B,Sq,H,dh)
+    buffer, so transposing it back to the model layout costs no copy.
     """
     global launches
     _check(q, k, v)
@@ -92,6 +98,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k, v must be on one device")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
+    if q.dtype != torch.float32:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            build.require_aligned16(name, t)
     out = torch.empty((B, Sq, H, dh), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(

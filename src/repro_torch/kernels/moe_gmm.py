@@ -8,6 +8,15 @@ expert buckets all run through it, in prefill and in decode.  The CUDA
 source is ``repro_torch/csrc/moe_gmm.cu``; its header says how the Pallas
 grid maps onto CUDA blocks and what bounds the kernel on an H100.
 
+Both of granite-moe's buckets are bytes-bound on an H100 (the prefill
+bucket moves 53.2 MB for 6.7 GFLOP, 15.9 us at 3.35 TB/s; the decode one
+streams 33.6 MB of weights, 10.1 us), so the kernel picks its path by the
+dtype and C to stream the weights once at the card's rate: f16/bf16 with
+C above 8 multiply on the tensor cores (``mma.sync``) from a ring of
+``cp.async`` stages; f16/bf16 with C of 8 or less, a decode step's
+buckets, run a batched GEMV with 16-byte weight loads; f32 keeps the
+first port's CUDA-core kernel, since TF32 would not hold f32's tolerance.
+
 Beyond the Pallas kernel, which asserts that C, D and F divide its
 128-wide blocks, this one masks ragged C, D and F: the model's bucket
 capacities (200 rows in a 512-token prefill, 2 in a 4-slot decode step)
@@ -51,8 +60,9 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E,C,D) @ w (E,D,F) -> (E,C,F) in x.dtype, summed in f32.
 
     x and w share one dtype (f32, f16 or bf16) on the card; each may be a
-    strided view whose last axis is contiguous.  Nothing is launched when
-    the output is empty.
+    strided view whose last axis is contiguous, and in f16/bf16 its rows
+    start on 16 bytes (``ValueError`` otherwise, naming the stride).
+    Nothing is launched when the output is empty.
     """
     global launches
     _check(x, w)
@@ -67,6 +77,9 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                         f"one of {list(_DTYPE_CODE)} for both")
     if x.stride(2) != 1 or w.stride(2) != 1:
         raise ValueError("the last axis of x and w must be contiguous")
+    if x.dtype != torch.float32:
+        build.require_aligned16("x", x)
+        build.require_aligned16("w", w)
     E, C, D = x.shape
     F = w.shape[2]
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)

@@ -31,7 +31,10 @@ from repro_torch.runtime import steps as steps_mod
 from repro_torch.serving.engine import ServingEngine
 
 PROMPT, GEN, SLOTS, STEPS, SEED, BLOCK = 512, 64, 4, 8, 0, 16
-# the port's kernels, by the name of their CUDA function
+# the port's kernels, by a part of their CUDA functions' names: flash_fwd
+# matches flash_fwd_mma (f16/bf16) and flash_fwd (f32); gmm_fwd matches
+# gmm_fwd_mma and gmm_fwd_gemv (f16/bf16, C above 8 and up to 8) and
+# gmm_fwd (f32)
 OWN_KERNELS = {"flash": "flash_fwd", "ssd": "ssd_fwd", "wkv6": "wkv_fwd",
                "gmm": "gmm_fwd"}
 

@@ -15,7 +15,10 @@ WKV6 scans 1e-4 of the output's scale (kernel and plain version compute in
 f32 from the same inputs, chunked differently: the sums run in another
 order); the grouped matmul 1e-5 of the output's scale in f32 (sums over D
 in another order) and 2^-7 of it in f16/bf16 (one rounding of the output,
-which a different f32 sum can push across a rounding boundary).
+which a different f32 sum can push across a rounding boundary).  In
+f16/bf16 the flash kernel also rounds P to the input type before P V, as
+the JAX model does; tests/test_torch_kernels.py shows on the CPU that the
+2e-2 tolerance covers that rounding at phi4's prefill shape.
 """
 import numpy as np
 import pytest
@@ -59,6 +62,55 @@ def test_cuda_kernel_matches_plain(dtype):
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,causal", [
+    (1, 4, 2, 130, 130, True),     # ragged last q and k tile, GQA
+    (2, 4, 2, 100, 100, False),    # full attention, two batches
+    (1, 4, 4, 48, 130, True),      # Sq < Sk (bottom-right mask), KV == H
+    (1, 4, 2, 130, 48, True),      # Sq > Sk: the first rows see no key
+    (1, 6, 3, 1, 77, True),        # one query row
+])
+def test_flash_tensor_core_path_every_head_dim(B, H, KV, Sq, Sk, causal, dh,
+                                               dtype):
+    _card()
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(x).to("cuda", dt)
+               for x in _qkv(B, H, KV, Sq, Sk, dh, seed=Sq + Sk + dh))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.dtype == dt
+    want = fa.attention_plain(q, k, v, causal=causal)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_on_unaligned_16bit_views():
+    """The f16/bf16 kernels copy 16-byte chunks: a view whose rows do not
+    start on 16 bytes is refused, naming the stride, and launches
+    nothing; the f32 kernels take it."""
+    _card()
+    bf = torch.bfloat16
+    x = torch.randn(4, 8, 72, device="cuda").to(bf)
+    w = torch.randn(4, 72, 44, device="cuda").to(bf)
+    q = torch.randn(1, 4, 64, 68, device="cuda").to(bf)
+    kv = torch.randn(1, 2, 64, 64, device="cuda").to(bf)
+    before = (moe_gmm.launches, fa.launches)
+    with pytest.raises(ValueError, match=r"w\.stride\(1\) is 44"):
+        moe_gmm.gmm(x, w[:, :, :40])             # 88-byte rows
+    with pytest.raises(ValueError, match="x's data pointer"):
+        moe_gmm.gmm(x[:, :, 1:65], w[:, :64, :40].contiguous())
+    with pytest.raises(ValueError, match=r"q\.stride\(2\) is 68"):
+        fa.flash_attention(q[..., :64], kv, kv)   # 136-byte rows
+    assert (moe_gmm.launches, fa.launches) == before
+    got = moe_gmm.gmm(x.float(), w[:, :, :40].float())
+    want = moe_gmm.gmm_plain(x.float(), w[:, :, :40].float())
+    assert moe_gmm.launches == before[0] + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -215,3 +267,55 @@ def test_gmm_kernel_matches_plain(E, C, D, F, strided, dtype):
     scale = max(1.0, want.float().abs().max().item())
     tol = (1e-5 if dtype == "float32" else 2 ** -7) * scale
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("C", [1, 2, 16, 17, 200])
+@pytest.mark.parametrize("strided", [False, True])
+def test_gmm_both_paths_at_small_and_large_c(C, strided, dtype):
+    """C <= 8 takes the GEMV path and larger C the tensor-core one in
+    f16/bf16 (f32 keeps the CUDA-core kernel): granite's gate/up shape at
+    each C, contiguous and as expert-strided views of wider buffers."""
+    _card()
+    E, D, F = 32, 1024, 512
+    rng = np.random.RandomState(C)
+    dt_ = getattr(torch, dtype)
+    xs = torch.as_tensor(rng.standard_normal((2 * E, C, D + 8)).astype(
+        np.float32), device="cuda").to(dt_)
+    ws = torch.as_tensor(rng.standard_normal((2 * E, D, F)).astype(
+        np.float32), device="cuda").to(dt_)
+    if strided:
+        x, w = xs[::2, :, :D], ws[::2]
+    else:
+        x, w = xs[:E, :, :D].contiguous(), ws[:E].contiguous()
+    before = moe_gmm.launches
+    got = moe_gmm.gmm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 1 and got.shape == (E, C, F)
+    want = moe_gmm.gmm_plain(x, w)
+    scale = max(1.0, want.float().abs().max().item())
+    tol = (1e-5 if dtype == "float32" else 2 ** -7) * scale
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("C", [2, 37])
+def test_gmm_ragged_d_and_f_inside_aligned_rows(C, dtype):
+    """D 76 and F 44, neither a whole number of 16-byte chunks, as views
+    of buffers whose rows are: the copies' zero-filled tails and the
+    scalar edge stores, on the GEMV (C 2) and tensor-core (C 37) paths."""
+    _card()
+    E, D, F = 3, 76, 44
+    rng = np.random.RandomState(C + D + F)
+    dt_ = getattr(torch, dtype)
+    x = torch.as_tensor(rng.standard_normal((E, C, 80)).astype(np.float32),
+                        device="cuda").to(dt_)[:, :, :D]
+    w = torch.as_tensor(rng.standard_normal((E, D, 48)).astype(np.float32),
+                        device="cuda").to(dt_)[:, :, :F]
+    got = moe_gmm.gmm(x, w)
+    torch.cuda.synchronize()
+    want = moe_gmm.gmm_plain(x, w)
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -7 * scale

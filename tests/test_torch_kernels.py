@@ -140,3 +140,71 @@ def test_cpu_path_does_not_count_launches():
     q, k, v = (torch.as_tensor(x) for x in _qkv(1, 2, 2, 8, 8, 16))
     fa.flash_attention(q, k, v)
     assert fa.launches == before
+
+
+def _attention_p_rounded(q, k, v, dtype):
+    """The oracle with the probabilities rounded to ``dtype`` before P V,
+    as the tensor-core kernel (and the JAX model) rounds them."""
+    g = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(g, dim=1).float()
+    v = v.repeat_interleave(g, dim=1).float()
+    Sq, Sk, dh = q.shape[2], k.shape[2], q.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * dh ** -0.5
+    mask = torch.ones((Sq, Sk), dtype=torch.bool).tril(diagonal=Sk - Sq)
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(dtype).float()
+    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(dtype)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_probability_rounding_stays_inside_the_card_tolerance(seed):
+    """chip_smoke.py and tests/test_torch_gpu.py hold the bf16 kernel to
+    2e-2 of the oracle, which keeps P in f32.  At phi4's prefill shape
+    (24/8 heads, S 512, dh 128, causal) rounding P to bf16 before P V
+    moves the output by about one bf16 ulp of |2-4| outputs, inside that
+    tolerance: the tensor-core kernel may round P as the JAX model does."""
+    q, k, v = (torch.as_tensor(x).bfloat16()
+               for x in _qkv(1, 24, 8, 512, 512, 128, seed=seed))
+    want = fa.attention_plain(q, k, v, causal=True)
+    got = _attention_p_rounded(q, k, v, torch.bfloat16)
+    gap = (got.float() - want.float()).abs().max().item()
+    assert 0 < gap <= 2e-2
+
+
+@pytest.mark.parametrize("make,message", [
+    (lambda: torch.zeros(4, 8, 72, dtype=torch.bfloat16), None),
+    (lambda: torch.zeros(4, 8, 80, dtype=torch.bfloat16)[:, :, :72], None),
+    (lambda: torch.zeros(1, 3, 36, dtype=torch.bfloat16)[:, :1], None),
+    (lambda: torch.zeros(4, 8, 44, dtype=torch.bfloat16)[:, :, :40],
+     r"t\.stride\(1\) is 44 elements \(88 bytes\)"),
+    (lambda: torch.zeros(1, 3, 36, dtype=torch.float16),
+     r"t\.stride\(1\) is 36 elements \(72 bytes\)"),
+    (lambda: torch.zeros(3, 1, 36, dtype=torch.bfloat16),
+     r"t\.stride\(0\) is 36 elements"),
+    (lambda: torch.zeros(4, 8, 72, dtype=torch.bfloat16)[:, :, 1:],
+     r"t's data pointer is 2 bytes past"),
+    (lambda: torch.zeros(2, 6, 64, 68, dtype=torch.bfloat16)[..., :64],
+     r"t\.stride\(2\) is 68"),
+])
+def test_require_aligned16_names_the_stride(make, message):
+    """The f16/bf16 kernels' 16-byte copies need every row to start on 16
+    bytes; the check skips axes of size 1, whose stride is never used."""
+    from repro_torch.kernels import build
+    t = make()
+    if message is None:
+        build.require_aligned16("t", t)
+    else:
+        with pytest.raises(ValueError, match=message):
+            build.require_aligned16("t", t)
+
+
+def test_cpu_path_takes_unaligned_bf16_views():
+    """Only the card's kernel needs aligned rows: on the CPU the wrapper
+    runs the plain version on any view."""
+    q, k, v = (torch.as_tensor(x).bfloat16()
+               for x in _qkv(1, 4, 2, 24, 24, 68, seed=6))
+    got = fa.flash_attention(q[..., :64], k[..., :64], v[..., :64])
+    want = fa.attention_plain(q[..., :64].contiguous(),
+                              k[..., :64].contiguous(),
+                              v[..., :64].contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -170,6 +170,10 @@ def test_gmm_wrapper_takes_the_plain_path_on_cpu_tensors():
     with pytest.raises(ValueError, match=r"x \(E,C,D\)"):
         moe_gmm.gmm(_t(x)[0], _t(w))
     assert moe_gmm.gmm(_t(x)[:, :0], _t(w)).shape == (3, 0, 40)
+    # rows that do not start on 16 bytes: only the card's kernel needs them
+    xb, wb = _t(x).bfloat16()[:, :, 1:], _t(w).bfloat16()[:, 1:]
+    assert torch.equal(moe_gmm.gmm(xb, wb),
+                       tref.gmm_ref(xb.contiguous(), wb))
 
 
 # ---------------------------------------------------------------------------
