@@ -18,7 +18,12 @@ Phases (any failure raises and the script exits non-zero):
                (dh 80) and granite-moe's (dh 64); xent forward and backward
                at the train
                phase's loss chunk; AdamW at phi4's embedding; the SSD scan at
-               zamba2's prefill and WKV6 at rwkv6's; the grouped matmul at
+               zamba2's prefill and WKV6 at rwkv6's, each case printing the
+               path it took (bf16 widths that are multiples of 16: the
+               tensor-core kernels; f32, f16, other widths: the CUDA-core
+               ones), timed warm and cold (rotating through copies of the
+               inputs past the L2), the bound's operations at the inputs'
+               type's rate; the grouped matmul at
                granite-moe's prefill and decode buckets (f32, f16, bf16),
                ragged and strided shapes, timed warm (20 launches on one
                copy) and cold (rotating through copies of x and w that
@@ -507,38 +512,65 @@ def _scan_check(name, case, pairs):
     return max(e for e, _ in errs)
 
 
-def _scan_phase(name, kernel, plain, cases, make, work, seed):
+def _scan_phase(name, kernel, plain, route, cases, make, work, seed):
     """Hold a scan kernel against its plain version on the card at each case
-    (y and the last state), then time both at the first case, the main
-    path's shape.  make(case, gen) -> (args, state, plain chunk, label);
-    work(*args) -> (bytes moved, f32 flops) of one call at that shape."""
+    (y and the last state), printing the path each case took, then time
+    both at the first case, the main path's shape: warm (one copy of the
+    inputs) and cold (rotating through copies that exceed the L2).
+    make(case, gen) -> (args, state, plain chunk, label); route(*args) ->
+    the kernel's path; work(*args) -> (bytes moved, operations) of one call
+    at that shape."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    errs = []
+    errs, paths = [], {}
     for case in cases:
         args, state, chunk, label = make(case, gen)
+        paths[label] = route(*args)
         got = kernel(*args, state, chunk=chunk)
         torch.cuda.synchronize()
         want = plain(*args, state, chunk=chunk)
-        errs.append(_scan_check(name, label, zip(got, want)))
+        errs.append(_scan_check(name, f"{label} [{paths[label]} path]",
+                                zip(got, want)))
         if len(errs) == 1:
             main_args, main_label = args, label
+    nbytes, flops = work(*main_args)
+    copies = [main_args] + [
+        make(cases[0], gen)[0]
+        for _ in range(max(1, math.ceil(COLD_BYTES / nbytes) - 1))]
+    ms_cold = _time_cold_ms(kernel, copies)
+    n_copies = len(copies)
+    del copies
     ms = _time_ms(lambda: kernel(*main_args))
     plain_ms = _time_ms(lambda: plain(*main_args))
-    nbytes, flops = work(*main_args)
-    bound_ms, bound_by = _bound(nbytes, flops)
-    log(f"[kernels] {name} main {main_label}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
-        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); no PyTorch call "
-        f"computes the scan")
+    host_us = _host_us(lambda: kernel(*main_args))
+    dtype = main_args[0].dtype
+    bound_ms, bound_by = _bound(nbytes, flops, dtype)
+    # the PR 13-15 figure: the operations at f32's CUDA-core rate
+    bound_f32_ms, bound_f32_by = _bound(nbytes, flops)
+    log(f"[kernels] {name} main {main_label} [{paths[main_label]} path]: "
+        f"warm {ms:.4f} ms, cold ({n_copies} copies, "
+        f"{n_copies * nbytes / 1e6:.0f} MB) {ms_cold:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by} at "
+        f"{str(dtype)[6:]}'s rates; {bound_f32_ms:.5f} ms, {bound_f32_by}, "
+        f"with the operations at f32's; {nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e9:.3f} GFLOP); the wrapper's host time {host_us:.1f} "
+        f"us a call; no PyTorch call computes the scan")
+    if not ms_cold >= bound_ms:
+        raise AssertionError(f"{name}'s cold time {ms_cold} ms is below its "
+                             f"bound {bound_ms} ms: the timing is wrong")
     return {"name": name, "route": "cuda", "launches": None,
-            "max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": main_label, "edge_shapes_max_abs_err": max(errs[1:])}
+            "max_abs_err": errs[0], "ms": ms, "ms_cold": ms_cold,
+            "cold_copies": n_copies, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_f32_ops": bound_f32_ms, "library_ms": None,
+            "host_us": host_us, "shape": main_label,
+            "path": paths[main_label], "paths": paths,
+            "edge_shapes_max_abs_err": max(errs[1:])}
 
 
 def phase_ssd():
     """The SSD scan against its plain version at zamba2's prefill (bf16 x,
-    B and C) and at edge shapes: y and the last state; timed at zamba2's."""
+    B and C) and at edge shapes, on both paths (the bf16 cases but hd 24
+    take the tensor-core one): y and the last state; timed at zamba2's."""
     from repro_torch.kernels import ssm_scan
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     main = (1, PROMPT, 80, 64, 64)      # zamba2: 2 * 2560 / 64 heads, N 64
@@ -549,6 +581,13 @@ def phase_ssd():
         (2, 100, 3, 32, 16, bf, True, 8, "ragged S=100 chunk 8 bf16, h0"),
         (1, 40, 2, 24, 48, f32, True, 256, "S=40 below one chunk, hd 24"),
         (1, 130, 4, 64, 64, f16, True, 256, "f16 S=130, h0"),
+        main + (bf, True, 256, "zamba2 prefill bf16, h0"),
+        (1, 200, 4, 64, 64, bf, True, 256,
+         "bf16 S=200, not a multiple of 64 or 16, h0"),
+        (1, 10, 2, 64, 64, bf, True, 256, "bf16 S=10 below one 16-row strip, h0"),
+        (2, 77, 3, 128, 128, bf, True, 256, "bf16 hd 128 N 128 S=77, h0"),
+        (1, 130, 4, 16, 48, bf, False, 256, "bf16 hd 16 N 48 S=130"),
+        (1, 40, 2, 24, 48, bf, True, 256, "bf16 hd 24 (not a multiple of 16)"),
     ]
 
     def make(case, gen):
@@ -575,7 +614,8 @@ def phase_ssd():
         return nbytes, 5.0 * hd * N * B * S * H
 
     row = _scan_phase("ssd_scan", ssm_scan.ssd_scan, ssm_scan.ssd_scan_plain,
-                      cases, make, work, seed=8)
+                      lambda x, dt, a, Bm, Cm: ssm_scan.path(x, Bm), cases,
+                      make, work, seed=8)
     return {**row, "shape": f"B=1 S={PROMPT} H=80 hd=64 N=64 bf16",
             "source": "src/repro_torch/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan.py:21",
@@ -584,7 +624,8 @@ def phase_ssd():
 
 def phase_wkv():
     """WKV6 against its plain version at rwkv6's prefill (bf16 r, k, v) and
-    at edge shapes: y and the last state; timed at rwkv6's."""
+    at edge shapes, on both paths (the bf16 cases but hd 40 take the
+    tensor-core one): y and the last state; timed at rwkv6's."""
     from repro_torch.kernels import wkv6
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     main = (1, PROMPT, 32, 64)          # rwkv6: 2048 / 64 heads
@@ -596,6 +637,12 @@ def phase_wkv():
         (1, 20, 2, 40, f32, True, True, 64, "S=20 below one chunk, logw -8"),
         (1, 77, 2, 128, f16, True, False, 64, "f16 hd 128, s0"),
         (1, PROMPT, 32, 64, bf, True, True, 64, "rwkv6 shape, logw -8, s0"),
+        (1, 200, 4, 64, bf, True, False, 64,
+         "bf16 S=200, not a multiple of 64 or 16, s0"),
+        (1, 10, 2, 64, bf, True, False, 64, "bf16 S=10 below one sub-chunk, s0"),
+        (1, 77, 2, 128, bf, True, False, 64, "bf16 hd 128 S=77, s0"),
+        (1, 100, 2, 128, bf, True, True, 64, "bf16 hd 128, logw -8, s0"),
+        (2, 50, 3, 40, bf, True, False, 64, "bf16 hd 40 (not a multiple of 16)"),
     ]
 
     def make(case, gen):
@@ -622,7 +669,8 @@ def phase_wkv():
                   + B * H * hd * hd * 4)
         return nbytes, 5.0 * hd * hd * B * S * H
 
-    row = _scan_phase("wkv6", wkv6.wkv6, wkv6.wkv6_plain, cases, make, work,
+    row = _scan_phase("wkv6", wkv6.wkv6, wkv6.wkv6_plain,
+                      lambda r, k, v, logw, u: wkv6.path(r), cases, make, work,
                       seed=9)
     return {**row, "shape": f"B=1 S={PROMPT} H=32 hd=64 bf16",
             "source": "src/repro_torch/csrc/wkv6.cu",

@@ -66,12 +66,26 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
              ctypes.POINTER(ctypes.c_longlong),               # 10 strides
              _c_ptr],                                         # stream
             _c_int),
+        "repro_torch_ssd_scan_tc": (
+            [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # x dt a B C h0
+             _c_ptr, _c_ptr, _c_ptr, _c_ptr,                  # y h_last states decay
+             _c_int, _c_int, _c_int, _c_int, _c_int,          # B S H hd N
+             ctypes.POINTER(ctypes.c_longlong),               # 10 strides
+             _c_ptr],                                         # stream
+            _c_int),
     },
     "wkv6": {
         "repro_torch_wkv6": (
             [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # r k v logw u s0
              _c_ptr, _c_ptr,                                  # y s_last
              _c_int, _c_int, _c_int, _c_int, _c_int,          # dtype B S H hd
+             ctypes.POINTER(ctypes.c_longlong),               # 12 strides
+             _c_ptr],                                         # stream
+            _c_int),
+        "repro_torch_wkv6_tc": (
+            [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # r k v logw u s0
+             _c_ptr, _c_ptr, _c_ptr, _c_ptr,                  # y s_last states decay
+             _c_int, _c_int, _c_int, _c_int,                  # B S H hd
              ctypes.POINTER(ctypes.c_longlong),               # 12 strides
              _c_ptr],                                         # stream
             _c_int),

@@ -10,12 +10,19 @@ then the chunk's state update.  The CUDA source is
 ``repro_torch/csrc/ssm_scan.cu``; its header says how the Pallas grid maps
 onto CUDA blocks and what bounds the kernel on an H100.
 
+Two paths, chosen by ``path`` from dtype and shape alone: bf16 x, B and C
+with hd and N multiples of 16 up to 128 (zamba2's prefill) take the
+tensor-core path, Mamba2's chunk-state / state-passing / chunk-scan form in
+three kernels a call, with f32 scratch for each chunk's state from
+``torch.empty``; f32, f16 and other widths take the first port's CUDA-core
+kernel.  A call counts one launch either way.
+
 Beyond the Pallas kernel, which starts from a zero state and returns y
 only, this one takes an initial state ``h0`` and returns the last state
 ``h_last`` in the decode cache's (B, H, hd, N) layout: the model's prefill
 caches it.  B and C are shared by all heads and read in place (the Pallas
 wrapper copies them to every head), as are x and dt, through their strides.
-The kernel walks its own 64-row chunks and handles a ragged last one; the
+Both kernels walk their own 64-row chunks and handle a ragged last one; the
 chunked form is exact for any chunk, up to rounding.
 
 On a CPU tensor the wrapper runs the plain version (``ssd_scan_plain``, a
@@ -32,6 +39,8 @@ from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 MAX_STATE = 256       # N: the kernel keeps a chunk of B and C in shared memory
+TC_MAX = 128          # the tensor-core path's largest hd and N
+TC_CHUNK = 64         # its chunk rows: the scratch holds a state a chunk
 
 launches = 0          # kernel launches in this process (chip_smoke reads it)
 
@@ -51,6 +60,17 @@ def _check(x, dt, a, B_, C, h0) -> None:
         raise ValueError(f"h0 {tuple(h0.shape)} is not {(Bsz, H, hd, N)}")
     if S < 1:
         raise ValueError("empty sequence")
+
+
+def path(x: torch.Tensor, B_: torch.Tensor) -> str:
+    """The kernel a call with these inputs takes on the card, from dtype and
+    shape alone: ``"tensor-core"`` for bf16 x, B and C whose hd and N are
+    multiples of 16 up to ``TC_MAX``, else ``"cuda-core"``."""
+    hd, N = x.shape[-1], B_.shape[-1]
+    if (x.dtype == torch.bfloat16 and hd % 16 == 0 and N % 16 == 0
+            and hd <= TC_MAX and N <= TC_MAX):
+        return "tensor-core"
+    return "cuda-core"
 
 
 def ssd_scan_plain(x, dt, a, B_, C, h0=None, *, chunk: int = 256):
@@ -109,8 +129,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (B,H,hd,N) f32).
 
     x, B and C share one dtype (f32, f16 or bf16); each may be a strided
-    view whose last axis is contiguous.  ``chunk`` is the plain version's
-    (the CPU path); the kernel walks its own 64-row chunks.
+    view whose last axis is contiguous, and on the tensor-core path
+    (``path``) its rows start on 16 bytes (``ValueError`` otherwise).
+    ``chunk`` is the plain version's (the CPU path); the kernels walk their
+    own 64-row chunks.
     """
     global launches
     _check(x, dt, a, B_, C, h0)
@@ -140,14 +162,28 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          device=x.device)
     strides = (ctypes.c_longlong * 10)(
         *x.stride()[:3], *dt.stride(), *B_.stride()[:2], *C.stride()[:2])
+    tensor_core = path(x, B_) == "tensor-core"
+    if tensor_core:
+        for name, t in (("x", x), ("B", B_), ("C", C)):
+            build.require_aligned16(name, t)
+        nc = -(-S // TC_CHUNK)
+        states = torch.empty((Bsz, nc, H, hd, N), dtype=torch.float32,
+                             device=x.device)
+        decay = torch.empty((Bsz, nc, H), dtype=torch.float32,
+                            device=x.device)
     lib = build.load("ssm_scan")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.repro_torch_ssd_scan(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), B_.data_ptr(),
-            C.data_ptr(), None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), h_last.data_ptr(), _DTYPE_CODE[x.dtype],
-            Bsz, S, H, hd, N, strides, stream)
+        args = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), B_.data_ptr(),
+                C.data_ptr(), None if h0 is None else h0.data_ptr(),
+                y.data_ptr(), h_last.data_ptr())
+        if tensor_core:
+            rc = lib.repro_torch_ssd_scan_tc(
+                *args, states.data_ptr(), decay.data_ptr(), Bsz, S, H, hd, N,
+                strides, stream)
+        else:
+            rc = lib.repro_torch_ssd_scan(*args, _DTYPE_CODE[x.dtype], Bsz, S,
+                                          H, hd, N, strides, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
     launches += 1

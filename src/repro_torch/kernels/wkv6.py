@@ -11,11 +11,19 @@ then the chunk's state update.  The CUDA source is
 ``repro_torch/csrc/wkv6.cu``; its header says how the Pallas grid maps onto
 CUDA blocks and what bounds the kernel on an H100.
 
+Two paths, chosen by ``path`` from dtype and shape alone: bf16 r, k and v
+with hd a multiple of 16 up to 128 (rwkv6's prefill) take the tensor-core
+path, the chunk-state / state-passing / chunk-scan form in three kernels a
+call over 64-row chunks of 16-row sub-chunks, with f32 scratch for each
+chunk's state from ``torch.empty``; f32, f16 and other widths take the
+first port's CUDA-core kernel (32-row chunks).  A call counts one launch
+either way.
+
 Beyond the Pallas kernel, which starts from a zero state and returns y
 only, this one takes an initial state ``s0`` and returns the last state in
 the decode cache's (B, H, hd_k, hd_v) layout.  r, k, v and logw are read
-in place through their strides (no per-head copies).  The kernel walks its
-own 32-row chunks and handles a ragged last one.
+in place through their strides (no per-head copies).  Both kernels handle
+a ragged last chunk.
 
 On a CPU tensor the wrapper runs the plain version (``wkv6_plain``, a
 transcription of the JAX model's ``models/ssm.py:_wkv_chunked`` with its
@@ -30,7 +38,8 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-MAX_HEAD_DIM = 128    # the kernel keeps a chunk's (32, hd) tiles in shared memory
+MAX_HEAD_DIM = 128    # the kernels keep a chunk's (rows, hd) tiles in shared memory
+TC_CHUNK = 64         # the tensor-core path's chunk rows: a state a chunk
 
 launches = 0          # kernel launches in this process (chip_smoke reads it)
 
@@ -48,6 +57,16 @@ def _check(r, k, v, logw, u, s0) -> None:
         raise ValueError(f"s0 {tuple(s0.shape)} is not {(B, H, hd, hd)}")
     if S < 1:
         raise ValueError("empty sequence")
+
+
+def path(r: torch.Tensor) -> str:
+    """The kernel a call with these inputs takes on the card, from dtype and
+    shape alone: ``"tensor-core"`` for bf16 r, k and v whose hd is a
+    multiple of 16 (up to ``MAX_HEAD_DIM``), else ``"cuda-core"``."""
+    hd = r.shape[-1]
+    if r.dtype == torch.bfloat16 and hd % 16 == 0 and hd <= MAX_HEAD_DIM:
+        return "tensor-core"
+    return "cuda-core"
 
 
 def wkv6_plain(r, k, v, logw, u, s0=None, *, chunk: int = 64):
@@ -105,9 +124,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,H,hd,hd) f32).
 
     r, k and v share one dtype (f32, f16 or bf16); each of r, k, v and
-    logw may be a strided view whose last axis is contiguous.  ``chunk`` is
-    the plain version's (the CPU path); the kernel walks its own 32-row
-    chunks.
+    logw may be a strided view whose last axis is contiguous, and on the
+    tensor-core path (``path``) its rows start on 16 bytes (``ValueError``
+    otherwise).  ``chunk`` is the plain version's (the CPU path); the
+    kernels walk their own chunks.
     """
     global launches
     _check(r, k, v, logw, u, s0)
@@ -137,14 +157,28 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 12)(
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *logw.stride()[:3])
+    tensor_core = path(r) == "tensor-core"
+    if tensor_core:
+        for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
+            build.require_aligned16(name, t)
+        nc = -(-S // TC_CHUNK)
+        states = torch.empty((B, nc, H, hd, hd), dtype=torch.float32,
+                             device=r.device)
+        decay = torch.empty((B, nc, H, hd), dtype=torch.float32,
+                            device=r.device)
     lib = build.load("wkv6")
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        rc = lib.repro_torch_wkv6(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-            u.data_ptr(), None if s0 is None else s0.data_ptr(),
-            y.data_ptr(), s_last.data_ptr(), _DTYPE_CODE[r.dtype],
-            B, S, H, hd, strides, stream)
+        args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+                u.data_ptr(), None if s0 is None else s0.data_ptr(),
+                y.data_ptr(), s_last.data_ptr())
+        if tensor_core:
+            rc = lib.repro_torch_wkv6_tc(
+                *args, states.data_ptr(), decay.data_ptr(), B, S, H, hd,
+                strides, stream)
+        else:
+            rc = lib.repro_torch_wkv6(*args, _DTYPE_CODE[r.dtype], B, S, H,
+                                      hd, strides, stream)
     if rc != 0:
         raise RuntimeError(f"wkv6 launch failed: CUDA error {rc}")
     launches += 1

@@ -11,9 +11,10 @@ summed in another order), 2e-2 for f16/bf16 (one rounding of the output);
 xent 1e-4 on NLL (f32 sums over V in another order) and 1e-5 (f32) or
 2^-7 (bf16) on dlogits; AdamW 1e-6 on f32 (each step rounded as the plain
 version rounds it) and 2^-7 relative on a bf16 parameter; the SSD and
-WKV6 scans 1e-4 of the output's scale (kernel and plain version compute in
-f32 from the same inputs, chunked differently: the sums run in another
-order); the grouped matmul 1e-5 of the output's scale in f32 (sums over D
+WKV6 scans 1e-4 of the output's scale on both paths (kernel and plain
+version compute in f32 from the same inputs, chunked differently: the sums
+run in another order; the bf16 tensor-core path feeds its f32 operands as
+hi + lo pairs of bf16, about 2^-17 of each value); the grouped matmul 1e-5 of the output's scale in f32 (sums over D
 in another order) and 2^-7 of it in f16/bf16 (one rounding of the output,
 which a different f32 sum can push across a rounding boundary).  In
 f16/bf16 the flash kernel also rounds P to the input type before P V, as
@@ -181,12 +182,27 @@ def _scan_close(got, want):
     assert (got - want).abs().max().item() <= 1e-4 * scale
 
 
+def _scan_path(dtype, *widths):
+    """The path the wrappers' ``path`` should pick: bf16 with widths that
+    are multiples of 16 up to 128 takes the tensor-core kernels."""
+    tc = dtype == "bfloat16" and all(w % 16 == 0 and w <= 128
+                                     for w in widths)
+    return "tensor-core" if tc else "cuda-core"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,hd,N,dtype,h0", [
     (1, 512, 80, 64, 64, "bfloat16", False),   # zamba2's prefill
     (2, 100, 3, 32, 16, "float32", True),      # ragged last chunk, N != hd
     (1, 40, 2, 24, 48, "float32", True),       # S below one chunk, hd % 16
     (1, 130, 4, 64, 64, "float16", True),
+    (1, 512, 80, 64, 64, "bfloat16", True),    # tensor-core path from here
+    (2, 100, 3, 32, 16, "bfloat16", True),     # ragged last chunk
+    (1, 200, 4, 64, 64, "bfloat16", True),     # S % 64 and S % 16 not 0
+    (1, 10, 2, 64, 64, "bfloat16", True),      # S below one 16-row strip
+    (2, 77, 3, 128, 128, "bfloat16", True),    # the widest it takes
+    (1, 130, 4, 16, 48, "bfloat16", False),
+    (1, 40, 2, 24, 48, "bfloat16", True),      # hd 24: the CUDA-core path
 ])
 def test_ssd_kernel_matches_plain(B, S, H, hd, N, dtype, h0):
     _card()
@@ -201,6 +217,7 @@ def test_ssd_kernel_matches_plain(B, S, H, hd, N, dtype, h0):
     d = torch.nn.functional.softplus(rnd(B, S, H))
     a = -torch.exp(rnd(H))
     state = rnd(B, H, hd, N) if h0 else None
+    assert ssm_scan.path(x, Bm) == _scan_path(dtype, hd, N)
     before = ssm_scan.launches
     y, h = ssm_scan.ssd_scan(x, d, a, Bm, Cm, state)
     torch.cuda.synchronize()
@@ -216,6 +233,13 @@ def test_ssd_kernel_matches_plain(B, S, H, hd, N, dtype, h0):
     (2, 100, 3, 16, "float32", True, False),      # ragged last chunk
     (1, 20, 2, 40, "float32", True, True),        # S below one chunk, -8
     (1, 77, 2, 128, "float16", True, False),
+    (1, 512, 32, 64, "bfloat16", True, True),     # tensor-core path from here
+    (2, 100, 3, 16, "bfloat16", True, False),     # ragged last chunk
+    (1, 200, 4, 64, "bfloat16", True, False),     # S % 64 and S % 16 not 0
+    (1, 10, 2, 64, "bfloat16", True, False),      # S below one sub-chunk
+    (1, 77, 2, 128, "bfloat16", True, False),     # the widest it takes
+    (1, 100, 2, 128, "bfloat16", True, True),
+    (2, 50, 3, 40, "bfloat16", True, False),      # hd 40: the CUDA-core path
 ])
 def test_wkv6_kernel_matches_plain(B, S, H, hd, dtype, s0, floor):
     _card()
@@ -230,6 +254,7 @@ def test_wkv6_kernel_matches_plain(B, S, H, hd, dtype, s0, floor):
         torch.clamp(-torch.exp(rnd(B, S, H, hd)), min=-8.0)
     u = rnd(H, hd)
     state = rnd(B, H, hd, hd) if s0 else None
+    assert wkv6.path(r) == _scan_path(dtype, hd)
     before = wkv6.launches
     y, s = wkv6.wkv6(r, k, v, logw, u, state)
     torch.cuda.synchronize()
@@ -237,6 +262,62 @@ def test_wkv6_kernel_matches_plain(B, S, H, hd, dtype, s0, floor):
     want_y, want_s = wkv6.wkv6_plain(r, k, v, logw, u, state)
     _scan_close(y, want_y)
     _scan_close(s, want_s)
+
+
+@pytest.mark.gpu
+def test_scan_tensor_core_paths_read_strided_views():
+    """x, B and C (SSD) and r, k, v and logw (WKV6) as views into wider
+    buffers whose rows start on 16 bytes, as a fused projection would hand
+    them over: read in place, and the same result as contiguous copies."""
+    _card()
+    rng = np.random.RandomState(11)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device="cuda")
+    B, S, H, hd, N = 2, 150, 4, 64, 32
+    x = rnd(B, S, H, hd + 8).to(bf)[..., :hd]
+    bc = rnd(B, S, 3 * N).to(bf)
+    Bm, Cm = bc[..., N:2 * N], bc[..., 2 * N:]
+    d = torch.nn.functional.softplus(rnd(B, S, H))
+    a = -torch.exp(rnd(H))
+    got = ssm_scan.ssd_scan(x, d, a, Bm, Cm)
+    want = ssm_scan.ssd_scan(x.contiguous(), d, a, Bm.contiguous(),
+                             Cm.contiguous())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rkvw = rnd(B, S, H, 4 * hd)
+    r, k, v = (rkvw[..., i * hd:(i + 1) * hd].to(bf) for i in range(3))
+    logw = torch.clamp(-torch.exp(rkvw), min=-8.0)[..., 3 * hd:]
+    u = rnd(H, hd)
+    got = wkv6.wkv6(r, k, v, logw, u)
+    want = wkv6.wkv6(r.contiguous(), k.contiguous(), v.contiguous(),
+                     logw.contiguous(), u)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_scan_tensor_core_paths_raise_on_unaligned_views():
+    """The tensor-core scans copy 16-byte chunks: a bf16 view whose rows do
+    not start on 16 bytes is refused, naming the stride, and launches
+    nothing."""
+    _card()
+    bf = torch.bfloat16
+    x = torch.randn(1, 8, 2, 68, device="cuda").to(bf)[..., :64]
+    Bm = torch.randn(1, 8, 16, device="cuda").to(bf)
+    d = torch.ones(1, 8, 2, device="cuda")
+    a = -torch.ones(2, device="cuda")
+    r = torch.randn(1, 8, 2, 64, device="cuda").to(bf)
+    logw = torch.full((1, 8, 2, 68), -1.0, device="cuda")[..., 2:66]
+    u = torch.ones(2, 64, device="cuda")
+    before = (ssm_scan.launches, wkv6.launches)
+    with pytest.raises(ValueError, match=r"x\.stride\(2\) is 68"):
+        ssm_scan.ssd_scan(x, d, a, Bm, Bm)
+    with pytest.raises(ValueError, match="logw's data pointer"):
+        wkv6.wkv6(r, r, r, logw, u)
+    assert (ssm_scan.launches, wkv6.launches) == before
 
 
 @pytest.mark.gpu

@@ -220,6 +220,228 @@ def test_scan_wrappers_reject_what_the_kernels_do_not_take():
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core scan kernels' arithmetic, in torch f32 on the CPU
+# ---------------------------------------------------------------------------
+# csrc/ssm_scan.cu and csrc/wkv6.cu run bf16 inputs through three launches:
+# each 64-row chunk's local state, a pass that carries the state over the
+# chunks, and the chunk's output from the state entering it.  Their products
+# run on the tensor cores with f32 sums; every f32 operand goes in as a
+# hi + lo pair of bf16.  The emulations below repeat that arithmetic (the
+# split as roundings to bf16, the products as f32 matmuls) and are held
+# against the plain versions at the kernels' tolerance, 1e-4 of the
+# output's scale.  The kernels themselves run only on a card
+# (tests/test_torch_gpu.py, chip_smoke.py).
+
+TC_L, TC_SUB = 64, 16
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _parts(t, split):
+    """t as the bf16 parts the kernel feeds the tensor cores: hi and lo
+    ("hi+lo"), hi alone ("hi"), or t itself in f32 ("f32")."""
+    if split == "f32":
+        return [t]
+    hi = _bf16(t)
+    return [hi, _bf16(t - hi)] if split == "hi+lo" else [hi]
+
+
+def _mm(eq, a, b, split_a, split_b):
+    """einsum of a and b summed in f32 over the parts the kernel multiplies:
+    against an exact operand every part, between two split ones all but
+    lo lo."""
+    pa, pb = _parts(a, split_a), _parts(b, split_b)
+    return sum(torch.einsum(eq, x, y) for i, x in enumerate(pa)
+               for j, y in enumerate(pb) if i + j < 2)
+
+
+def _pad_chunks(t, S):
+    """(B, S, ...) zero-padded to whole 64-row chunks -> (B, nc, 64, ...)."""
+    nc = -(-S // TC_L)
+    pad = torch.zeros((t.shape[0], nc * TC_L - S) + t.shape[2:],
+                      dtype=t.dtype)
+    return torch.cat([t, pad], 1).reshape(t.shape[0], nc, TC_L, *t.shape[2:])
+
+
+def _ssd_tc_emulated(x, dt, a, B_, C, h0, split="hi+lo"):
+    Bsz, S, H, hd = x.shape
+    N = B_.shape[-1]
+    xc, dtc, Bc, Cc = (_pad_chunks(t.float(), S) for t in (x, dt, B_, C))
+    nc = xc.shape[1]
+    cum = torch.cumsum(dtc * a, dim=2)                 # (B,nc,L,H)
+    cend = cum[:, :, -1]                               # (B,nc,H)
+    # ssd_fwd_state: dH = (w x)^T B, w_s = exp(cum_end - cum_s) dt_s
+    w = torch.exp(cend[:, :, None] - cum) * dtc
+    dH = _mm("bcshd,bcsn->bchdn", w[..., None] * xc, Bc, split, "f32")
+    # ssd_fwd_pass: the state entering each chunk, then the last
+    h = torch.zeros((Bsz, H, hd, N)) if h0 is None else h0.float()
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(cend[:, c])[..., None, None] * h + dH[:, c]
+    h_in = torch.stack(h_in, 1)                        # (B,nc,H,hd,N)
+    # ssd_fwd_scan: y = G x + exp(cum_t) C H_in^T
+    cb = torch.einsum("bctn,bcsn->bcts", Cc, Bc)       # exact bf16 inputs
+    delta = cum[:, :, :, None] - cum[:, :, None]       # (B,nc,t,s,H)
+    tri = torch.ones(TC_L, TC_L, dtype=torch.bool).tril()[..., None]
+    G = torch.where(tri, cb[..., None] * torch.exp(delta) *
+                    dtc[:, :, None], torch.zeros(()))
+    y = _mm("bctsh,bcshd->bcthd", G, xc, split, "f32")
+    y = y + torch.exp(cum)[..., None] * _mm(
+        "bctn,bchdn->bcthd", Cc, h_in, "f32", split)
+    return y.reshape(Bsz, nc * TC_L, H, hd)[:, :S], h
+
+
+def _wkv_tc_emulated(r, k, v, logw, u, s0, split="hi+lo"):
+    B, S, H, hd = r.shape
+    rc, kc, vc, wc = (_pad_chunks(t.float(), S) for t in (r, k, v, logw))
+    nc = rc.shape[1]
+    cum = torch.cumsum(wc, dim=2)                      # (B,nc,L,H,hd)
+    cp = cum - wc                                      # cum_{t-1}
+    cend = cum[:, :, -1]                               # (B,nc,H,hd)
+    # wkv_fwd_state: dS = (k exp(cum_end - cum))^T v
+    dS = _mm("bcshi,bcshj->bchij", kc * torch.exp(cend[:, :, None] - cum),
+             vc, split, "f32")
+    s = torch.zeros((B, H, hd, hd)) if s0 is None else s0.float()
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = torch.exp(cend[:, c])[..., None] * s + dS[:, c]
+    s_in = torch.stack(s_in, 1)                        # (B,nc,H,hd,hd)
+    # wkv_fwd_scan: att per sub-chunk p of t, then y = att v + q S_in
+    att = torch.zeros((B, nc, TC_L, TC_L, H))
+    for p in range(TC_L // TC_SUB):
+        t = slice(p * TC_SUB, (p + 1) * TC_SUB)
+        if p:                     # earlier sub-chunks through row b
+            b = p * TC_SUB - 1
+            r_t = rc[:, :, t] * torch.exp(cp[:, :, t] - cum[:, :, b:b + 1])
+            k_s = kc[:, :, :b + 1] * torch.exp(cum[:, :, b:b + 1] -
+                                               cum[:, :, :b + 1])
+            att[:, :, t, :b + 1] = _mm("bcthi,bcshi->bctsh", r_t, k_s,
+                                       split, split)
+        # the diagonal sub-chunk: one exp a pair and channel, r (u k) at s = t
+        decay = torch.exp(cp[:, :, t, None] - cum[:, :, None, t])
+        lower = torch.ones(TC_SUB, TC_SUB, dtype=torch.bool).tril(-1)
+        diag = torch.einsum("bcthi,bcshi,bctshi->bctsh", rc[:, :, t],
+                            kc[:, :, t], torch.where(
+                                lower[..., None, None], decay,
+                                torch.zeros(())))
+        bonus = torch.einsum("bcthi,hi,bcthi->bcth", rc[:, :, t], u.float(),
+                             kc[:, :, t])
+        diag = diag + torch.diag_embed(bonus.movedim(-1, -2)).movedim(-3, -1)
+        att[:, :, t, t] = diag
+    y = _mm("bctsh,bcshj->bcthj", att, vc, split, "f32")
+    y = y + _mm("bcthi,bchij->bcthj", rc * torch.exp(cp), s_in, split, split)
+    return y.reshape(B, nc * TC_L, H, hd)[:, :S], s
+
+
+def _within(got, want, rtol=1e-4):
+    return float((got - want).abs().max()) <= rtol * max(
+        1.0, float(want.abs().max()))
+
+
+def _ssd_tc_case(B, S, H, hd, N, h0, seed=5):
+    x, dt, a, Bm, Cm, s0 = _ssd_inputs(B, S, H, hd, N, seed=seed)
+    (tx, tB, tC) = _cast((x, Bm, Cm), "bfloat16")[1]
+    return tx, _t(dt), _t(a), tB, tC, _t(s0) if h0 else None
+
+
+def _wkv_tc_case(B, S, H, hd, s0, floor, seed=6):
+    r, k, v, logw, u, st = _wkv_inputs(B, S, H, hd, seed=seed)
+    if floor:
+        logw = np.full_like(logw, -8.0)
+    tr, tk, tv = _cast((r, k, v), "bfloat16")[1]
+    return tr, tk, tv, _t(logw), _t(u), _t(st) if s0 else None
+
+
+SSD_TC_SHAPES = [
+    (1, 128, 2, 16, 16, False),    # two whole chunks, zero state
+    (2, 100, 3, 32, 16, True),     # ragged last chunk, N != hd, h0
+    (1, 10, 2, 16, 32, True),      # S below one 16-row strip
+    (1, 200, 2, 32, 48, True),     # S a multiple of neither 64 nor 16
+]
+WKV_TC_SHAPES = [
+    (1, 128, 2, 16, False, False),
+    (2, 100, 3, 16, True, False),  # ragged last chunk, s0
+    (1, 10, 2, 32, True, False),   # S below one sub-chunk
+    (1, 200, 2, 32, True, False),
+    (1, 200, 2, 32, True, True),   # every decay at the model's -8 floor
+    (1, 64, 1, 16, False, True),
+]
+
+
+@pytest.mark.parametrize("split", ["f32", "hi+lo"])
+@pytest.mark.parametrize("B,S,H,hd,N,h0", SSD_TC_SHAPES)
+def test_ssd_chunk_state_pass_scan_matches_plain(B, S, H, hd, N, h0, split):
+    """The chunk-state / state-passing / chunk-scan form of csrc/ssm_scan.cu
+    over 64-row chunks, its products exact ("f32") and with its f32
+    operands (G, w x, the state) split hi + lo as on the tensor cores, is
+    the plain version's scan within 1e-4 of scale."""
+    args = _ssd_tc_case(B, S, H, hd, N, h0)
+    want_y, want_h = ssm_scan.ssd_scan_plain(*args)
+    y, h = _ssd_tc_emulated(*args, split=split)
+    assert _within(y, want_y) and _within(h, want_h)
+
+
+@pytest.mark.parametrize("split", ["f32", "hi+lo"])
+@pytest.mark.parametrize("B,S,H,hd,s0,floor", WKV_TC_SHAPES)
+def test_wkv6_subchunk_factorisation_matches_plain(B, S, H, hd, s0, floor,
+                                                    split):
+    """csrc/wkv6.cu's form: 64-row chunks of 16-row sub-chunks, pairs in
+    earlier sub-chunks as one product of r exp(cum_{t-1} - cum_b) and
+    k exp(cum_b - cum_s) about the row b before t's sub-chunk, the diagonal
+    with one exp a pair and channel, then the state passed over the
+    chunks; at the -8 floor the far factors flush to 0 in f32 and the
+    result still holds."""
+    args = _wkv_tc_case(B, S, H, hd, s0, floor)
+    want_y, want_s = wkv6.wkv6_plain(*args)
+    y, s = _wkv_tc_emulated(*args, split=split)
+    assert _within(y, want_y) and _within(s, want_s)
+
+
+def test_scan_f32_operands_need_the_hi_lo_split():
+    """Why the kernels split their f32 operands: fed as one bf16 each (8
+    bits of mantissa), G, the decayed k and r, att and the states move y
+    past 1e-4 of its scale; hi + lo holds it (the test above)."""
+    args = _ssd_tc_case(1, 128, 2, 32, 32, True)
+    want_y, _ = ssm_scan.ssd_scan_plain(*args)
+    assert not _within(_ssd_tc_emulated(*args, split="hi")[0], want_y)
+    assert _within(_ssd_tc_emulated(*args, split="hi+lo")[0], want_y)
+    args = _wkv_tc_case(1, 128, 2, 32, True, False)
+    want_y, _ = wkv6.wkv6_plain(*args)
+    assert not _within(_wkv_tc_emulated(*args, split="hi")[0], want_y)
+    assert _within(_wkv_tc_emulated(*args, split="hi+lo")[0], want_y)
+
+
+def test_scan_paths_follow_dtype_and_shape():
+    """bf16 with widths that are multiples of 16 up to 128 takes the
+    tensor-core kernels; f32, f16 and other widths the CUDA-core ones."""
+    def ssd(dtype, hd, N):
+        return ssm_scan.path(torch.zeros(1, 1, 1, hd, dtype=dtype),
+                             torch.zeros(1, 1, N, dtype=dtype))
+
+    assert ssd(torch.bfloat16, 64, 64) == "tensor-core"      # zamba2
+    assert ssd(torch.bfloat16, 32, 16) == "tensor-core"
+    assert ssd(torch.bfloat16, 128, 48) == "tensor-core"
+    assert ssd(torch.bfloat16, 24, 48) == "cuda-core"
+    assert ssd(torch.bfloat16, 64, 256) == "cuda-core"
+    assert ssd(torch.float16, 64, 64) == "cuda-core"
+    assert ssd(torch.float32, 64, 64) == "cuda-core"
+
+    def wkv(dtype, hd):
+        return wkv6.path(torch.zeros(1, 1, 1, hd, dtype=dtype))
+
+    assert wkv(torch.bfloat16, 64) == "tensor-core"          # rwkv6
+    assert wkv(torch.bfloat16, 16) == "tensor-core"
+    assert wkv(torch.bfloat16, 128) == "tensor-core"
+    assert wkv(torch.bfloat16, 40) == "cuda-core"
+    assert wkv(torch.float16, 128) == "cuda-core"
+    assert wkv(torch.float32, 64) == "cuda-core"
+
+
+# ---------------------------------------------------------------------------
 # configs, schemas, blocks
 # ---------------------------------------------------------------------------
 
