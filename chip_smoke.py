@@ -61,10 +61,21 @@ Phases (any failure raises and the script exits non-zero):
                takes 6 optimizer steps of 2 x 1024 tokens as two
                ``train_chunk`` calls of 3: every loss and grad norm finite,
                the last loss below the first, and exactly 2 xent forward,
-               2 xent backward and 11 AdamW launches a step.
+               2 xent backward and 11 AdamW launches a step;
+  9. elastic — phi4-mini-3.8b in bf16 at full width with depth cut to 4
+               layers (1.017 B params, a 10.2 GB checkpoint) trains 8 steps
+               of 2 x 1024 tokens through ``ElasticTrainer`` on a one-card
+               ``Cluster``, in chunks of 2, checkpointing every 4 steps into
+               a temporary directory, with one crash injected before step 7:
+               segments ``error`` then ``done``, step 3 restored bit for bit
+               as saved, 2 steps lost, 10 executed, exactly 20 xent forward,
+               20 backward and 110 AdamW launches; every loss finite and
+               equal to a clean run's (bit for bit if two clean runs agree
+               bit for bit, else within twice their spread).
 Then it prints a ``{"kernels": [...]}`` line, a ``{"serve": {...}}`` line
-with one entry per arch, a ``{"train": {...}}`` line, the card's name and
-power limit, and as its last line ``{"ok": true, "device": {...}}``.
+with one entry per arch, a ``{"train": {...}}`` line, an
+``{"elastic": {...}}`` line, the card's name and power limit, and as its
+last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -97,6 +108,10 @@ ZAMBA_ATTN = (1, 32, 32, PROMPT, PROMPT, 80)   # zamba2's shared attention
 GRANITE_ATTN = (1, 16, 8, PROMPT, PROMPT, 64)  # granite-moe's attention
 COLD_BYTES = 150e6        # cold timing: > 2x a prefill bucket, > 3x a decode
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_K = 2, 1024, 6, 3
+# elastic: full width, depth cut to 4 layers (a 10.2 GB checkpoint; 38.4 GB
+# at 32), 8 steps in chunks of 2, saves at steps 3 and 7, a crash before 7
+ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_K = 4, 8, 2
+ELASTIC_CKPT_EVERY, ELASTIC_FAIL_AT, ELASTIC_RESTORED = 4, 7, 3
 GRAD_RTOL = 0.05          # bf16 vs f32 first-batch grad norm, per leaf
 
 
@@ -1326,6 +1341,164 @@ def phase_train(smi: str):
     return train, launches
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bit pattern, so equality is bitwise (NaNs included)."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(ints[t.element_size()]) if t.is_floating_point() else t
+
+
+def phase_elastic(smi: str):
+    """phi4 at full width and 4 layers in bf16 trains through the elastic
+    trainer, crashes once, restores its step-3 checkpoint and finishes."""
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import flatten_with_paths
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.core.orchestrator import Cluster
+    from repro_torch.data.objectstore import ObjectStore
+    from repro_torch.elastic import ElasticTrainer, ElasticTrainSpec
+    from repro_torch.kernels import adamw_update as au
+    from repro_torch.kernels import xent
+    from repro_torch.models import params as pr
+    from repro_torch.models import transformer as tfm
+
+    torch.cuda.empty_cache()
+    cfg = registry.get_config(ARCH).replace(num_layers=ELASTIC_LAYERS)
+    par = registry.get_parallel(ARCH)
+    # the train CLI's recipe: lr 1e-3, warmup steps/20, cosine over the run
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=max(ELASTIC_STEPS // 20, 1),
+                           decay_steps=ELASTIC_STEPS)
+    schema = tfm.lm_schema(cfg)
+    n_params, n_leaves = pr.param_count(schema), len(pr.leaves(schema))
+    card = torch.device("cuda", 0)
+
+    def trainer(store, **kw):
+        spec = ElasticTrainSpec(
+            cfg, par, ocfg, steps=ELASTIC_STEPS, seq_len=TRAIN_SEQ,
+            global_batch=TRAIN_BATCH, base_shape=(1, 1), max_data=1,
+            device_steps=ELASTIC_K, keep=2, log_every=4, seed=0,
+            name="chip-smoke-elastic", device=card, **kw)
+        return ElasticTrainer(Cluster(devices=[card]), spec, store=store)
+
+    # two clean runs, checkpoints off (a throwaway store, never written)
+    clean = []
+    for _ in range(2):
+        out = trainer(None, ckpt_every=0).run()
+        clean.append((out["losses"], out["report"]))
+        del out
+        torch.cuda.empty_cache()
+    spread = max(abs(a - b) for a, b in zip(clean[0][0], clean[1][0]))
+
+    saved, checked = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-elastic-") as root:
+        run = trainer(ObjectStore(root), ckpt_every=ELASTIC_CKPT_EVERY,
+                      fail_at=ELASTIC_FAIL_AT)
+        ck = run.ckpt
+        save_async, restore_latest = ck.save_async, ck.restore_latest
+
+        def save_spy(step, tree, extra=None):
+            if step == ELASTIC_RESTORED:        # a device copy, a few ms
+                saved.update({k: v.clone() for k, v in
+                              flatten_with_paths(tree)})
+            save_async(step, tree, extra)
+
+        def restore_spy(abstract, device="cuda", **kw):
+            tree, meta = restore_latest(abstract, device, **kw)
+            if tree is not None:
+                got = dict(flatten_with_paths(tree))
+                checked["step"] = meta["step"]
+                checked["keys"] = sorted(got) == sorted(saved)
+                checked["unequal"] = [k for k, v in saved.items()
+                                      if not torch.equal(_bits(got[k]),
+                                                         _bits(v))]
+                saved.clear()               # free the copy before training
+            return tree, meta
+
+        ck.save_async, ck.restore_latest = save_spy, restore_spy
+        torch.cuda.reset_peak_memory_stats()
+        xent.fwd_launches = xent.bwd_launches = au.launches = 0
+        out = run.run()
+        launches = {"xent_fwd": xent.fwd_launches,
+                    "xent_bwd": xent.bwd_launches,
+                    "adamw_update": au.launches}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        kept = ck.all_steps()
+        ckpt_bytes = sum(
+            p.stat().st_size for p in
+            Path(root, "checkpoints", f"step_{kept[-1]:010d}").rglob("*")
+            if p.is_file())
+    rep, losses = out["report"], out["losses"]
+    starts_gb = [v / 1e9 for _, v in run.metrics.series(
+        "elastic/segment_start_allocated_bytes").snapshot()]
+    del out, run
+    executed = rep.steps_executed
+    wall = rep.total_wall_s
+    result = {
+        "arch": ARCH, "layers": ELASTIC_LAYERS, "params_b": n_params / 1e9,
+        "dtype": "bfloat16", "steps": ELASTIC_STEPS, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "device_steps": ELASTIC_K,
+        "ckpt_every": ELASTIC_CKPT_EVERY, "fail_at": ELASTIC_FAIL_AT,
+        "outcomes": [s.outcome for s in rep.segments],
+        "segments": [[s.start, s.end] for s in rep.segments],
+        "restored_step": checked.get("step"),
+        "restore_bit_exact": checked.get("keys") is True
+        and not checked.get("unequal"),
+        "kept_steps": kept, "ckpt_gb": ckpt_bytes / 1e9,
+        "saves": ck.saves, "restores": ck.restores,
+        "recovery_s": rep.recovery_s, "t_first_s": rep.t_first_s,
+        "t_first_s_by_segment": [s.t_first_s for s in rep.segments],
+        "clean_t_first_s": clean[0][1].t_first_s,
+        "steps_lost": rep.steps_lost, "steps_executed": executed,
+        "total_wall_s": wall, "clean_wall_s": [c[1].total_wall_s
+                                               for c in clean],
+        "useful_tokens_per_s": rep.tokens_per_s,
+        "executed_tokens_per_s": rep.tokens_executed / max(wall, 1e-9),
+        "clean_tokens_per_s": [c[1].tokens_per_s for c in clean],
+        "host_syncs_per_step": rep.host_syncs_per_step,
+        "segment_start_allocated_gb": starts_gb, "peak_mem_gb": peak_gb,
+        "launches": launches, "losses": losses, "clean_losses": clean[0][0],
+        "clean_spread": spread, "card": smi}
+    log(f"[elastic] {ARCH} at {ELASTIC_LAYERS} layers ({n_params / 1e9:.3f} B "
+        f"params, bf16): outcomes {result['outcomes']} segments "
+        f"{result['segments']}; restored step {result['restored_step']} "
+        f"(bit exact: {result['restore_bit_exact']}); steps lost "
+        f"{rep.steps_lost}, executed {executed}; checkpoint "
+        f"{ckpt_bytes / 1e9:.3f} GB; saves {ck.saves}; restores "
+        f"{ck.restores}; recovery_s {rep.recovery_s}; launches {launches}; "
+        f"allocated at segment starts {starts_gb} GB, peak {peak_gb:.2f} GB")
+    log(f"[elastic] losses {losses}; clean {clean[0][0]}; clean runs differ "
+        f"by {spread:.3g} at most")
+
+    if result["outcomes"] != ["error", "done"] or \
+            result["segments"] != [[0, 5], [4, 7]]:
+        raise AssertionError(f"elastic segments {rep.to_json()}")
+    if rep.steps_lost != 2 or executed != 10 or kept != [3, 7]:
+        raise AssertionError(f"steps lost {rep.steps_lost}, executed "
+                             f"{executed}, checkpoints kept {kept}")
+    if checked.get("step") != ELASTIC_RESTORED or \
+            not result["restore_bit_exact"]:
+        raise AssertionError(f"restore of step {ELASTIC_RESTORED}: {checked}")
+    want = {"xent_fwd": executed * (TRAIN_SEQ // 512),
+            "xent_bwd": executed * (TRAIN_SEQ // 512),
+            "adamw_update": executed * n_leaves}
+    if launches != want:
+        raise AssertionError(f"elastic kernel launches {launches} != {want}")
+    if not all(math.isfinite(x) for x in losses + clean[0][0]) or \
+            len(losses) != ELASTIC_STEPS:
+        raise AssertionError(f"elastic losses {losses}")
+    gap = max(abs(a - b) for a, b in zip(losses, clean[0][0]))
+    if gap > 2 * spread:
+        raise AssertionError(f"crash run's losses differ from the clean "
+                             f"run's by {gap:.3g} (allowed {2 * spread:.3g})")
+    # the dead segment's tensors are gone before the restored one starts:
+    # the second start holds at most the first's plus the step-3 copy
+    if len(starts_gb) != 2 or \
+            starts_gb[1] > starts_gb[0] + ckpt_bytes / 1e9 + 0.5:
+        raise AssertionError(f"allocated at segment starts {starts_gb} GB")
+    return result, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1358,8 +1531,12 @@ def main() -> int:
         f"{GRANITE} serve": ran_granite["flash_attention"],
         f"{ZAMBA} serve": ran_zamba["flash_attention"]}
     train, launches = phase_train(smi)
+    elastic, elastic_launches = phase_elastic(smi)
     for row in (xent_fwd, xent_bwd, adamw):
         row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = {
+            f"{ARCH} train": launches[row["name"]],
+            f"{ARCH} elastic": elastic_launches[row["name"]]}
     kernels = [flash, xent_fwd, xent_bwd, adamw, ssd, wkv, gmm]
     for row in kernels:
         row["card"] = smi
@@ -1367,6 +1544,7 @@ def main() -> int:
     print(json.dumps({"serve": {ARCH: serve, GRANITE: serve_granite,
                                 ZAMBA: serve_zamba, RWKV: serve_rwkv}}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"elastic": elastic}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

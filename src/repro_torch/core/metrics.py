@@ -4,7 +4,8 @@ The paper's methodology is "constantly measuring, learning, and informing
 every aspect of a machine learning workflow" (CHASE-CI §VI, Figs 3-6,
 Table I).  This registry provides counters / gauges / histograms plus
 timestamped series, and renders the paper's Table I (per-step resource
-summary) from StepReports.  This copy holds only what serving calls.
+summary) from StepReports.  This copy holds only what serving, the
+orchestrator and the elastic trainer call.
 """
 from __future__ import annotations
 

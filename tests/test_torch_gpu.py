@@ -19,7 +19,10 @@ in another order) and 2^-7 of it in f16/bf16 (one rounding of the output,
 which a different f32 sum can push across a rounding boundary).  In
 f16/bf16 the flash kernel also rounds P to the input type before P V, as
 the JAX model does; tests/test_torch_kernels.py shows on the CPU that the
-2e-2 tolerance covers that rounding at phi4's prefill shape.
+2e-2 tolerance covers that rounding at phi4's prefill shape.  The
+training runtime: a crash-and-resume run on the card against a clean one,
+1e-5 relative on the losses (f32; the embedding's grad may be summed in
+another order), and checkpoints restored onto the card bit for bit.
 """
 import numpy as np
 import pytest
@@ -400,3 +403,83 @@ def test_gmm_ragged_d_and_f_inside_aligned_rows(C, dtype):
     want = moe_gmm.gmm_plain(x, w)
     scale = max(1.0, want.float().abs().max().item())
     assert (got.float() - want.float()).abs().max().item() <= 2 ** -7 * scale
+
+
+# ------------------------------------------------- training runtime (A5)
+
+def _elastic(root, **kw):
+    """phi4 smoke in f32 with two layers through the elastic trainer on the
+    card: 6 steps (or ``steps``) of 4 x 32 tokens, one loss chunk a step."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.core.orchestrator import Cluster
+    from repro_torch.data.objectstore import ObjectStore
+    from repro_torch.elastic import ElasticTrainer, ElasticTrainSpec
+    arch = "phi4-mini-3.8b"
+    cfg = registry.get_smoke(arch).replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    kw = {"steps": 6, **kw}
+    spec = ElasticTrainSpec(cfg, registry.get_parallel(arch),
+                            OptimizerConfig(warmup_steps=1, decay_steps=100),
+                            seq_len=32, global_batch=4, max_data=1,
+                            keep=None, verbose=False, **kw)
+    trainer = ElasticTrainer(Cluster(), spec, store=ObjectStore(str(root)))
+    return trainer.run()
+
+
+@pytest.mark.gpu
+def test_elastic_crash_run_on_the_card_matches_a_clean_run(tmp_path):
+    """A crash inside chunk [2,3] at device_steps 2: restored from step 1's
+    checkpoint, the run repeats the clean run's losses (1e-5 relative: the
+    card may sum the embedding's grad in another order)."""
+    _card()
+    clean = _elastic(tmp_path / "clean", ckpt_every=0)
+    out = _elastic(tmp_path / "crash", ckpt_every=2, device_steps=2,
+                   fail_at=3)
+    rep = out["report"]
+    assert [s.outcome for s in rep.segments] == ["error", "done"]
+    assert [(s.start, s.end) for s in rep.segments] == [(0, 1), (2, 5)]
+    assert out["params"]["embed"].device.type == "cuda"
+    np.testing.assert_allclose(out["losses"], clean["losses"], rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_elastic_kernel_launches_per_executed_step(tmp_path):
+    """Each executed step, the re-run ones included, launches the xent
+    kernels once a loss chunk and AdamW once a leaf (11 for phi4)."""
+    _card()
+    before = (xent.fwd_launches, xent.bwd_launches, au.launches)
+    out = _elastic(tmp_path, steps=8, ckpt_every=4, device_steps=2,
+                   fail_at=7)
+    rep = out["report"]
+    assert rep.steps_executed == 10 and rep.steps_lost == 2
+    ran = (xent.fwd_launches - before[0], xent.bwd_launches - before[1],
+           au.launches - before[2])
+    assert ran == (10, 10, 10 * 11)
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_the_card_is_bit_exact(tmp_path):
+    """bf16, f32 and int32 leaves on the card: restored bit for bit onto
+    the card, and ``save_async`` holds the values of its call even when
+    the leaves change in place right after it."""
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.data.objectstore import ObjectStore
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn(64, 96, generator=gen, device="cuda")
+            .to(torch.bfloat16),
+            "m": {"a": torch.randn(1000, generator=gen, device="cuda")},
+            "count": torch.tensor(7, dtype=torch.int32, device="cuda")}
+    want = {"w": tree["w"].clone(), "a": tree["m"]["a"].clone()}
+    ck = Checkpointer(ObjectStore(str(tmp_path)), keep=None)
+    ck.save_async(0, tree)
+    tree["w"].add_(1)
+    tree["m"]["a"].mul_(3)
+    ck.wait()
+    got = ck.restore(0, tree, device="cuda")
+    assert got["w"].device.type == "cuda" and got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"].view(torch.int16), want["w"].view(torch.int16))
+    assert torch.equal(got["m"]["a"].view(torch.int32),
+                       want["a"].view(torch.int32))
+    assert int(got["count"]) == 7
