@@ -14,10 +14,13 @@ Phases (any failure raises and the script exits non-zero):
                one (a yardstick only: the port never calls it); computes the
                card's bound.  Times are device times: CUDA events around
                launches enqueued while a sleep kernel holds the stream, so
-               the host's launch cost is not counted; the median of three.  Flash attention at phi4's prefill, zamba2's
-               (dh 80) and granite-moe's (dh 64); xent forward and backward
-               at the train
-               phase's loss chunk; AdamW at phi4's embedding; the SSD scan at
+               the host's launch cost is not counted; the median of three.
+               Flash attention at phi4's prefill, zamba2's (dh 80),
+               granite-moe's (dh 64) and the static batcher's (B=4); xent
+               forward and backward at the train phase's loss chunk, and
+               the backward with the RL learner's dy (zero on prompt rows
+               and on a zero-advantage rollout, negative where the
+               advantage is); AdamW at phi4's embedding; the SSD scan at
                zamba2's prefill and WKV6 at rwkv6's, each case printing the
                path it took (bf16 widths that are multiples of 16: the
                tensor-core kernels; f32, f16, other widths: the CUDA-core
@@ -71,14 +74,37 @@ Phases (any failure raises and the script exits non-zero):
                as saved, 2 steps lost, 10 executed, exactly 20 xent forward,
                20 backward and 110 AdamW launches; every loss finite and
                equal to a clean run's (bit for bit if two clean runs agree
-               bit for bit, else within twice their spread).
-Then it prints a ``{"kernels": [...]}`` line, a ``{"serve": {...}}`` line
-with one entry per arch, a ``{"train": {...}}`` line, an
-``{"elastic": {...}}`` line, the card's name and power limit, and as its
-last line ``{"ok": true, "device": {...}}``.
+               bit for bit, else within twice their spread);
+ 10. router  — full-width phi4-mini-3.8b in bf16 (the serve phase's
+               weights) behind ``serve_replicated``: 16 requests of the
+               serve mix, 1 to 2 replicas of 4 slots (paged, prefix cache):
+               every request completes with its stop length, the autoscaler
+               scales up, flash runs on every layer of every prefill, and
+               every request served on the same path as in the serve phase
+               (prefilled whole, or replaying the cached prefix) has its
+               tokens; then ``serve_static`` in batches of 4 on the same
+               requests: every request completes with its stop length,
+               flash runs on every layer of each B=4 prefill, and the share
+               of requests whose tokens equal the continuous engine's is
+               printed;
+ 11. rl      — phi4-mini-3.8b in bf16 at full width with depth cut to 4
+               layers through ``run_rl_fleet``: 2 actors of 4 slots
+               (paged), prompts of 128 and 128 new tokens, 8 rollouts a
+               learner step, 4 steps, a publish every 2: done, every
+               version published once, every actor synced, every trained
+               rollout within the staleness bound, finite losses and grad
+               norms, 4 xent forward, 4 backward and 44 AdamW launches, and
+               flash on every layer of every actor prefill.
+The phases that write checkpoints (elastic, rl) print the bytes they
+wrote and left on disk.  Then it prints a ``{"kernels": [...]}`` line, a
+``{"serve": {...}}`` line with one entry per arch, a ``{"train": {...}}``
+line, an ``{"elastic": {...}}`` line, a ``{"router": ..., "static":
+...}`` line, an ``{"rl": {...}}`` line, the card's name and power limit,
+and as its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -113,6 +139,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_K = 2, 1024, 6, 3
 ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_K = 4, 8, 2
 ELASTIC_CKPT_EVERY, ELASTIC_FAIL_AT, ELASTIC_RESTORED = 4, 7, 3
 GRAD_RTOL = 0.05          # bf16 vs f32 first-batch grad norm, per leaf
+# router: 16 requests of the serve mix queued at once; at 4 a replica the
+# autoscaler wants 4 replicas and is clamped to 2.  Static: batches of 4.
+ROUTER_REQUESTS, ROUTER_BACKLOG, STATIC_BATCH = 16, 4.0, 4
+STATIC_ATTN = (STATIC_BATCH, 24, 8, PROMPT, PROMPT, 128)  # its B=4 prefill
+# rl: phi4 at ELASTIC_LAYERS, 2 actors of 4 slots, prompts of 128 and 128
+# new tokens, 8 rollouts a learner step, 4 steps, a publish every 2
+RL_ACTORS, RL_SLOTS, RL_PROMPT, RL_GEN = 2, 4, 128, 128
+RL_ROLLOUTS, RL_STEPS, RL_BROADCAST, RL_LAG = 8, 4, 2, 2
 
 
 def log(msg: str) -> None:
@@ -252,6 +286,7 @@ def phase_kernels(main_shape):
         main_shape + (True, torch.bfloat16, 2e-2),
         ZAMBA_ATTN + (True, torch.bfloat16, 2e-2),               # dh 80
         GRANITE_ATTN + (True, torch.bfloat16, 2e-2),             # dh 64
+        STATIC_ATTN + (True, torch.bfloat16, 2e-2),              # B=4
         (2, 4, 2, 130, 130, 80, True, torch.float32, 2e-5),
         (1, 24, 8, 300, 300, 128, True, torch.bfloat16, 2e-2),   # ragged
         (2, 24, 8, 300, 300, 128, False, torch.bfloat16, 2e-2),
@@ -278,7 +313,7 @@ def phase_kernels(main_shape):
         rows.append((shape, err, q, k, v, causal))
     timed = {}
     for i, shape_args in ((0, main_shape), (1, ZAMBA_ATTN),
-                          (2, GRANITE_ATTN)):
+                          (2, GRANITE_ATTN), (3, STATIC_ATTN)):
         shape, err, q, k, v, causal = rows[i]
         ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
         plain_ms = _time_ms(lambda: fa.attention_plain(q, k, v,
@@ -302,8 +337,9 @@ def phase_kernels(main_shape):
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:25",
             "launches": None, **timed[0],
-            "edge_shapes_max_abs_err": max(r[1] for r in rows[3:]),
-            "zamba2_dh80": timed[1], "granite_dh64": timed[2]}
+            "edge_shapes_max_abs_err": max(r[1] for r in rows[4:]),
+            "zamba2_dh80": timed[1], "granite_dh64": timed[2],
+            "static_b4": timed[3]}
 
 
 def _bound(nbytes: float, flops: float, dtype=torch.float32):
@@ -363,6 +399,19 @@ def phase_xent(R: int, V: int):
     edge["logits +-1000 R=8 V=4"] = (
         big, torch.tensor([0, 1, 2, 3, 0, 1, 2, 3], dtype=torch.int32,
                           device="cuda"), torch.ones(8, device="cuda"), None)
+    # the RL learner's chunk: 8 rollouts of 256 positions, dy = mask *
+    # advantage / sum(mask): 0 on prompt and pad rows and on a rollout
+    # whose advantage is 0, negative where the advantage is
+    rl_gen = torch.Generator(device="cuda").manual_seed(5)
+    logits, labels, _, _ = _xent_case(RL_ROLLOUTS * (RL_PROMPT + RL_GEN), V,
+                                      gen=rl_gen)
+    mask = torch.zeros(RL_ROLLOUTS, RL_PROMPT + RL_GEN, device="cuda")
+    mask[:, RL_PROMPT - 1:RL_PROMPT + RL_GEN - 1] = 1.0
+    adv = torch.randn(RL_ROLLOUTS, generator=rl_gen, device="cuda")
+    adv[3] = 0.0
+    rl_dy = (mask * adv[:, None] / mask.sum()).reshape(-1)
+    rl_case = f"rl dy R={logits.shape[0]} V={V}"
+    edge[rl_case] = (logits, labels, rl_dy, None)
     edge_errs = {}
     for name, case in edge.items():
         e_nll, e_d, t_nll, t_d = _xent_errs(*case)
@@ -373,6 +422,16 @@ def phase_xent(R: int, V: int):
             raise AssertionError(f"xent disagrees with its plain version at "
                                  f"{name}")
         edge_errs[name] = (e_nll, e_d)
+    _, lse = xent.xent_fwd(logits, labels)
+    d = xent.xent_bwd(logits, labels, lse, rl_dy)
+    zero_rows = rl_dy == 0
+    log(f"[kernels] xent rl dy: {int(zero_rows.sum())} of {rl_dy.numel()} "
+        f"rows with dy 0, {int((rl_dy < 0).sum())} negative; their dlogits "
+        f"all zero: {not bool(d[zero_rows].any())}")
+    if d[zero_rows].any() or not (rl_dy < 0).any():
+        raise AssertionError("xent backward: a row with dy 0 has non-zero "
+                             "dlogits, or the case has no negative dy")
+    del logits, labels, d, lse
 
     logits, labels, dy, _ = _xent_case(R, V, gen=gen)
     e_nll, e_d, t_nll, t_d = _xent_errs(logits, labels, dy, None)
@@ -416,7 +475,8 @@ def phase_xent(R: int, V: int):
                ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound[0],
                bound_by=bwd_bound[1], library_ms=bwd_lib,
                library="F.cross_entropy forward+backward",
-               edge_shapes_max_abs_err=max(e[1] for e in edge_errs.values()))
+               edge_shapes_max_abs_err=max(e[1] for e in edge_errs.values()),
+               rl_dy_max_abs_err=edge_errs[rl_case][1])
     return fwd, bwd
 
 
@@ -1024,7 +1084,7 @@ def _requests(vocab: int, n: int = 8):
 def _count_per_call(engine, counters):
     """Wrap the engine's prefill and decode step so each call records how
     many launches of each counted kernel it made."""
-    per = {"prefill": [], "decode": []}
+    per = {"prefill": [], "decode": [], "prompts": []}
 
     def wrap(fn, key):
         def run(*args, **kwargs):
@@ -1032,6 +1092,8 @@ def _count_per_call(engine, counters):
             out = fn(*args, **kwargs)
             per[key].append({n: mod.launches - before[n]
                              for n, mod in counters.items()})
+            if key == "prefill":
+                per["prompts"].append(tuple(args[1]))
             return out
         return run
     engine.prefill_into = wrap(engine.prefill_into, "prefill")
@@ -1100,6 +1162,7 @@ def phase_serve(smi: str, arch: str = ARCH):
     want_call = {k: {n: want[n] for n in counters}
                  for k, want in want_call.items()}
     bad_calls = sorted({(k, n, c[n]) for k, calls in per.items()
+                        if k != "prompts"
                         for c in calls for n in c if c[n] != want_call[k][n]})
     log(f"[serve:{arch}] completed {len(results)}/{len(reqs)}, tokens "
         f"{sm[GAUGES.TOKENS]['total']:.0f}/{want_tokens}, full prefills "
@@ -1118,7 +1181,7 @@ def phase_serve(smi: str, arch: str = ARCH):
             or len(per["decode"]) != decode_steps or bad_calls):
         raise AssertionError(f"kernel launches per call off: {bad_calls}")
     for name in counters:
-        total = sum(c[name] for calls in per.values() for c in calls)
+        total = sum(c[name] for k in ("prefill", "decode") for c in per[k])
         if launches[name] != total or launches[name] < 1:
             raise AssertionError(f"{name} launches {launches[name]} != "
                                  f"{total} counted by call")
@@ -1156,7 +1219,10 @@ def phase_serve(smi: str, arch: str = ARCH):
     if not same:
         raise AssertionError("paged greedy tokens differ from slotted")
     del params
-    return serve, launches
+    # which requests this run prefilled whole (the rest replayed a cached
+    # prefix): the router phase compares its tokens on like paths
+    full = {r["id"] for r in reqs if tuple(r["prompt"]) in set(per["prompts"])}
+    return serve, launches, {"results": results, "full": full}
 
 
 def phase_serve_ssm(smi: str, arch: str):
@@ -1428,6 +1494,7 @@ def phase_elastic(smi: str):
             p.stat().st_size for p in
             Path(root, "checkpoints", f"step_{kept[-1]:010d}").rglob("*")
             if p.is_file())
+        on_disk = ObjectStore(root).total_bytes()
     rep, losses = out["report"], out["losses"]
     starts_gb = [v / 1e9 for _, v in run.metrics.series(
         "elastic/segment_start_allocated_bytes").snapshot()]
@@ -1458,7 +1525,9 @@ def phase_elastic(smi: str):
         "host_syncs_per_step": rep.host_syncs_per_step,
         "segment_start_allocated_gb": starts_gb, "peak_mem_gb": peak_gb,
         "launches": launches, "losses": losses, "clean_losses": clean[0][0],
-        "clean_spread": spread, "card": smi}
+        "clean_spread": spread,
+        "disk_written_gb": sum(r["bytes"] for r in ck.saves) / 1e9,
+        "on_disk_gb": on_disk / 1e9, "card": smi}
     log(f"[elastic] {ARCH} at {ELASTIC_LAYERS} layers ({n_params / 1e9:.3f} B "
         f"params, bf16): outcomes {result['outcomes']} segments "
         f"{result['segments']}; restored step {result['restored_step']} "
@@ -1468,7 +1537,8 @@ def phase_elastic(smi: str):
         f"{ck.restores}; recovery_s {rep.recovery_s}; launches {launches}; "
         f"allocated at segment starts {starts_gb} GB, peak {peak_gb:.2f} GB")
     log(f"[elastic] losses {losses}; clean {clean[0][0]}; clean runs differ "
-        f"by {spread:.3g} at most")
+        f"by {spread:.3g} at most; disk written {result['disk_written_gb']:.2f}"
+        f" GB, on disk at the end {result['on_disk_gb']:.2f} GB")
 
     if result["outcomes"] != ["error", "done"] or \
             result["segments"] != [[0, 5], [4, 7]]:
@@ -1499,6 +1569,272 @@ def phase_elastic(smi: str):
     return result, launches
 
 
+def _serve_row(metrics, smi, **extra):
+    """tok/s, p50 TTFT and the rest of a serving run's gauges."""
+    from repro_torch.serving.report import GAUGES
+    sm = metrics.summary()
+    return {"requests": int(sm[GAUGES.COMPLETED]["total"]),
+            "tokens": int(sm[GAUGES.TOKENS]["total"]),
+            "tok_s": sm[GAUGES.TOK_S]["last"],
+            "decode_tok_s": sm.get(GAUGES.DECODE_TOK_S, {}).get("last"),
+            "p50_ttft_s": sm[GAUGES.TTFT_S]["p50"],
+            "p99_ttft_s": sm[GAUGES.TTFT_S]["p99"],
+            "prefill_s_p50": sm[GAUGES.PREFILL_S]["p50"],
+            "decode_steps": int(sm.get(GAUGES.DECODE_STEPS,
+                                       {}).get("total", 0)),
+            "wall_s": sm[GAUGES.WALL_S]["last"], **extra, "card": smi}
+
+
+def phase_serve_router(smi: str, single):
+    """Full-width phi4 in bf16 behind the router: 16 requests of the serve
+    mix through ``serve_replicated`` (1 to 2 replicas of 4 slots, paged,
+    prefix cache); tokens against the single-engine serve phase's.  Then
+    ``serve_static`` in batches of 4 on the same requests."""
+    from repro_torch.configs import registry
+    from repro_torch.core.metrics import Registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve_static
+    from repro_torch.models import params as pr
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import serve_replicated
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.report import GAUGES
+
+    # earlier phases' objects that sit in reference cycles go first (the
+    # elastic trainer used to keep its last state, 10.2 GB, in one)
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[router] {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated "
+        f"at the phase's start ({held / 1e9:.3f} GB before a cycle "
+        f"collection)")
+    cfg = registry.get_config(ARCH)
+    params = pr.init_params(tfm.lm_schema(cfg),
+                            torch.Generator(device="cuda").manual_seed(0),
+                            cfg.param_dtype, "cuda")
+    reqs = _requests(cfg.vocab_size, ROUTER_REQUESTS)
+    want_tokens = sum(r["max_new_tokens"] for r in reqs)
+    prefilled = {}                # replica -> prompts it prefilled whole
+
+    def factory(name, reg, dev):
+        engine = ServingEngine(cfg, device=dev, num_slots=SLOTS,
+                               prompt_len=PROMPT, max_new_tokens=GEN,
+                               params=params, registry=reg, paged=True,
+                               block_size=BLOCK, prefix_cache=True)
+        engine.warmup()
+        prefill = engine.prefill_into
+
+        def counted(slot, prompt):
+            prefilled.setdefault(name, []).append(tuple(prompt))
+            return prefill(slot, prompt)
+        engine.prefill_into = counted
+        return engine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    results, metrics, events = serve_replicated(
+        factory, reqs, device="cuda", min_replicas=1, max_replicas=2,
+        target_backlog=ROUTER_BACKLOG, registry=Registry(), timeout_s=300.0)
+    torch.cuda.synchronize()
+    router_launches = fa.launches
+    router_peak = torch.cuda.max_memory_allocated() / 1e9
+    sm = metrics.summary()
+    # every prefill (the two warmups included) ran flash on every layer
+    prefills = int(sm[GAUGES.PREFILL_S]["count"])
+    by_replica = {n: len(v) for n, v in prefilled.items()}
+    full = {r["id"] for r in reqs
+            if any(tuple(r["prompt"]) in v for v in prefilled.values())}
+    scale_ups = [e for e in events if e[2] > e[1] and e[3] != "startup"]
+    # like paths: prefilled whole in both runs, or replayed in both
+    like = [r["id"] for r in reqs if r["id"] in single["results"]
+            and (r["id"] in full) == (r["id"] in single["full"])]
+    equal = [i for i in like if results[i] == single["results"][i]]
+    unlike = sorted(set(single["results"]) - set(like))
+    log(f"[router] {ARCH}: completed {len(results)}/{len(reqs)}, tokens "
+        f"{sm[GAUGES.TOKENS]['total']:.0f}/{want_tokens}; scale events "
+        f"{[(e[1], e[2], e[3]) for e in events]}; full prefills by replica "
+        f"{by_replica} (prefix replays: {len(reqs) - len(full)}); flash "
+        f"launches {router_launches} over {prefills} prefills; tokens equal "
+        f"to the single engine's on {len(equal)}/{len(like)} requests "
+        f"served on like paths (other paths: {unlike})")
+    if sorted(results) != list(range(len(reqs))) or any(
+            len(results[r["id"]]) != r["max_new_tokens"] for r in reqs):
+        raise AssertionError("router: a request did not complete with its "
+                             "stop length")
+    if not scale_ups:
+        raise AssertionError(f"router: no scale-up event: {events}")
+    if router_launches != cfg.num_layers * prefills:
+        raise AssertionError(f"router: flash launches {router_launches} != "
+                             f"{cfg.num_layers} x {prefills} prefills")
+    if not like or len(equal) != len(like):
+        raise AssertionError(f"router: tokens differ from the single engine's "
+                             f"on {sorted(set(like) - set(equal))}")
+    router = _serve_row(metrics, smi, scale_events=[list(e[1:])
+                                                    for e in events],
+                        replicas_max=int(metrics.series(
+                            GAUGES.REPLICAS).max),
+                        full_prefills_by_replica=by_replica,
+                        flash_launches=router_launches,
+                        tokens_equal_single=f"{len(equal)}/{len(like)}",
+                        peak_mem_gb=router_peak)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    static, smetrics = serve_static(
+        ARCH, smoke=False, n_requests=len(reqs), prompt_len=PROMPT, gen=GEN,
+        batch=STATIC_BATCH, requests=reqs, params=params, device="cuda")
+    torch.cuda.synchronize()
+    static_launches = fa.launches
+    static_peak = torch.cuda.max_memory_allocated() / 1e9
+    batches = int(smetrics.summary()[GAUGES.PREFILL_S]["count"])
+    same = sum(static[r["id"]] == results[r["id"]] for r in reqs)
+    log(f"[static] {ARCH}, batches of {STATIC_BATCH}: completed "
+        f"{len(static)}/{len(reqs)} in {batches} B={STATIC_BATCH} prefills, "
+        f"flash launches {static_launches}; tokens equal to the continuous "
+        f"engine's on {same}/{len(reqs)} requests (a B=4 prefill runs GEMMs "
+        f"of another M, so bf16 rounding may differ)")
+    if sorted(static) != list(range(len(reqs))) or any(
+            len(static[r["id"]]) != r["max_new_tokens"] for r in reqs):
+        raise AssertionError("static: a request did not complete with its "
+                             "stop length")
+    if batches != math.ceil(len(reqs) / STATIC_BATCH) or \
+            static_launches != cfg.num_layers * batches:
+        raise AssertionError(f"static: flash launches {static_launches} over "
+                             f"{batches} prefills")
+    static_row = _serve_row(smetrics, smi, batch=STATIC_BATCH,
+                            prefills=batches, flash_launches=static_launches,
+                            tokens_equal_continuous=f"{same}/{len(reqs)}",
+                            peak_mem_gb=static_peak)
+    log(f"[router vs static] tok/s {router['tok_s']:.1f} vs "
+        f"{static_row['tok_s']:.1f}; p50 TTFT {router['p50_ttft_s']:.3f} vs "
+        f"{static_row['p50_ttft_s']:.3f} s; scale events "
+        f"{router['scale_events']} vs none; peak {router_peak:.2f} vs "
+        f"{static_peak:.2f} GB")
+    del params
+    return {"router": router, "static": static_row}, {
+        "router": router_launches, "static": static_launches}
+
+
+def phase_rl(smi: str):
+    """phi4 at full width and 4 layers in bf16 through ``run_rl_fleet``:
+    2 actors, the learner, the policy store, 4 learner steps."""
+    import tempfile
+
+    from repro_torch.api.resources import RLJob
+    from repro_torch.api.runners import dataclass_kwargs, run_rl_fleet
+    from repro_torch.configs import registry
+    from repro_torch.core.metrics import Registry
+    from repro_torch.data.objectstore import ObjectStore
+    from repro_torch.kernels import adamw_update as au
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import xent
+    from repro_torch.models import params as pr
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.report import GAUGES
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[rl] {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated at the "
+        f"phase's start")
+    cfg = registry.get_config(ARCH).replace(num_layers=ELASTIC_LAYERS)
+    n_leaves = len(pr.leaves(tfm.lm_schema(cfg)))
+    job = RLJob(name="chip-smoke-rl", learner_steps=RL_STEPS, arch=ARCH,
+                smoke=False, actors=RL_ACTORS,
+                rollouts_per_step=RL_ROLLOUTS, prompt_len=RL_PROMPT,
+                max_new_tokens=RL_GEN, seq_len=RL_PROMPT + RL_GEN,
+                slots=RL_SLOTS, max_policy_lag=RL_LAG,
+                broadcast_every=RL_BROADCAST, ckpt_every=0,
+                config=dataclass_kwargs(cfg), paged=True)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-rl-") as root:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = xent.fwd_launches = xent.bwd_launches = au.launches = 0
+        t0 = time.perf_counter()
+        out = run_rl_fleet(None, job, learner_store=ObjectStore(root),
+                           metrics=Registry(), device="cuda")
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": fa.launches,
+                    "xent_fwd": xent.fwd_launches,
+                    "xent_bwd": xent.bwd_launches,
+                    "adamw_update": au.launches}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        on_disk = ObjectStore(root).total_bytes()
+    gc.collect()
+    rep = out["report"]
+    actors = {n: m.summary() for n, m in out.pop("actor_metrics").items()}
+    prefills = sum(int(a[GAUGES.PREFILL_S]["count"]) for a in actors.values())
+    actor_tokens = sum(int(a[GAUGES.TOKENS]["total"]) for a in actors.values())
+    saves = out["policy_saves"] + out["learner_saves"]
+    written = sum(r["bytes"] for r in saves)
+    want = {"flash_attention": cfg.num_layers * prefills,
+            "xent_fwd": RL_STEPS, "xent_bwd": RL_STEPS,
+            "adamw_update": RL_STEPS * n_leaves}
+    result = {
+        "arch": ARCH, "layers": ELASTIC_LAYERS, "dtype": "bfloat16",
+        "actors": RL_ACTORS, "slots": RL_SLOTS, "prompt": RL_PROMPT,
+        "gen": RL_GEN, "rollouts_per_step": RL_ROLLOUTS, "steps": RL_STEPS,
+        "broadcast_every": RL_BROADCAST, "max_policy_lag": RL_LAG,
+        "done": out["done"], "steps_done": out["steps_done"],
+        "publishes": out["publishes"], "final_version": out["final_version"],
+        "trained": out["trained"], "stale_dropped": out["stale_dropped"],
+        "max_lag_trained": out["max_lag_trained"],
+        "tickets_fed": out["tickets_fed"],
+        "rollouts_pushed": out["rollouts_pushed"],
+        "actor_syncs": out["actor_syncs"], "losses": rep["losses"],
+        "grad_norms": rep["grad_norms"], "reward_mean": rep["reward_mean"],
+        "reward_std": rep["reward_std"],
+        "learner_step_ms": [1e3 * x for x in rep["chunk_s"]],
+        "learner_drain_s": rep["drain_s"],
+        "actor_prefills": prefills, "actor_tokens": actor_tokens,
+        "actor_tok_s": actor_tokens / wall,
+        "actor_busy_tok_s": {n: a[GAUGES.TOKENS]["total"] /
+                             max(a[GAUGES.WALL_S]["total"], 1e-9)
+                             for n, a in actors.items()},
+        "publish_s": [r["snapshot_s"] + r["write_s"]
+                      for r in out["policy_saves"]],
+        "fetch_s": [r["seconds"] for r in out["policy_fetches"]],
+        "ckpt_saves": out["learner_saves"],
+        "disk_written_gb": written / 1e9, "on_disk_gb": on_disk / 1e9,
+        "wall_s": wall, "peak_mem_gb": peak_gb, "launches": launches,
+        "card": smi}
+    log(f"[rl] {ARCH} at {ELASTIC_LAYERS} layers, bf16: done {out['done']}, "
+        f"steps {out['steps_done']}/{RL_STEPS}, publishes {out['publishes']}, "
+        f"final version {out['final_version']}, trained {out['trained']} "
+        f"(stale {out['stale_dropped']}, max lag {out['max_lag_trained']}), "
+        f"actor syncs {out['actor_syncs']}; losses {rep['losses']}; grad "
+        f"norms {rep['grad_norms']}; rewards {rep['reward_mean']} (spread "
+        f"{rep['reward_std']}); launches {launches} (want {want})")
+    log(f"[rl] actors {actor_tokens} tokens in {prefills} prefills, "
+        f"{result['actor_tok_s']:.1f} tok/s over the {wall:.1f} s run "
+        f"(busy: {result['actor_busy_tok_s']}); learner step ms "
+        f"{result['learner_step_ms']}, waits for rollouts "
+        f"{rep['drain_s']} s; publish s {result['publish_s']}, fetch s "
+        f"{result['fetch_s']}; checkpoints {out['learner_saves']}; disk "
+        f"written {written / 1e9:.2f} GB, on disk at the end "
+        f"{on_disk / 1e9:.2f} GB; peak {peak_gb:.2f} GB")
+    log("[rl] cut: depth 4 of 32 layers (disk); no periodic checkpoint and "
+        "no injected learner crash on the card (the crash and resume run "
+        "on the CPU, tests/test_torch_rl.py): a periodic checkpoint adds "
+        "10.17 GB to a script that writes about 35 GB, past 40 GB under the "
+        "machine's 45 GiB stop")
+    if not (out["done"] and out["steps_done"] == RL_STEPS):
+        raise AssertionError(f"rl: not done: {rep}")
+    if out["final_version"] != out["publishes"] or \
+            min(out["actor_syncs"].values(), default=0) < 1:
+        raise AssertionError(f"rl: versions {out['final_version']} / "
+                             f"{out['publishes']}, syncs {out['actor_syncs']}")
+    if out["max_lag_trained"] > RL_LAG or \
+            out["trained"] != RL_STEPS * RL_ROLLOUTS:
+        raise AssertionError(f"rl: trained {out['trained']}, max lag "
+                             f"{out['max_lag_trained']}")
+    if not all(math.isfinite(x) for x in rep["losses"] + rep["grad_norms"]):
+        raise AssertionError("rl: a loss or grad norm is not finite")
+    if launches != want or prefills < 1:
+        raise AssertionError(f"rl kernel launches {launches} != {want}")
+    return result, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1518,8 +1854,8 @@ def main() -> int:
     phase_small_ssm()
     phase_small_moe()
     phase_small_train()
-    serve, ran_phi4 = phase_serve(smi)
-    serve_granite, ran_granite = phase_serve(smi, GRANITE)
+    serve, ran_phi4, phi4_run = phase_serve(smi)
+    serve_granite, ran_granite, _ = phase_serve(smi, GRANITE)
     serve_zamba, ran_zamba = phase_serve_ssm(smi, ZAMBA)
     serve_rwkv, ran_rwkv = phase_serve_ssm(smi, RWKV)
     flash["launches"] = ran_phi4["flash_attention"]
@@ -1532,11 +1868,21 @@ def main() -> int:
         f"{ZAMBA} serve": ran_zamba["flash_attention"]}
     train, launches = phase_train(smi)
     elastic, elastic_launches = phase_elastic(smi)
+    log(f"[disk] written so far {elastic['disk_written_gb']:.2f} GB")
+    router, ran_router = phase_serve_router(smi, phi4_run)
+    rl, rl_launches = phase_rl(smi)
+    log(f"[disk] written so far "
+        f"{elastic['disk_written_gb'] + rl['disk_written_gb']:.2f} GB")
+    flash["launches_by_path"].update({
+        f"{ARCH} serve router": ran_router["router"],
+        f"{ARCH} serve static": ran_router["static"],
+        f"{ARCH} rl actors": rl_launches["flash_attention"]})
     for row in (xent_fwd, xent_bwd, adamw):
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {
             f"{ARCH} train": launches[row["name"]],
-            f"{ARCH} elastic": elastic_launches[row["name"]]}
+            f"{ARCH} elastic": elastic_launches[row["name"]],
+            f"{ARCH} rl learner": rl_launches[row["name"]]}
     kernels = [flash, xent_fwd, xent_bwd, adamw, ssd, wkv, gmm]
     for row in kernels:
         row["card"] = smi
@@ -1545,6 +1891,8 @@ def main() -> int:
                                 ZAMBA: serve_zamba, RWKV: serve_rwkv}}))
     print(json.dumps({"train": train}))
     print(json.dumps({"elastic": elastic}))
+    print(json.dumps(router))
+    print(json.dumps({"rl": rl}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

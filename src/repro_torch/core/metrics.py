@@ -5,7 +5,7 @@ every aspect of a machine learning workflow" (CHASE-CI §VI, Figs 3-6,
 Table I).  This registry provides counters / gauges / histograms plus
 timestamped series, and renders the paper's Table I (per-step resource
 summary) from StepReports.  This copy holds only what serving, the
-orchestrator and the elastic trainer call.
+router, the orchestrator, the elastic trainer and the RL workload call.
 """
 from __future__ import annotations
 
@@ -33,6 +33,27 @@ class Series:
         """A consistent copy of the points at one instant."""
         with self._lock:
             return list(self.points)
+
+    @property
+    def last(self) -> float:
+        with self._lock:
+            return self.points[-1][1] if self.points else 0.0
+
+    @property
+    def total(self) -> float:
+        return sum(v for _, v in self.snapshot())
+
+    @property
+    def max(self) -> float:
+        return max((v for _, v in self.snapshot()), default=0.0)
+
+    def percentile(self, q: float) -> float:
+        """Nearest-rank percentile of recorded values, q in [0, 100]."""
+        vals = sorted(v for _, v in self.snapshot())
+        if not vals:
+            return 0.0
+        rank = min(len(vals) - 1, max(0, int(round(q / 100 * (len(vals) - 1)))))
+        return vals[rank]
 
     def stats(self) -> Dict[str, float]:
         """count/last/mean/max/total/p50/p99 from a SINGLE snapshot, so

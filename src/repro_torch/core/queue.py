@@ -12,8 +12,10 @@ die simply stop acking and their work is re-queued.  Semantics reproduced:
     slow ones hold only their current lease (no barrier per item).
 
 The queue is transport-agnostic and in-process here (single-container run);
-a production deployment backs the same API with Redis.  This copy holds
-only what the serving engine and scheduler call.
+a production deployment backs the same API with Redis.  State is
+snapshot/restorable so the RL learner's checkpoint can carry its rollout
+queue.  This copy holds what serving, the router and the RL workload call
+(no ``run_workers`` or ``leased_by``).
 """
 from __future__ import annotations
 
@@ -157,8 +159,59 @@ class WorkQueue:
         with self._lock:
             return len(self._pending)
 
+    @property
+    def leased(self) -> int:
+        with self._lock:
+            now = self._clock()
+            return sum(1 for t in self._leased.values() if t.lease_expiry > now)
+
+    @property
+    def completed(self) -> int:
+        with self._lock:
+            return sum(1 for t in self._tasks.values() if t.done)
+
     def drained(self) -> bool:
         with self._lock:
             now = self._clock()
             self._reclaim_expired(now)
             return not self._pending and not self._leased
+
+    # ---------------------------------------------------------- checkpoint
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "next_id": self._next_id,
+                "lease_timeout": self.lease_timeout,
+                "max_attempts": self.max_attempts,
+                "tasks": [(t.task_id, t.item, t.attempts, t.done,
+                           t.enqueued_at)
+                          for t in self._tasks.values()],
+                "pending": list(self._pending),
+                "dead": [t.task_id for t in self.dead],
+            }
+
+    @classmethod
+    def restore(cls, snap: dict, *, clock=time.monotonic) -> "WorkQueue":
+        q = cls(lease_timeout=snap["lease_timeout"],
+                max_attempts=snap["max_attempts"], clock=clock)
+        q._next_id = snap["next_id"]
+        dead = set(snap["dead"])
+        for tid, item, attempts, done, *rest in snap["tasks"]:
+            t = _Task(tid, item, attempts=attempts, done=done,
+                      enqueued_at=rest[0] if rest else 0.0)
+            q._tasks[tid] = t
+            if tid in dead:
+                q.dead.append(t)
+        # Leases do not survive restarts, but FIFO fairness must: replay
+        # the snapshotted pending order first (it encodes requeues/nacks),
+        # then append tasks that were leased at snapshot time in task-id
+        # order.  Old snapshots without "pending" degrade to id order.
+        snapped = snap.get("pending")
+        order = list(snapped) if snapped is not None else []
+        seen = set(order) | dead
+        for tid, *_ in snap["tasks"]:
+            if tid not in seen and not q._tasks[tid].done:
+                order.append(tid)
+        q._pending = [tid for tid in order if tid not in dead
+                      and not q._tasks[tid].done]
+        return q

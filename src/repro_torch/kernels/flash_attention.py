@@ -36,6 +36,7 @@ on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -45,6 +46,8 @@ HEAD_DIMS = (16, 32, 64, 80, 128)   # 80: zamba2's shared attention
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 launches = 0          # kernel launches in this process (chip_smoke reads it)
+# replicas and RL actors prefill from their own threads
+_launches_lock = threading.Lock()
 
 
 def _check(q, k, v):
@@ -115,5 +118,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             scale, int(causal), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention launch failed: CUDA error {rc}")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out

@@ -318,6 +318,26 @@ def loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
         x, batch["labels"], head, softcap=cfg.final_logit_softcap)
 
 
+def rl_loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
+    """Advantage-weighted policy-gradient loss (the RL learner's).
+
+    ``batch`` holds tokens/labels (B,S) int as in ``loss_fn``, mask (B,S)
+    f32 (1.0 on generated label positions) and advantages (B,) f32.  The
+    surrogate sum_t A * -log pi(label_t) / max(sum(mask), 1) is
+    cross entropy weighted by mask * advantage, so it runs through
+    ``losses.weighted_cross_entropy`` and its xent kernel; prompt and pad
+    positions weigh 0 and get no gradient.
+    """
+    x, _ = forward(cfg, params, batch["tokens"], mode="train", par=par)
+    head = lm_head(cfg, params).to(compute_dtype(cfg))
+    mask = batch["mask"].float()
+    w = mask * batch["advantages"].float()[:, None]
+    denom = mask.sum().clamp_min(1.0)
+    return losses.weighted_cross_entropy(
+        x, batch["labels"], head, w, denom=denom,
+        softcap=cfg.final_logit_softcap)
+
+
 # the MoE and recurrent kinds (module imports after the definitions above:
 # models.moe and models.ssm reach back for attention_part, mlp_part and the
 # attention schemas)

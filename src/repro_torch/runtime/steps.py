@@ -8,7 +8,9 @@ shardings.  Training:
     ``ocfg.accum_steps`` microbatches whose grads are summed in f32 (the
     reference's scan), then ``optim.adamw.apply_updates`` in place;
   * ``train_chunk`` — K steps on a (K, B, S) chunk with the metrics
-    stacked on the device, so the host syncs once per chunk.
+    stacked on the device, so the host syncs once per chunk;
+  * ``rl_train_chunk`` — the same with the RL learner's loss
+    (``transformer.rl_loss_fn``) and batch (``rl_batch_specs``).
 
 Serving:
 
@@ -95,6 +97,16 @@ def cache_batch_insert(dst, src, slot: int):
     ``slot`` of ``dst``; the tail stays as is, hidden by the decode mask."""
     def ins(d, s):
         d[:, slot:slot + 1, :s.shape[2]] = s.to(d.dtype)
+        return d
+    return _map(ins, dst, src)
+
+
+def cache_prefix_insert(dst, src):
+    """Copy a cache whose sequence axis covers only the prompt into the
+    front of a full-length one of the same batch (a state leaf without a
+    sequence axis is replaced whole)."""
+    def ins(d, s):
+        d[tuple(slice(0, n) for n in s.shape)] = s.to(d.dtype)
         return d
     return _map(ins, dst, src)
 
@@ -200,76 +212,110 @@ def init_opt_state(cfg: ModelConfig, ocfg: OptimizerConfig, device="cuda"):
                   "float32", resolve_device(device))
 
 
-def _value_and_grad(cfg: ModelConfig, par: ParallelConfig, params, batch):
+def _value_and_grad(cfg: ModelConfig, par: ParallelConfig, params, batch,
+                    loss=tfm.loss_fn):
     """(loss, grads like params) for one (micro)batch."""
     req = _map(lambda t: t.detach().requires_grad_(), params)
     with torch.enable_grad():
-        loss = tfm.loss_fn(cfg, par, req, batch)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(req)))
-    return loss.detach(), _map(lambda _t: next(grads), req)
+        value = loss(cfg, par, req, batch)
+        grads = iter(torch.autograd.grad(value, tree_leaves(req)))
+    return value.detach(), _map(lambda _t: next(grads), req)
 
 
-def _batch_on(batch, dev: torch.device):
-    return {k: torch.as_tensor(batch[k]).to(dev)
-            for k in ("tokens", "labels")}
+TRAIN_KEYS = ("tokens", "labels")
+
+
+def rl_batch_specs(B: int, S: int):
+    """One batch of rollout trajectories as ``meta`` tensors: the LM batch
+    plus a per-token action mask and a per-trajectory advantage (the JAX
+    ``rl_batch_specs``).  Its keys are what ``rl_train_chunk`` moves."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return {"tokens": meta((B, S), torch.int32),
+            "labels": meta((B, S), torch.int32),
+            "mask": meta((B, S), torch.float32),
+            "advantages": meta((B,), torch.float32)}
+
+
+RL_KEYS = tuple(rl_batch_specs(1, 1))
+
+
+def _batch_on(batch, dev: torch.device, keys=TRAIN_KEYS):
+    return {k: torch.as_tensor(batch[k]).to(dev) for k in keys}
 
 
 def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
-               params, opt_state, batch, *, device="cuda"):
+               params, opt_state, batch, *, device="cuda", loss=tfm.loss_fn,
+               keys=TRAIN_KEYS):
     """One optimizer step -> (params, opt_state, metrics), params and
     moments updated in place.
 
-    ``batch`` holds (B, S) int "tokens" and "labels" (numpy or tensors).
-    The step always consumes the whole batch: ``ocfg.accum_steps``
-    microbatches of B / accum rows each, their losses and grads summed in
-    f32 and divided by accum, so the trajectory does not depend on accum.
-    ``metrics`` holds f32 device tensors "loss", "grad_norm" and "lr".
+    ``batch`` holds (B, S) int "tokens" and "labels" (numpy or tensors),
+    and whatever else ``loss`` reads, named in ``keys`` (the RL step:
+    ``rl_train_chunk``).  The step always consumes the whole batch:
+    ``ocfg.accum_steps`` microbatches of B / accum rows each, their losses
+    and grads summed in f32 and divided by accum, so the trajectory does
+    not depend on accum.  ``metrics`` holds f32 device tensors "loss",
+    "grad_norm" and "lr".
     """
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params are on {params['embed'].device}, the step "
                          f"on {dev}")
-    batch = _batch_on(batch, dev)
+    batch = _batch_on(batch, dev, keys)
     B = batch["tokens"].shape[0]
     accum = max(ocfg.accum_steps, 1)
     if B % accum:
         raise ValueError(f"accum_steps={accum} must divide the batch {B}")
     par = train_par(par)
     if accum == 1:
-        loss, grads = _value_and_grad(cfg, par, params, batch)
+        value, grads = _value_and_grad(cfg, par, params, batch, loss)
     else:
         mb = B // accum
-        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        value = torch.zeros((), dtype=torch.float32, device=dev)
         grads = _map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                            device=dev), params)
         for i in range(accum):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            l, g = _value_and_grad(cfg, par, params, micro)
-            loss = loss + l
+            l, g = _value_and_grad(cfg, par, params, micro, loss)
+            value = value + l
             _map(lambda acc, new: acc.add_(new), grads, g)
-        loss = loss / accum
+        value = value / accum
         _map(lambda acc: acc.div_(accum), grads)
     params, opt_state, stats = adamw.apply_updates(
         tfm.lm_schema(cfg), params, grads, opt_state, ocfg)
-    return params, opt_state, {"loss": loss.to(torch.float32), **stats}
+    return params, opt_state, {"loss": value.to(torch.float32), **stats}
 
 
 def train_chunk(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
-                params, opt_state, batches, *, device="cuda"):
+                params, opt_state, batches, *, device="cuda", loss=tfm.loss_fn,
+                keys=TRAIN_KEYS):
     """K = ``batches["tokens"].shape[0]`` optimizer steps on a (K, B, S)
     chunk -> (params, opt_state, metrics stacked (K,) on the device).
 
     The chunk moves to the device in one copy per leaf, and nothing here
     reads a device value back: the caller syncs once per chunk.  Each step
-    is ``train_step``, so the trajectory equals K per-step calls.
+    is ``train_step`` (with ``loss`` over the batch's ``keys``), so the
+    trajectory equals K per-step calls.
     """
     dev = resolve_device(device)
-    batches = _batch_on(batches, dev)
+    batches = _batch_on(batches, dev, keys)
     ms = []
     for j in range(batches["tokens"].shape[0]):
         params, opt_state, m = train_step(
             cfg, par, ocfg, params, opt_state,
-            {k: v[j] for k, v in batches.items()}, device=dev)
+            {k: v[j] for k, v in batches.items()}, device=dev, loss=loss,
+            keys=keys)
         ms.append(m)
     return params, opt_state, {k: torch.stack([m[k] for m in ms])
                                for k in ms[0]}
+
+
+def rl_train_chunk(cfg: ModelConfig, par: ParallelConfig,
+                   ocfg: OptimizerConfig, params, opt_state, batches, *,
+                   device="cuda"):
+    """The RL learner's chunk: ``train_chunk`` with the advantage-weighted
+    policy-gradient loss (``transformer.rl_loss_fn``) over batches of
+    ``rl_batch_specs``' keys, stacked (K, ...)."""
+    return train_chunk(cfg, par, ocfg, params, opt_state, batches,
+                       device=device, loss=tfm.rl_loss_fn, keys=RL_KEYS)

@@ -20,8 +20,9 @@ decode slots; this engine owns the params, the KV cache and the steps:
 
 The lifecycle is the JAX engine's (``serving/engine.py``): admission,
 prefill-and-insert, prefix replay, lazy block growth, preempt-youngest,
-the release hook and ``run(queue)``.  Everything runs under
-``torch.inference_mode()``; the cache is updated in place.
+the release hook and ``run(queue, should_stop=, exit_on_drain=)``.
+Everything runs under ``torch.inference_mode()``; the cache is updated in
+place.
 """
 from __future__ import annotations
 
@@ -261,12 +262,22 @@ class ServingEngine:
 
     # ----------------------------------------------------------- main loop
     def run(self, queue: WorkQueue, *, worker: str = "server",
-            default_max_new: Optional[int] = None, idle_wait: float = 1e-3
+            default_max_new: Optional[int] = None, idle_wait: float = 1e-3,
+            should_stop=None, exit_on_drain: bool = True
             ) -> Tuple[Dict[Any, list], Registry]:
-        """Serve the queue to exhaustion with continuous batching.
+        """Serve the queue with continuous batching.
 
         Returns ``(results, metrics)``; ``results[rid]`` holds the
         generated tokens (length == the request's stop length).
+
+        ``should_stop`` (a zero-arg callable: a router retiring a replica,
+        an RL actor being killed) is polled between fused steps: when it
+        goes true the loop nacks every in-flight request back to the queue
+        and exits, so another engine re-serves them after one decode step
+        instead of one visibility timeout.  With ``exit_on_drain=False``
+        the loop idles on an empty queue until it is stopped (a long-lived
+        replica behind the router); by default it returns once the queue
+        has drained.
         """
         cap = self.cache_len - self.prompt_pad
         sched = ContinuousScheduler(
@@ -278,6 +289,10 @@ class ServingEngine:
         t_start = self.clock()
         decode_s = 0.0
         while True:
+            if should_stop is not None and should_stop():
+                self.metrics.inc(GAUGES.PREEMPTED)
+                sched.release_all()
+                break
             for slot in sched.admit():
                 if slot.request.max_new_tokens > cap:
                     slot.request = dataclasses.replace(
@@ -288,7 +303,7 @@ class ServingEngine:
                     first = self.prefill_into(slot.index, slot.request.prompt)
                     sched.start(slot, first, self.prompt_pad)
             if not sched.active():
-                if sched.finished():
+                if sched.finished() and exit_on_drain:
                     break
                 time.sleep(idle_wait)
                 continue

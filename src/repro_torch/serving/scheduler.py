@@ -323,15 +323,24 @@ class ContinuousScheduler:
 
     def release_slot(self, slot: Slot) -> bool:
         """Return a slot's request to the queue un-acked (nack) and free
-        the slot — pool-exhaustion preemption.  The request requeues
-        immediately, so it is re-served after one decode step instead of
-        one visibility timeout."""
+        the slot — cooperative stop and pool-exhaustion preemption.  The
+        request requeues immediately, so a replacement engine re-serves it
+        after one decode step instead of one visibility timeout."""
         if slot.free:
             return False
         ok = self.queue.nack(slot.task_id, self.worker)
         self.metrics.inc(GAUGES.PREEMPTED)
         self._release(slot, "released")
         return ok
+
+    def release_all(self) -> int:
+        """Nack every in-flight slot (cooperative-stop teardown)."""
+        n = 0
+        for slot in self.slots:
+            if not slot.free:
+                self.release_slot(slot)
+                n += 1
+        return n
 
     # ------------------------------------------------------------- results
     def finished(self) -> bool:

@@ -22,7 +22,11 @@ the JAX model does; tests/test_torch_kernels.py shows on the CPU that the
 2e-2 tolerance covers that rounding at phi4's prefill shape.  The
 training runtime: a crash-and-resume run on the card against a clean one,
 1e-5 relative on the losses (f32; the embedding's grad may be summed in
-another order), and checkpoints restored onto the card bit for bit.
+another order), and checkpoints restored onto the card bit for bit.  The
+router and RL slice: flash at the static batcher's B=4 prefill (2e-2, as
+above), the xent backward with the RL learner's dy (zeros and negative
+values; 1e-5 in f32, and exactly 0 on the rows whose dy is 0), and an RL
+fleet on the card launching each kernel where its path says.
 """
 import numpy as np
 import pytest
@@ -93,6 +97,17 @@ def test_flash_tensor_core_path_every_head_dim(B, H, KV, Sq, Sk, causal, dh,
 
 
 @pytest.mark.gpu
+def test_flash_at_the_static_batchers_b4_prefill():
+    """phi4's heads at S 512 with B=4, bf16: the static batcher's prefill."""
+    _card()
+    q, k, v = (torch.as_tensor(x).to("cuda", torch.bfloat16)
+               for x in _qkv(4, 24, 8, 512, 512, 128, seed=4))
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.attention_plain(q, k, v, causal=True)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
 def test_wrappers_raise_on_unaligned_16bit_views():
     """The f16/bf16 kernels copy 16-byte chunks: a view whose rows do not
     start on 16 bytes is refused, naming the stride, and launches
@@ -147,6 +162,59 @@ def test_xent_kernels_match_plain(R, V, softcap, dtype):
     assert d.dtype == dt
     tol = 1e-5 if dtype == "float32" else 2 ** -7
     torch.testing.assert_close(d.float(), want_d.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_xent_backward_with_the_rl_learners_dy():
+    """8 rollouts of 256 positions: dy = mask * advantage / sum(mask), 0 on
+    prompt rows and on a rollout whose advantage is 0, negative where the
+    advantage is; against the plain version, zero rows exactly zero."""
+    _card()
+    R, V = 8 * 256, 200_064
+    rng = np.random.RandomState(18)
+    logits = torch.as_tensor(4 * rng.standard_normal((R, V)).astype(
+        np.float32), device="cuda")
+    labels = torch.as_tensor(rng.randint(0, V, (R,)).astype(np.int32),
+                             device="cuda")
+    mask = np.zeros((8, 256), np.float32)
+    mask[:, 127:255] = 1.0
+    adv = rng.standard_normal(8).astype(np.float32)
+    adv[3] = 0.0
+    dy = torch.as_tensor((mask * adv[:, None] / mask.sum()).reshape(-1),
+                         device="cuda")
+    _, lse = xent.xent_fwd(logits, labels)
+    d = xent.xent_bwd(logits, labels, lse, dy)
+    want = xent.xent_bwd_plain(logits, labels, lse, dy)
+    assert bool((dy < 0).any()) and bool((dy == 0).any())
+    assert not d[dy == 0].any()
+    torch.testing.assert_close(d, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_rl_fleet_on_the_card_launches_each_kernel_on_its_path(tmp_path):
+    """phi4 smoke through ``run_rl_fleet`` on the card: the learner's 2
+    steps launch xent forward and backward once each a step and AdamW
+    once a leaf; every actor prefill launches flash once a layer."""
+    _card()
+    from repro_torch.api.resources import RLJob
+    from repro_torch.api.runners import rl_pieces, run_rl_fleet
+    from repro_torch.core.metrics import Registry
+    from repro_torch.data.objectstore import ObjectStore
+    from repro_torch.serving.report import GAUGES
+    job = RLJob(name="rl-card", learner_steps=2, rollouts_per_step=2,
+                prompt_len=8, max_new_tokens=8, seq_len=16, slots=2,
+                broadcast_every=1, ckpt_every=0)
+    before = (xent.fwd_launches, xent.bwd_launches, au.launches,
+              fa.launches)
+    out = run_rl_fleet(None, job, learner_store=ObjectStore(str(tmp_path)),
+                       metrics=Registry())
+    assert out["done"] and out["min_actor_syncs"] >= 1
+    prefills = sum(m.series(GAUGES.PREFILL_S).stats()["count"]
+                   for m in out["actor_metrics"].values())
+    ran = (xent.fwd_launches - before[0], xent.bwd_launches - before[1],
+           au.launches - before[2], fa.launches - before[3])
+    layers = rl_pieces(job)[0].num_layers
+    assert ran == (2, 2, 2 * 11, layers * prefills)
 
 
 @pytest.mark.gpu
