@@ -16,9 +16,9 @@ Phases (any failure raises and the script exits non-zero):
                launches enqueued while a sleep kernel holds the stream, so
                the host's launch cost is not counted; the median of three.
                Flash attention at phi4's prefill, zamba2's (dh 80),
-               granite-moe's (dh 64) and the static batcher's (B=4); xent
-               forward and backward at the train phase's loss chunk, and
-               the backward with the RL learner's dy (zero on prompt rows
+               granite-moe's (dh 64), the static batcher's (B=4) and
+               codeqwen1.5-7b's (H = KV = 32); xent forward and backward
+               at the train phase's loss chunk, and the backward with the RL learner's dy (zero on prompt rows
                and on a zero-advantage rollout, negative where the
                advantage is); AdamW at phi4's embedding; the SSD scan at
                zamba2's prefill and WKV6 at rwkv6's, each case printing the
@@ -94,13 +94,41 @@ Phases (any failure raises and the script exits non-zero):
                version published once, every actor synced, every trained
                rollout within the staleness bound, finite losses and grad
                norms, 4 xent forward, 4 backward and 44 AdamW launches, and
-               flash on every layer of every actor prefill.
-The phases that write checkpoints (elastic, rl) print the bytes they
-wrote and left on disk.  Then it prints a ``{"kernels": [...]}`` line, a
+               flash on every layer of every actor prefill;
+ 12. session — one ``Session(cluster=Cluster())`` on the card, each
+               workload applied as a manifest dict: a. a ServeJob of
+               full-width phi4 (8 requests of 512 tokens, stops
+               16/64/8/32, 4 slots, paged, prefix cache): Succeeded, the
+               lifecycle in order on the handle and on the bus, every
+               request at its stop length, flash 32 a prefill, tokens
+               equal to a direct ``build_engine`` + ``run`` of the same
+               job; b. a TrainJob of phi4 at 4 layers (the train phases'
+               contracted init, lr 3e-5, 4 steps of 2 x 1024 tokens in
+               chunks of 2, no checkpoint): finite losses, the last below
+               the first, equal to those of a direct ``ElasticTrainer``
+               run of the same spec and init (bit for bit if the elastic
+               phase's clean runs agree bit for bit, else within twice
+               their spread), 2/2/11 xent/AdamW launches a step; c. the same
+               job for 40 steps, cancelled once its step reaches 2:
+               Cancelled within one chunk, its goodbye checkpoint at the
+               last step (10.17 GB, in a temporary directory), the
+               seconds from ``cancel()`` to terminal printed; d. a graph
+               WorkflowRun (plan -> 2 branches -> join, entrypoints in
+               this script) whose branches are pods that lease the card
+               in turn and run flash against its plain version, every
+               marker written; e. a ServeJob of codeqwen1.5-7b at full
+               width (4 requests of 512 tokens, 32 new, paged): every
+               request at its stop length, flash 32 a prefill, a fresh
+               prefill on the same weights finite with the session's
+               first token as its argmax.
+The phases that write checkpoints (elastic, rl, session) print the bytes
+they wrote and left on disk.  Then it prints a ``{"kernels": [...]}`` line, a
 ``{"serve": {...}}`` line with one entry per arch, a ``{"train": {...}}``
 line, an ``{"elastic": {...}}`` line, a ``{"router": ..., "static":
-...}`` line, an ``{"rl": {...}}`` line, the card's name and power limit,
-and as its last line ``{"ok": true, "device": {...}}``.
+...}`` line, an ``{"rl": {...}}`` line, one ``{"session": {...}}`` line a
+workload (apply -> Running and wall seconds, tok/s beside the direct
+engine's, ms a step, events, peak GB, the card), the card's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -147,6 +175,19 @@ STATIC_ATTN = (STATIC_BATCH, 24, 8, PROMPT, PROMPT, 128)  # its B=4 prefill
 # new tokens, 8 rollouts a learner step, 4 steps, a publish every 2
 RL_ACTORS, RL_SLOTS, RL_PROMPT, RL_GEN = 2, 4, 128, 128
 RL_ROLLOUTS, RL_STEPS, RL_BROADCAST, RL_LAG = 8, 4, 2, 2
+# session: one Session(cluster=Cluster()) on the card; phi4 at
+# ELASTIC_LAYERS trains SESSION_STEPS steps in chunks of SESSION_K, and a
+# second job of SESSION_CANCEL_STEPS is cancelled once its step reaches
+# SESSION_CANCEL_AT; codeqwen serves CODEQWEN_REQUESTS of CODEQWEN_GEN
+CODEQWEN = "codeqwen1.5-7b"
+CODEQWEN_ATTN = (1, 32, 32, PROMPT, PROMPT, 128)   # codeqwen's prefill
+CODEQWEN_REQUESTS, CODEQWEN_GEN = 4, 32
+SESSION_STEPS, SESSION_K, SESSION_CANCEL_STEPS, SESSION_CANCEL_AT = 4, 2, 40, 2
+# the TrainJobs' learning rate: the TrainJob's default (1e-3, one warmup
+# step) is a smoke model's; at full width its first Adam step raises the
+# loss of a random-init model, and 4 steps do not bring it back
+SESSION_LR = 3e-5
+SESSION_BRANCHES = 2
 
 
 def log(msg: str) -> None:
@@ -287,6 +328,7 @@ def phase_kernels(main_shape):
         ZAMBA_ATTN + (True, torch.bfloat16, 2e-2),               # dh 80
         GRANITE_ATTN + (True, torch.bfloat16, 2e-2),             # dh 64
         STATIC_ATTN + (True, torch.bfloat16, 2e-2),              # B=4
+        CODEQWEN_ATTN + (True, torch.bfloat16, 2e-2),            # KV = H
         (2, 4, 2, 130, 130, 80, True, torch.float32, 2e-5),
         (1, 24, 8, 300, 300, 128, True, torch.bfloat16, 2e-2),   # ragged
         (2, 24, 8, 300, 300, 128, False, torch.bfloat16, 2e-2),
@@ -313,7 +355,8 @@ def phase_kernels(main_shape):
         rows.append((shape, err, q, k, v, causal))
     timed = {}
     for i, shape_args in ((0, main_shape), (1, ZAMBA_ATTN),
-                          (2, GRANITE_ATTN), (3, STATIC_ATTN)):
+                          (2, GRANITE_ATTN), (3, STATIC_ATTN),
+                          (4, CODEQWEN_ATTN)):
         shape, err, q, k, v, causal = rows[i]
         ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
         plain_ms = _time_ms(lambda: fa.attention_plain(q, k, v,
@@ -337,9 +380,9 @@ def phase_kernels(main_shape):
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:25",
             "launches": None, **timed[0],
-            "edge_shapes_max_abs_err": max(r[1] for r in rows[4:]),
+            "edge_shapes_max_abs_err": max(r[1] for r in rows[5:]),
             "zamba2_dh80": timed[1], "granite_dh64": timed[2],
-            "static_b4": timed[3]}
+            "static_b4": timed[3], "codeqwen_kv32": timed[4]}
 
 
 def _bound(nbytes: float, flops: float, dtype=torch.float32):
@@ -1835,6 +1878,400 @@ def phase_rl(smi: str):
     return result, launches
 
 
+# ---------------------------------------------------------------- session
+# Entrypoints of the session phase's graph workflow: a manifest names them
+# as ``__main__:<name>``, so they resolve in this script's process.
+def session_plan(ctx):
+    return {"items": list(range(SESSION_BRANCHES))}
+
+
+def session_flash_branch(ctx):
+    """One scatter branch: a pod of the session's cluster leases one device
+    (the card, in turn with the other branch), runs flash attention at
+    phi4's prefill shape there and holds it against the plain version."""
+    from repro_torch.core.orchestrator import JobSpec
+    from repro_torch.kernels import flash_attention as fa
+    item = ctx.inputs["item"]
+
+    def pod(pc):
+        dev = pc.devices[0]
+        gen = torch.Generator(device=dev).manual_seed(100 + item)
+        B, H, KV, Sq, Sk, dh = 1, 24, 8, PROMPT, PROMPT, 128
+        q, k, v = (torch.randn(B, n, S, dh, generator=gen, device=dev)
+                   .to(torch.bfloat16) for n, S in ((H, Sq), (KV, Sk),
+                                                    (KV, Sk)))
+        before = fa.launches
+        got = fa.flash_attention(q, k, v, causal=True)
+        launched = fa.launches - before
+        want = fa.attention_plain(q, k, v, causal=True)
+        err = (got.float() - want.float()).abs().max().item()
+        return {"device": str(dev), "max_abs_err": err, "launches": launched}
+
+    deadline = time.monotonic() + 120.0
+    while True:            # the other branch may hold the only card
+        try:
+            job = ctx.cluster.submit(ctx.namespace, JobSpec(
+                f"flash-{item}", pod, replicas=1, devices_per_pod=1,
+                backoff_limit=0))
+            break
+        except RuntimeError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.01)
+    ctx.cluster.wait(job, timeout=300.0)
+    return job.results()[0]
+
+
+def session_join(ctx):
+    return {"max_abs_err": max(b["max_abs_err"] for b in ctx.inputs["fan"]),
+            "launches": sum(b["launches"] for b in ctx.inputs["fan"])}
+
+
+def _contracted_init(cfg):
+    """The train phases' weights for the session's TrainJobs: the trainer
+    draws its params through ``params.init_params``, swapped here for the
+    f32 draw with wq/wk/wv/wo at their contracted fan-in, cast to bf16.
+    The swap is global: it is in place from before a TrainJob is applied
+    until after its handle is terminal, and the session runs one workload
+    at a time, so nothing else draws params meanwhile."""
+    import contextlib
+
+    from repro_torch.launch import grad_check
+    from repro_torch.models import params as pr
+    from repro_torch.runtime import steps
+
+    @contextlib.contextmanager
+    def swapped():
+        draw = pr.init_params
+
+        def init(schema, gen, dtype, device="cuda"):
+            params = draw(schema, gen, "float32", device)
+            grad_check.contracted_attention_init_(cfg, params)
+            return steps._map(lambda t: t.to(getattr(torch, dtype)), params)
+        pr.init_params = init
+        try:
+            yield
+        finally:
+            pr.init_params = draw
+    return swapped()
+
+
+def _lifecycle(events):
+    """The workload's states in order, repeats (detail updates) merged."""
+    out = []
+    for e in events:
+        if "event" not in e and (not out or out[-1] != e["state"]):
+            out.append(e["state"])
+    return out
+
+
+def phase_session(smi: str, clean_spread: float):
+    """Phase 12: one ``Session(cluster=Cluster())`` on the card runs five
+    workloads, each applied as a manifest dict: a ServeJob of full-width
+    phi4, a TrainJob of phi4 at 4 layers, a second one cancelled, a graph
+    WorkflowRun whose branches lease the card, a ServeJob of codeqwen.
+    ``clean_spread`` is how far the elastic phase's two clean runs'
+    losses differ: the TrainJob's losses must equal a direct trainer's
+    bit for bit when it is 0, else lie within twice it."""
+    import tempfile
+
+    from repro_torch.api import Session, WorkloadState, runners
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.configs import registry
+    from repro_torch.core.metrics import Registry
+    from repro_torch.core.orchestrator import Cluster
+    from repro_torch.core.queue import WorkQueue
+    from repro_torch.data.objectstore import ObjectStore
+    from repro_torch.elastic import ElasticTrainer
+    from repro_torch.kernels import adamw_update as au
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import xent
+    from repro_torch.models import params as pr
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import steps
+    from repro_torch.serving.report import GAUGES
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[session] {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated "
+        f"at the phase's start")
+    rows, launches = {}, {}
+    phi4, cq = registry.get_config(ARCH), registry.get_config(CODEQWEN)
+    tcfg = phi4.replace(num_layers=ELASTIC_LAYERS)
+    n_leaves = len(pr.leaves(tfm.lm_schema(tcfg)))
+
+    def zero():
+        fa.launches = xent.fwd_launches = xent.bwd_launches = au.launches = 0
+
+    def counts():
+        return {"flash_attention": fa.launches, "xent_fwd": xent.fwd_launches,
+                "xent_bwd": xent.bwd_launches, "adamw_update": au.launches}
+
+    def run(session, sub, manifest, during=None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sub.poll()
+        zero()
+        log(f"[session] {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+            f"allocated before {manifest['metadata']['name']}")
+        h = session.apply(manifest)
+        extra = during(h) if during is not None else {}
+        out = h.wait(900)                 # raises if the workload FAILED
+        torch.cuda.synchronize()
+        session.forget(h)                 # its result goes to the caller
+        ran = counts()
+        evs = h.events()
+        running = next(e["ts"] for e in evs if e["state"] == "Running")
+        bus = [e for e in sub.poll() if e.kind == "workload"]
+        row = {"workload": h.spec.name, "kind": h.spec.KIND,
+               "state": h.state.value, "lifecycle": _lifecycle(evs),
+               "apply_to_running_s": running - evs[0]["ts"],
+               "wall_s": evs[-1]["ts"] - evs[0]["ts"], "events": len(evs),
+               "bus_events": len(bus),
+               "bus_lifecycle": _lifecycle([dict(e.data) for e in bus]),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               **extra, "card": smi}
+        want = ["Pending", "Placing", "Running",
+                "Cancelled" if h.spec.name.endswith("cancel") else
+                "Succeeded"]
+        if row["lifecycle"] != want or row["bus_lifecycle"] != want:
+            raise AssertionError(f"{h.spec.name}: lifecycle "
+                                 f"{row['lifecycle']} / bus "
+                                 f"{row['bus_lifecycle']} != {want}")
+        return h, out, ran, row
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-session-") as root:
+        session = Session(cluster=Cluster(), store=ObjectStore(root))
+        sub = session.bus.subscribe(maxlen=100_000)
+
+        # a. ServeJob: full-width phi4, the serve phase's shape of traffic
+        man = {"apiVersion": "repro/v1", "kind": "ServeJob",
+               "metadata": {"name": "chip-smoke-session-serve"},
+               "spec": {"arch": ARCH, "smoke": False, "n_requests": 8,
+                        "prompt_len": PROMPT, "max_new_tokens": GEN,
+                        "gen_lens": list(GEN_LENS), "slots": SLOTS,
+                        "paged": True, "block_size": BLOCK,
+                        "prefix_cache": True, "seed": 0}}
+        h, out, ran, row = run(session, sub, man)
+        job = h.spec
+        results, sm = out["results"], out["metrics"].summary()
+        prefills = int(sm[GAUGES.PREFILL_S]["count"])
+        stops = [GEN_LENS[i % len(GEN_LENS)] for i in range(8)]
+        del out, h
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = runners.build_engine(job, registry_out=Registry(),
+                                      device="cuda")
+        direct, dm = engine.run(WorkQueue(runners.serve_requests(job)),
+                                default_max_new=job.max_new_tokens)
+        torch.cuda.synchronize()
+        del engine
+        row.update(tok_s=sm[GAUGES.TOK_S]["last"],
+                   direct_tok_s=dm.summary()[GAUGES.TOK_S]["last"],
+                   p50_ttft_s=sm[GAUGES.TTFT_S]["p50"], prefills=prefills,
+                   decode_steps=int(sm[GAUGES.DECODE_STEPS]["total"]),
+                   launches=ran, tokens_equal_direct=direct == results)
+        log(f"[session] serve {ARCH}: {row['state']}, lifecycle "
+            f"{row['lifecycle']}; {len(results)} requests, flash "
+            f"{ran['flash_attention']} over {prefills} prefills; tok/s "
+            f"{row['tok_s']:.1f} (direct engine {row['direct_tok_s']:.1f}); "
+            f"tokens equal to the direct engine's: {direct == results}")
+        got = [len(results.get(i, [])) for i in range(8)]
+        if got != stops:
+            raise AssertionError(f"session serve: stop lengths {got}")
+        if ran["flash_attention"] != phi4.num_layers * prefills or \
+                prefills < 1:
+            raise AssertionError(f"session serve: flash {ran} over "
+                                 f"{prefills} prefills")
+        if direct != results:
+            raise AssertionError("session serve: tokens differ from a direct "
+                                 "build_engine + run")
+        rows["serve"], launches["serve"] = row, ran
+
+        # b. TrainJob: phi4 at full width and 4 layers, no checkpoint
+        train_spec = {"arch": ARCH, "smoke": False, "seq_len": TRAIN_SEQ,
+                      "global_batch": TRAIN_BATCH, "device_steps": SESSION_K,
+                      "ckpt_every": 0, "ckpt_dir": "", "log_every": SESSION_K,
+                      "config": runners.dataclass_kwargs(tcfg),
+                      "optimizer": {"lr": SESSION_LR}}
+        man = {"kind": "TrainJob",
+               "metadata": {"name": "chip-smoke-session-train"},
+               "spec": {**train_spec, "steps": SESSION_STEPS}}
+        card = torch.device("cuda", 0)
+        with _contracted_init(tcfg):
+            h, out, ran, row = run(session, sub, man)
+            losses, rep = out["losses"], out["report"]
+            job = h.spec
+            del out, h
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the same spec and init through the trainer itself, off the
+            # session: the session must train as the trainer does
+            direct = ElasticTrainer(Cluster(devices=[card]),
+                                    runners.elastic_spec(job, device=card),
+                                    store=None).run()["losses"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        gap = max(abs(a - b) for a, b in zip(losses, direct))
+        seg = rep.segments[-1]
+        want = {"flash_attention": 0,
+                "xent_fwd": SESSION_STEPS * (TRAIN_SEQ // 512),
+                "xent_bwd": SESSION_STEPS * (TRAIN_SEQ // 512),
+                "adamw_update": SESSION_STEPS * n_leaves}
+        row.update(layers=ELASTIC_LAYERS, steps=SESSION_STEPS,
+                   device_steps=SESSION_K, losses=losses,
+                   direct_losses=direct, direct_gap=gap,
+                   step_ms=1e3 * rep.total_wall_s / SESSION_STEPS,
+                   chunk_step_ms=1e3 * (seg.wall_s - seg.t_first_s)
+                   / max(SESSION_STEPS - SESSION_K, 1),
+                   t_first_s=rep.t_first_s, launches=ran)
+        log(f"[session] train {ARCH} at {ELASTIC_LAYERS} layers: "
+            f"{row['state']}, losses {losses} (a direct ElasticTrainer run: "
+            f"{direct}, {gap:.3g} apart, allowed {2 * clean_spread:.3g}); "
+            f"{row['step_ms']:.1f} ms a step "
+            f"over the run ({row['chunk_step_ms']:.1f} after the first "
+            f"chunk); launches {ran} (want {want})")
+        if len(losses) != SESSION_STEPS or len(direct) != SESSION_STEPS or \
+                not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"session train: losses {losses}")
+        if (losses != direct) if clean_spread == 0 else \
+                gap > 2 * clean_spread:
+            raise AssertionError(f"session train: losses {losses} differ "
+                                 f"from a direct trainer's {direct}")
+        if ran != want:
+            raise AssertionError(f"session train: launches {ran} != {want}")
+        rows["train"], launches["train"] = row, ran
+
+        # c. the same model for 40 steps, cancelled once step >= 2
+        ckroot = tempfile.mkdtemp(prefix="ckpt-", dir=root)
+        man = {"kind": "TrainJob",
+               "metadata": {"name": "chip-smoke-session-cancel"},
+               "spec": {**train_spec, "steps": SESSION_CANCEL_STEPS,
+                        "ckpt_dir": ckroot}}
+
+        def cancel(h):
+            while h.status().observed.get("step", -1) < SESSION_CANCEL_AT:
+                if h.state != WorkloadState.RUNNING and \
+                        h.state != WorkloadState.PLACING and \
+                        h.state != WorkloadState.PENDING:
+                    raise AssertionError(f"session cancel: {h.state}")
+                time.sleep(0.002)
+            at = h.status().observed["step"]
+            t0 = time.perf_counter()
+            h.cancel(wait=True, timeout=600)
+            return {"cancel_at_step": at,
+                    "cancel_to_terminal_s": time.perf_counter() - t0}
+
+        with _contracted_init(tcfg):
+            h, out, ran, row = run(session, sub, man, during=cancel)
+        seg = out["report"].segments[-1]
+        ck = Checkpointer(ObjectStore(ckroot))
+        saved = ck.latest_step()
+        written = ObjectStore(ckroot).total_bytes()
+        del out
+        row.update(steps=SESSION_CANCEL_STEPS, last_step=seg.end,
+                   outcome=seg.outcome, checkpoint_step=saved,
+                   disk_written_gb=written / 1e9, launches=ran)
+        log(f"[session] cancel {ARCH}: {row['state']} {row['lifecycle']}; "
+            f"cancel() at step {row['cancel_at_step']}, the segment ended at "
+            f"step {seg.end} ({seg.outcome}); "
+            f"{row['cancel_to_terminal_s']:.2f} s from cancel() to terminal "
+            f"(the goodbye checkpoint of step {saved}, "
+            f"{written / 1e9:.2f} GB, included)")
+        if h.state != WorkloadState.CANCELLED or seg.outcome != "preempted" \
+                or not seg.end <= row["cancel_at_step"] + SESSION_K \
+                or saved != seg.end:
+            raise AssertionError(f"session cancel: {h.state}, segment "
+                                 f"{seg}, checkpoint {saved}")
+        del h
+        rows["cancel"], launches["cancel"] = row, ran
+
+        # d. WorkflowRun as a graph: plan -> 2 flash branches -> join
+        name = "chip-smoke-session-graph"
+        man = {"kind": "WorkflowRun", "metadata": {"name": name},
+               "spec": {"max_workers": SESSION_BRANCHES, "graph": {"nodes": [
+                   {"step": "plan", "entrypoint": "__main__:session_plan"},
+                   {"step": "fan", "deps": ["plan"],
+                    "entrypoint": "__main__:session_flash_branch",
+                    "scatter": {"over": "plan.items"}},
+                   {"step": "join", "deps": ["fan"],
+                    "entrypoint": "__main__:session_join"}]}}}
+        h, out, ran, row = run(session, sub, man)
+        store = ObjectStore(root)
+        markers = {key: store.exists(f"workflows/{name}/{key}/_COMPLETE")
+                   for key in ["plan", "fan", "join"] +
+                   [f"fan#{i}" for i in range(SESSION_BRANCHES)]}
+        branches = out["results"]["fan"]
+        join = out["results"]["join"]
+        del out, h
+        row.update(branches=branches, markers=markers, launches=ran)
+        log(f"[session] graph: {row['state']}, branches {branches}, markers "
+            f"{markers}")
+        if not all(markers.values()) or \
+                join["launches"] != SESSION_BRANCHES or \
+                ran["flash_attention"] != SESSION_BRANCHES or \
+                not join["max_abs_err"] <= 2e-2 or \
+                any(not b["device"].startswith("cuda") for b in branches):
+            raise AssertionError(f"session graph: {branches}, {markers}, "
+                                 f"{join}, {ran}")
+        rows["graph"], launches["graph"] = row, ran
+
+        # e. ServeJob: codeqwen1.5-7b at full width
+        man = {"kind": "ServeJob",
+               "metadata": {"name": "chip-smoke-session-codeqwen"},
+               "spec": {"arch": CODEQWEN, "smoke": False,
+                        "n_requests": CODEQWEN_REQUESTS,
+                        "prompt_len": PROMPT, "max_new_tokens": CODEQWEN_GEN,
+                        "slots": SLOTS, "paged": True, "block_size": BLOCK,
+                        "seed": 0}}
+        h, out, ran, row = run(session, sub, man)
+        job = h.spec
+        results, sm = out["results"], out["metrics"].summary()
+        prefills = int(sm[GAUGES.PREFILL_S]["count"])
+        del out, h
+        gc.collect()
+        torch.cuda.empty_cache()
+        # one full-width prefill of request 0 on the same weights: finite
+        # logits, and their argmax is the token the session generated first
+        params = pr.init_params(tfm.lm_schema(cq),
+                                torch.Generator(device="cuda").manual_seed(0),
+                                cq.param_dtype, "cuda")
+        prompt = runners.serve_requests(job)[0]["prompt"]
+        with torch.inference_mode():
+            last, _ = steps.prefill_step(cq, params,
+                                         torch.tensor([prompt], device="cuda"))
+        finite = bool(torch.isfinite(last).all())
+        first = int(last.float().argmax(dim=-1)[0])
+        del params, last
+        row.update(params_b=pr.param_count(tfm.lm_schema(cq)) / 1e9,
+                   tok_s=sm[GAUGES.TOK_S]["last"],
+                   p50_ttft_s=sm[GAUGES.TTFT_S]["p50"], prefills=prefills,
+                   logits_finite=finite,
+                   first_token_equal_prefill=first == results[0][0],
+                   launches=ran)
+        log(f"[session] serve {CODEQWEN} ({row['params_b']:.3f} B params): "
+            f"{row['state']}; {len(results)} requests, flash "
+            f"{ran['flash_attention']} over {prefills} prefills; tok/s "
+            f"{row['tok_s']:.1f}; prefill logits finite {finite}, first "
+            f"token {first} vs the session's {results[0][0]}")
+        if [len(results.get(i, [])) for i in range(CODEQWEN_REQUESTS)] != \
+                [CODEQWEN_GEN] * CODEQWEN_REQUESTS:
+            raise AssertionError("session codeqwen: stop lengths")
+        if ran["flash_attention"] != cq.num_layers * prefills or \
+                prefills < 1:
+            raise AssertionError(f"session codeqwen: flash {ran} over "
+                                 f"{prefills} prefills")
+        if not finite or first != results[0][0]:
+            raise AssertionError(f"session codeqwen: logits finite {finite}, "
+                                 f"first token {first} vs {results[0][0]}")
+        rows["codeqwen"], launches["codeqwen"] = row, ran
+        sub.close()
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1873,16 +2310,27 @@ def main() -> int:
     rl, rl_launches = phase_rl(smi)
     log(f"[disk] written so far "
         f"{elastic['disk_written_gb'] + rl['disk_written_gb']:.2f} GB")
+    session, session_launches = phase_session(smi, elastic["clean_spread"])
+    written = elastic["disk_written_gb"] + rl["disk_written_gb"] + \
+        session["cancel"]["disk_written_gb"]
+    log(f"[disk] written so far {written:.2f} GB")
     flash["launches_by_path"].update({
         f"{ARCH} serve router": ran_router["router"],
         f"{ARCH} serve static": ran_router["static"],
-        f"{ARCH} rl actors": rl_launches["flash_attention"]})
+        f"{ARCH} rl actors": rl_launches["flash_attention"],
+        f"{ARCH} session serve": session_launches["serve"]["flash_attention"],
+        f"{ARCH} session graph": session_launches["graph"]["flash_attention"],
+        f"{CODEQWEN} session serve":
+            session_launches["codeqwen"]["flash_attention"]})
     for row in (xent_fwd, xent_bwd, adamw):
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {
             f"{ARCH} train": launches[row["name"]],
             f"{ARCH} elastic": elastic_launches[row["name"]],
-            f"{ARCH} rl learner": rl_launches[row["name"]]}
+            f"{ARCH} rl learner": rl_launches[row["name"]],
+            f"{ARCH} session train": session_launches["train"][row["name"]],
+            f"{ARCH} session train cancelled":
+                session_launches["cancel"][row["name"]]}
     kernels = [flash, xent_fwd, xent_bwd, adamw, ssd, wkv, gmm]
     for row in kernels:
         row["card"] = smi
@@ -1893,6 +2341,8 @@ def main() -> int:
     print(json.dumps({"elastic": elastic}))
     print(json.dumps(router))
     print(json.dumps({"rl": rl}))
+    for row in session.values():
+        print(json.dumps({"session": row}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,61 +1,84 @@
-"""Drivers for the serving fleet and the RL workload.
+"""Backend runners — how each workload kind lands on the cluster backend.
 
-From the JAX package's ``api/runners.py``: ``build_engine`` and
-``run_serve_replicated`` (a ServeJob's replicas behind the router), and
-``rl_pieces``, ``build_rl_engine`` and ``run_rl_fleet`` (an RLJob's
-ticket feeder, actor fleet and learner).  The backends (cluster, fabric,
-tenant) wait for the port's copy of the session API; the drivers take
-an optional ``handle``: with ``None`` there are no status probes, no
-state transitions and no cancel hook, otherwise it is duck-typed as the
-JAX ``Handle`` (``probe``, ``_transition``, ``should_stop``,
-``add_cancel_hook``).  Every driver takes ``device`` (``"cuda"`` by
-default, which raises without a card).
+A copy of the JAX package's ``api/runners.py`` with its cluster backend:
+one runner method per workload kind, all routing into the EXISTING
+machinery — ``repro_torch.elastic`` for TrainJob, ``repro_torch.serving``
+(one engine, or replicas behind the router) for ServeJob, the
+orchestrator for BatchJob, ``core.workflow`` / ``flow`` for WorkflowRun,
+and ``repro_torch.rl`` (actor fleet + elastic learner) for RLJob.
+Runners execute inside the Handle's reconcile thread: they move the
+handle PLACING -> RUNNING, thread its cooperative ``should_stop`` into
+the subsystem, and return the workload's result dict.
+
+Training, serving and RL run on the cluster's device (its first online
+device, a CUDA or CPU ``torch.device``); the drivers below take it as
+``device`` (``"cuda"`` by default, which raises without a card).  The
+drivers' ``handle`` may be ``None`` for callers outside a Session (the
+RL CLI's direct path): no status probes, no transitions, no cancel hook.
+The fabric and tenant backends wait for ROADMAP A8.
 """
 from __future__ import annotations
 
 import dataclasses
+import tempfile
 import threading
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
-from repro_torch.api.resources import RLJob, ServeJob
+from repro_torch.api.resources import (BatchJob, ManifestError, RLJob,
+                                       ServeJob, TrainJob, WorkflowRun)
+from repro_torch.api.session import Handle, WorkloadState
 from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.core.metrics import Registry
+from repro_torch.core.orchestrator import JobSpec, PodState
+from repro_torch.core.workflow import Workflow
+from repro_torch.data.objectstore import ObjectStore
 from repro_torch.device import resolve_device
 from repro_torch.serving.report import GAUGES, make_requests, serving_report
 
-RUNNING = "Running"      # the JAX WorkloadState.RUNNING value
 
-
+# ----------------------------------------------------------- shared builders
 def dataclass_kwargs(obj) -> Dict[str, Any]:
-    """A dataclass instance's init kwargs — the ``config`` dict of a job
-    built from an existing ModelConfig."""
+    """A dataclass instance's init kwargs — the declarative ``config``
+    dict for a TrainJob built from an existing ModelConfig."""
     return {f.name: getattr(obj, f.name)
             for f in dataclasses.fields(obj) if f.init}
 
 
 def _resolve_pieces(job, steps: int):
-    """(ModelConfig, ParallelConfig, OptimizerConfig) for a
-    training-flavoured job: the JAX recipe (lr 1e-3, warmup steps/20,
-    decay over ``steps``; the port's archs keep the default moments)."""
+    """Shared (ModelConfig, ParallelConfig, OptimizerConfig) resolution
+    for any training-flavoured job (TrainJob / RLJob)."""
     if job.config is not None:
         cfg = ModelConfig(**job.config)
+        base = OptimizerConfig()
         try:
             par = registry.get_parallel(job.arch)
         except KeyError:
+            # a custom model name rode in as the arch: the config IS the
+            # model, so fall back to default parallelism
             par = registry.get_parallel("phi4-mini-3.8b")
     else:
         cfg = registry.get_smoke(job.arch) if job.smoke \
             else registry.get_config(job.arch)
+        base = registry.get_optimizer(job.arch)
         par = registry.get_parallel(job.arch)
-    okw: Dict[str, Any] = dict(lr=1e-3, warmup_steps=max(steps // 20, 1),
-                               decay_steps=steps)
+    okw: Dict[str, Any] = dict(
+        lr=1e-3, warmup_steps=max(steps // 20, 1),
+        decay_steps=steps, moment_dtype=base.moment_dtype,
+        second_moment=base.second_moment)
     if job.optimizer:
         okw.update(job.optimizer)
     return cfg, par, OptimizerConfig(**okw)
+
+
+def train_pieces(job: TrainJob):
+    """(ModelConfig, ParallelConfig, OptimizerConfig) for a TrainJob —
+    ONE resolution shared by the Session path and the train CLI."""
+    return _resolve_pieces(job, job.steps)
 
 
 def rl_pieces(job: RLJob):
@@ -66,13 +89,50 @@ def rl_pieces(job: RLJob):
     return _resolve_pieces(job, job.learner_steps)
 
 
+def elastic_spec(job: TrainJob, *, namespace: Optional[str] = None,
+                 device="cuda"):
+    """The ElasticTrainSpec a TrainJob declares, training on ``device``."""
+    from repro_torch.elastic.trainer import ElasticTrainSpec
+    cfg, par, ocfg = train_pieces(job)
+    kw: Dict[str, Any] = {}
+    if namespace or job.namespace:
+        kw["namespace"] = namespace or job.namespace
+    return ElasticTrainSpec(
+        cfg, par, ocfg, steps=job.steps, seq_len=job.seq_len,
+        global_batch=job.global_batch, base_shape=tuple(job.base_shape),
+        max_data=job.max_data, name=job.name, ckpt_every=job.ckpt_every,
+        keep=job.keep, log_every=job.log_every,
+        device_steps=job.device_steps, seed=job.seed,
+        data_seed=job.data_seed, fail_at=job.fail_at,
+        rejoin_timeout_s=job.rejoin_timeout_s, verbose=job.verbose,
+        device=device, **kw)
+
+
+def trainer_probe(handle: Handle):
+    """A ``step`` status probe bound to THIS workload's live trainer (not
+    a shared metrics series another run may have written).  Returns the
+    ``on_trainer`` hook that binds each (re)created trainer."""
+    holder: Dict[str, Any] = {}
+    # before the first trainer exists the probe raises and status() just
+    # omits the key — never another workload's step
+    handle.probe("step", lambda: holder["trainer"].progress)
+    return lambda trainer: holder.__setitem__("trainer", trainer)
+
+
+def train_result(out: Dict[str, Any]) -> Dict[str, Any]:
+    return {"losses": out["losses"], "loss_by_step": out["loss_by_step"],
+            "params": out["params"], "opt": out.get("opt"),
+            "report": out["report"]}
+
+
 # ------------------------------------------------------------------ serving
 def resolve_serve_cfg(job: ServeJob) -> ModelConfig:
     return registry.get_smoke(job.arch) if job.smoke \
         else registry.get_config(job.arch)
 
 
-def build_engine(job: ServeJob, *, registry_out=None, device="cuda"):
+def build_engine(job: ServeJob, *, registry_out: Optional[Registry] = None,
+                 device="cuda"):
     """The continuous-batching engine a ServeJob declares, on ``device``."""
     from repro_torch.serving.engine import ServingEngine
     return ServingEngine(resolve_serve_cfg(job), device=device,
@@ -92,11 +152,13 @@ def serve_requests(job: ServeJob) -> List[dict]:
                          seed=job.seed, gen_lens=job.gen_lens)
 
 
-def run_serve_replicated(handle, job: ServeJob, metrics: Registry, *,
-                         capacity=None, device="cuda"):
+def run_serve_replicated(handle: Optional[Handle], job: ServeJob,
+                         metrics: Registry, *, capacity=None,
+                         device="cuda"):
     """N engines behind the session-affine router, scaled by the
-    autoscaler between ``job.min_replicas`` and ``job.max_replicas``;
-    ``capacity`` optionally gates scale-up."""
+    autoscaler between ``job.min_replicas`` and ``job.max_replicas``.
+    Scale decisions surface on the Handle as ``replicas:
+    desired→observed`` detail; ``capacity`` optionally gates scale-up."""
     from repro_torch.serving.router import serve_replicated
 
     def factory(name, reg, dev):
@@ -108,14 +170,15 @@ def run_serve_replicated(handle, job: ServeJob, metrics: Registry, *,
     on_scale = should_stop = None
     if handle is not None:
         def on_scale(desired, observed, reason):
-            handle._transition(RUNNING, replicas=f"{desired}→{observed}",
+            handle._transition(WorkloadState.RUNNING,
+                               replicas=f"{desired}→{observed}",
                                reason=reason)
         should_stop = handle.should_stop
         handle.probe("completed",
                      lambda: int(metrics.series(GAUGES.COMPLETED).total))
         handle.probe("replicas",
                      lambda: int(metrics.series(GAUGES.REPLICAS).last))
-        handle._transition(RUNNING, slots=job.slots,
+        handle._transition(WorkloadState.RUNNING, slots=job.slots,
                            replicas=f"{job.min_replicas}→0")
     results, metrics, events = serve_replicated(
         factory, serve_requests(job), device=device,
@@ -143,8 +206,9 @@ def build_rl_engine(job: RLJob, cfg: ModelConfig, *, registry_out=None,
                          prefix_cache=job.prefix_cache)
 
 
-def run_rl_fleet(handle, job: RLJob, *, learner_store, actor_store=None,
-                 metrics: Registry, capacity=None, device="cuda"):
+def run_rl_fleet(handle: Optional[Handle], job: RLJob, *, learner_store,
+                 actor_store=None, metrics: Registry, capacity=None,
+                 device="cuda"):
     """Ticket feeder + actor fleet + learner, on ``device``.
 
     The feeder emits rollout tickets in *waves*: a burst is enqueued
@@ -215,7 +279,7 @@ def run_rl_fleet(handle, job: RLJob, *, learner_store, actor_store=None,
     feeder = threading.Thread(target=feed, name=f"{job.name}-feeder",
                               daemon=True)
     if handle is not None:
-        handle._transition(RUNNING, actors=job.actors,
+        handle._transition(WorkloadState.RUNNING, actors=job.actors,
                            steps=job.learner_steps)
     granted = fleet.start()
     feeder.start()
@@ -260,3 +324,160 @@ def run_rl_fleet(handle, job: RLJob, *, learner_store, actor_store=None,
         "learner_saves": list(learner.ckpt.saves),
         "metrics": metrics,
     }
+
+
+# ---------------------------------------------------- batch jobs, workflows
+def _watch_job(handle: Handle, cluster, job, *, poll_s: float = 0.01,
+               grace_s: float = 10.0):
+    """The batch-job reconcile loop: respawn failures via the cluster
+    controller, drain cooperatively on cancel (preempt -> grace ->
+    hard-evict), surface platform preemption as a terminal state."""
+    preempted_at: Optional[float] = None
+    while True:
+        if handle.cancel_requested:
+            now = time.monotonic()
+            if preempted_at is None:
+                preempted_at = now
+                for pod in job.pods:
+                    if pod.state in (PodState.PENDING, PodState.RUNNING):
+                        cluster.preempt_pod(
+                            pod, reason=f"api cancel: {handle.spec.name}")
+            elif now - preempted_at > grace_s:
+                for pod in job.pods:
+                    cluster.finish_preempt(pod)
+        if job.succeeded:
+            return job.results()
+        if job.terminal and job.preempted:
+            if not handle.cancel_requested:
+                handle._set_final(WorkloadState.PREEMPTED)
+            return job.results()
+        if job.failed:
+            errs = [p.error for p in job.pods if p.error]
+            raise RuntimeError(
+                f"job {job.spec.name} failed after backoff: {errs[:1]}")
+        if not handle.cancel_requested:
+            cluster.reconcile()
+        time.sleep(poll_s)
+
+
+def _run_workflow(handle: Handle, run: WorkflowRun, wf: Workflow):
+    handle.probe("steps_done", lambda: len(wf.reports))
+    if run.graph is not None:
+        # workflow program: compile the declarative graph and run ready
+        # branches concurrently over the backend (repro_torch.flow)
+        from repro_torch.flow import GraphRunner
+        runner = GraphRunner(wf, run.graph, max_workers=run.max_workers)
+        handle._transition(WorkloadState.RUNNING, mode="graph",
+                           steps=runner.program.size)
+        results = runner.run(resume=run.resume, only=run.only,
+                             should_stop=handle.should_stop)
+    else:
+        define = run.resolve_define()
+        define(wf)
+        handle._transition(WorkloadState.RUNNING, steps=len(wf.steps))
+        results = wf.run(resume=run.resume, only=run.only,
+                         should_stop=handle.should_stop)
+    return {"results": results, "reports": wf.reports,
+            "table": wf.table_one()}
+
+
+# ------------------------------------------------------------------ backend
+class ClusterBackend:
+    """One bare orchestrator Cluster (+ optional ObjectStore)."""
+
+    kind = "cluster"
+
+    def __init__(self, session, cluster, store: Optional[ObjectStore]):
+        self.session = session
+        self.cluster = cluster
+        self.store = store
+        self.metrics = session.metrics
+
+    @property
+    def device(self) -> torch.device:
+        """Where training, serving and RL run: the cluster's first online
+        device (a CUDA or CPU device; a cluster of logical slots runs
+        batch jobs and workflows only)."""
+        online = self.cluster.online_devices
+        if not online:
+            raise RuntimeError("the session's cluster has no online device")
+        return resolve_device(online[0])
+
+    # ------------------------------------------------------------ TrainJob
+    def run_train(self, handle: Handle, job: TrainJob):
+        from repro_torch.elastic.trainer import ElasticTrainer
+        handle._transition(WorkloadState.PLACING)
+        tspec = elastic_spec(job, device=self.device)
+        store = ObjectStore(job.ckpt_dir) if job.ckpt_dir else None
+        stop = threading.Event()
+        trainer = ElasticTrainer(self.cluster, tspec, store=store,
+                                 metrics=self.metrics, stop=stop)
+        handle.add_cancel_hook(stop.set)
+        handle.probe("step", lambda: trainer.progress)
+        handle._transition(WorkloadState.RUNNING,
+                           devices=len(self.cluster.online_devices))
+        return train_result(trainer.run())
+
+    # ------------------------------------------------------------ ServeJob
+    def run_serve(self, handle: Handle, job: ServeJob):
+        from repro_torch.core.queue import WorkQueue
+        handle._transition(WorkloadState.PLACING)
+        metrics = Registry()
+        if job.max_replicas > 1:
+            return run_serve_replicated(handle, job, metrics,
+                                        device=self.device)
+        engine = build_engine(job, registry_out=metrics, device=self.device)
+        queue = WorkQueue(serve_requests(job),
+                          lease_timeout=job.lease_timeout)
+        if job.warmup:
+            engine.warmup()
+        handle.probe("completed",
+                     lambda: int(metrics.series(GAUGES.COMPLETED).total))
+        handle._transition(WorkloadState.RUNNING, slots=job.slots)
+        results, metrics = engine.run(queue,
+                                      default_max_new=job.max_new_tokens,
+                                      should_stop=handle.should_stop)
+        return {"results": results, "metrics": metrics,
+                "report": serving_report(metrics, step=job.name)}
+
+    # ------------------------------------------------------------ BatchJob
+    def run_batch(self, handle: Handle, job: BatchJob):
+        fn = job.resolve_fn()
+        ns = job.namespace or self.session.namespace or "default"
+        if ns not in self.cluster.namespaces:
+            self.cluster.create_namespace(ns)
+        handle._transition(WorkloadState.PLACING, namespace=ns)
+        kjob = self.cluster.submit(ns, JobSpec(
+            job.name, fn, replicas=job.replicas,
+            devices_per_pod=job.devices_per_pod,
+            backoff_limit=job.backoff_limit, priority=job.priority))
+        handle._transition(WorkloadState.RUNNING, replicas=job.replicas)
+        return {"results": _watch_job(handle, self.cluster, kjob)}
+
+    # --------------------------------------------------------------- RLJob
+    def run_rl(self, handle: Handle, job: RLJob):
+        """The learner checkpoints and publishes to ``job.ckpt_dir``, else
+        to the session's store, else to a temporary directory removed
+        when the workload ends."""
+        handle._transition(WorkloadState.PLACING)
+        device = self.device
+        if job.ckpt_dir or self.store is not None:
+            store = ObjectStore(job.ckpt_dir) if job.ckpt_dir else self.store
+            return run_rl_fleet(handle, job, learner_store=store,
+                                metrics=Registry(), device=device)
+        with tempfile.TemporaryDirectory(prefix="rl-ckpt-") as root:
+            return run_rl_fleet(handle, job, learner_store=ObjectStore(root),
+                                metrics=Registry(), device=device)
+
+    # --------------------------------------------------------- WorkflowRun
+    def run_workflow(self, handle: Handle, run: WorkflowRun):
+        if self.store is None:
+            raise ManifestError(
+                "WorkflowRun on a bare cluster needs Session(cluster=..., "
+                "store=ObjectStore(...)) for step markers")
+        handle._transition(WorkloadState.PLACING)
+        wf = Workflow(run.name, cluster=self.cluster, store=self.store,
+                      metrics=self.metrics,
+                      namespace=run.namespace or self.session.namespace
+                      or "default", bus=self.session.bus)
+        return _run_workflow(handle, run, wf)

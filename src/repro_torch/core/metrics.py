@@ -4,15 +4,17 @@ The paper's methodology is "constantly measuring, learning, and informing
 every aspect of a machine learning workflow" (CHASE-CI §VI, Figs 3-6,
 Table I).  This registry provides counters / gauges / histograms plus
 timestamped series, and renders the paper's Table I (per-step resource
-summary) from StepReports.  This copy holds only what serving, the
-router, the orchestrator, the elastic trainer and the RL workload call.
+summary) from StepReports.  A copy of the JAX package's
+``core/metrics.py`` without its deprecated ``record_serving_totals``
+alias (``serving.report`` holds it).
 """
 from __future__ import annotations
 
 import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 
 @dataclass
@@ -33,6 +35,10 @@ class Series:
         """A consistent copy of the points at one instant."""
         with self._lock:
             return list(self.points)
+
+    def mean(self) -> float:
+        pts = self.snapshot()
+        return sum(v for _, v in pts) / len(pts) if pts else 0.0
 
     @property
     def last(self) -> float:
@@ -79,16 +85,50 @@ class Registry:
     def __init__(self):
         self._lock = threading.Lock()
         self._series: Dict[str, Series] = {}
+        # listeners get (name, value, ts) on every inc/gauge/timer — the
+        # near-real-time monitor (repro_torch.vcluster.monitor) taps this
+        # to stream throughput gauges without polling
+        self._listeners: List[Callable[[str, float, float], None]] = []
 
     def series(self, name: str) -> Series:
         with self._lock:
             return self._series.setdefault(name, Series())
 
+    def add_listener(self, cb: Callable[[str, float, float], None]) -> None:
+        """Register cb(name, value, ts) on every recorded point.
+        Listener exceptions are swallowed: observability must never take
+        down the thing it observes."""
+        with self._lock:
+            self._listeners.append(cb)
+
+    def _notify(self, name: str, value: float) -> None:
+        for cb in list(self._listeners):
+            try:
+                cb(name, value, time.time())
+            except Exception:
+                pass
+
     def inc(self, name: str, value: float = 1.0):
         self.series(name).record(value)
+        self._notify(name, value)
 
     def gauge(self, name: str, value: float):
         self.series(name).record(value)
+        self._notify(name, value)
+
+    @contextmanager
+    def timer(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.series(name).record(dt)
+            self._notify(name, dt)
+
+    def scrape(self) -> Dict[str, float]:
+        with self._lock:
+            return {k: s.last for k, s in self._series.items()}
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         """Per-series stats (count/last/mean/max/total/p50/p99) — the

@@ -1,11 +1,10 @@
 """Cluster / Namespace / Job / Pod — the Kubernetes constructs of CHASE-CI
 (§II-A, §IV, §V) over a list of devices.
 
-A copy of the JAX package's ``core/orchestrator.py``, cut to what the
-elastic trainer and its tests call: no scheduling priority, site tags,
-quota changes, free-device or queue-depth queries, pod-lifecycle
-watchers or lease billing (the multi-tenant scheduler and the
-federation, which read those, are not ported).  The default device list differs: the card's CUDA devices
+A copy of the JAX package's ``core/orchestrator.py`` without its site
+tags and its ``lease_device_s/<namespace>`` lease billing (the
+federation and the multi-tenant chargeback, which read those, are not
+ported).  The default device list differs: the card's CUDA devices
 (raising without a card) where JAX took ``jax.devices()``.  Tests pass
 logical slots (``devices=[f"slot{i}" ...]``): the orchestrator only
 leases names, and a training segment runs on its trainer's device.
@@ -112,6 +111,9 @@ class JobSpec:
     replicas: int = 1
     devices_per_pod: int = 0             # 0 = CPU-only pod (e.g. download)
     backoff_limit: int = 3
+    # scheduling priority (the multi-tenant scheduler): higher may preempt
+    # strictly lower.  None inherits the submitting tenant's priority.
+    priority: Optional[int] = None
 
 
 class Job:
@@ -161,6 +163,7 @@ class Cluster:
         self.jobs: List[Job] = []
         self.metrics = metrics or Registry()
         self._watchers: List[Callable[[str, Any], None]] = []
+        self._pod_watchers: List[Callable[[str, Pod], None]] = []
 
     # ------------------------------------------------------------ namespaces
     def create_namespace(self, name: str, device_quota: Optional[int] = None,
@@ -172,6 +175,19 @@ class Cluster:
             ns = Namespace(name, q, labels)
             self.namespaces[name] = ns
             return ns
+
+    def set_quota(self, namespace: str, device_quota: int) -> None:
+        """Adjust a namespace's device quota (the multi-tenant scheduler's
+        per-tenant accounting knob).  May drop below current usage: live
+        leases are honored, only future allocations are blocked."""
+        with self._lock:
+            self.namespaces[namespace].device_quota = device_quota
+
+    def free_devices(self) -> int:
+        """Online devices not leased to any live pod."""
+        with self._lock:
+            return sum(1 for d in self.devices
+                       if d not in self.offline and d not in self.leased)
 
     def _allocate_locked(self, ns: Namespace, n: int) -> List[Any]:
         """Lease `n` devices to a pod.  Caller holds self._lock.
@@ -241,6 +257,7 @@ class Cluster:
                     return
                 pod.state = PodState.RUNNING
             self.metrics.inc(f"pods_running/{pod.ctx.namespace}")
+            self._notify_pod("running", pod)
             try:
                 result, err = pod.fn(pod.ctx), None
             except Exception as e:       # reconciler may respawn
@@ -250,7 +267,8 @@ class Cluster:
                 if pod.gen != gen:       # a respawned attempt owns the pod now
                     return
                 # only a RUNNING pod changes state here; a drained one was
-                # already flipped by fail_node/preempt
+                # already flipped (and notified) by fail_node/preempt
+                changed = pod.state == PodState.RUNNING
                 if err is None:
                     pod.result = result
                     # a drained pod may still finish cooperatively — keep the
@@ -273,6 +291,9 @@ class Cluster:
                             self.metrics.inc(
                                 f"pod_failures/{pod.ctx.namespace}")
                 self._release_pod_locked(pod)   # terminal -> return the lease
+                final = pod.state
+            if changed:
+                self._notify_pod(final.name.lower(), pod)
 
         pod.thread = threading.Thread(target=run, name=pod.pod_id)
         pod.thread.start()
@@ -310,6 +331,7 @@ class Cluster:
                     pod.holds_devices = bool(devs)
                     pod.error = None
                     pod.state = PodState.PENDING
+                self._notify_pod("respawned", pod)
                 self._start_pod(pod)
                 respawned += 1
         return respawned
@@ -358,12 +380,15 @@ class Cluster:
                 pod.error = f"Preempted: {reason}"
                 pod.ctx.preempt.set()
                 self._release_pod_locked(pod)
+                notify = "preempted"
             elif pod.state == PodState.RUNNING:
                 pod.ctx.preempt.set()
                 pod.error = f"Preempted: {reason}"
+                notify = "preempt-requested"
             else:
                 return False
         self.metrics.inc(f"pod_preempted/{pod.ctx.namespace}")
+        self._notify_pod(notify, pod)
         return True
 
     def retire_pod(self, pod: Pod) -> bool:
@@ -390,12 +415,29 @@ class Cluster:
             pod.ctx.stop.set()
             self._release_pod_locked(pod)
         self.metrics.inc(f"pod_preempt_hard/{pod.ctx.namespace}")
+        self._notify_pod("preempted", pod)
         return True
 
     # ------------------------------------------------------- node churn (§V)
     def add_watcher(self, cb: Callable[[str, Any], None]) -> None:
         """Register cb(event, device) for node churn ("fail" | "join")."""
         self._watchers.append(cb)
+
+    def add_pod_watcher(self, cb: Callable[[str, Pod], None]) -> None:
+        """Register cb(event, pod) for pod lifecycle transitions: one of
+        "running" | "succeeded" | "failed" | "preempted" |
+        "preempt-requested" | "respawned".  Feeds the near-real-time
+        monitor (repro_torch.vcluster.monitor); observer errors are
+        swallowed so a broken subscriber cannot take down the
+        controller."""
+        self._pod_watchers.append(cb)
+
+    def _notify_pod(self, event: str, pod: Pod) -> None:
+        for cb in list(self._pod_watchers):
+            try:
+                cb(event, pod)
+            except Exception:       # observers must never break the loop
+                pass
 
     def fail_node(self, device) -> None:
         """A node drops out: mark it offline AND drain the pods on it.
@@ -419,6 +461,8 @@ class Cluster:
                         drained_pods.append(pod)
         if drained_pods:
             self.metrics.inc("node_drained_pods", len(drained_pods))
+        for pod in drained_pods:
+            self._notify_pod("failed", pod)
         for cb in list(self._watchers):
             cb("fail", device)
 
@@ -440,6 +484,15 @@ class Cluster:
                         drained_pods.append(pod)
         if drained_pods:
             self.metrics.inc("node_drained_pods", len(drained_pods))
+        for pod in drained_pods:
+            self._notify_pod("failed", pod)
+
+    def queue_depth(self) -> int:
+        """Pods admitted but not yet terminal — the congestion signal a
+        placement planner folds into its site score."""
+        with self._lock:
+            return sum(1 for job in self.jobs for p in job.pods
+                       if p.state in (PodState.PENDING, PodState.RUNNING))
 
     def join_node(self, device) -> None:
         with self._lock:

@@ -1,4 +1,4 @@
-"""RL driver for the port: actors, replay, learner and policy store.
+"""RL driver for the port — a thin manifest CLI over the workload API.
 
     PYTHONPATH=src python -m repro_torch.launch.rl --smoke --device cpu \\
         --learner-steps 6 --actors 2 --fail-at 2
@@ -7,7 +7,8 @@
 
 The flags and defaults of ``repro.launch.rl`` plus ``--device`` (``cuda``
 by default, which raises without a card).  Both forms declare an
-``RLJob`` (``repro_torch.api.resources``) and run it through
+``RLJob`` (``repro_torch.api.resources``) and apply it through a
+``Session`` on a one-device ``Cluster``, which runs it through
 ``repro_torch.api.runners.run_rl_fleet``: N continuous-batching rollout
 actors over a shared ticket queue, the policy-gradient learner, versioned
 weight broadcast through the policy store.  ``--fail-at`` injects ONE
@@ -19,15 +20,13 @@ directory that is removed at exit.  It prints the JAX CLI's report line.
 from __future__ import annotations
 
 import argparse
-import tempfile
 from typing import Optional, Sequence
 
-from repro_torch.api.resources import RLJob
-from repro_torch.api.runners import run_rl_fleet
-from repro_torch.configs import registry
+from repro_torch.api import RLJob, Session
 from repro_torch.core.metrics import Registry
-from repro_torch.data.objectstore import ObjectStore
+from repro_torch.core.orchestrator import Cluster
 from repro_torch.device import resolve_device
+from repro_torch.launch import cli
 
 
 def rl_job(arch: str, *, learner_steps: int, actors: int = 2,
@@ -48,29 +47,20 @@ def rl_job(arch: str, *, learner_steps: int, actors: int = 2,
 
 
 def apply_rl(spec: RLJob, *, device="cuda"):
-    """Run one RLJob on ``device``; its store is ``spec.ckpt_dir`` or a
-    temporary directory removed afterwards."""
-    dev = resolve_device(device)
-    if spec.ckpt_dir:
-        return run_rl_fleet(None, spec, learner_store=ObjectStore(
-            spec.ckpt_dir), metrics=Registry(), device=dev)
-    with tempfile.TemporaryDirectory(prefix="rl-ckpt-") as root:
-        return run_rl_fleet(None, spec, learner_store=ObjectStore(root),
-                            metrics=Registry(), device=dev)
+    """Run one RLJob on a fresh one-device cluster Session; its store is
+    ``spec.ckpt_dir`` or a temporary directory removed afterwards."""
+    session = Session(cluster=Cluster(devices=[resolve_device(device)],
+                                      metrics=Registry()))
+    return session.apply(spec).wait(cli.APPLY_TIMEOUT_S)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--manifest", default="",
-                    help="an RLJob manifest (JSON); when given, the other "
-                         "workload flags are ignored")
-    ap.add_argument("--arch", default="phi4-mini-3.8b",
-                    choices=registry.ARCHS)
-    ap.add_argument("--smoke", action="store_true",
-                    help="a tiny same-family config")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default; raises without a card) or cpu")
+    cli.add_manifest(ap)
+    cli.add_arch(ap)
+    cli.add_smoke(ap)
+    cli.add_seed(ap)
+    cli.add_device(ap)
     ap.add_argument("--learner-steps", type=int, default=6)
     ap.add_argument("--actors", type=int, default=2)
     ap.add_argument("--rollouts-per-step", type=int, default=2)
@@ -88,9 +78,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "the crash loop restores from the latest "
                          "checkpoint and finishes the run")
     args = ap.parse_args(argv)
-    if args.manifest:
-        spec = RLJob.from_manifest(args.manifest)
-    else:
+    spec = cli.manifest_spec(args, RLJob.KIND)
+    if spec is None:
         spec = rl_job(args.arch, learner_steps=args.learner_steps,
                       actors=args.actors,
                       rollouts_per_step=args.rollouts_per_step,

@@ -1,20 +1,25 @@
-"""Serving driver for the port: the continuous batcher over a WorkQueue.
+"""Serving driver for the port — a thin manifest CLI over the workload API.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
         --requests 8 --prompt-len 32 --gen 16 --slots 4 [--spread] [--static]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --manifest examples/manifests/serve_smoke.json
 
-It builds a ``repro_torch.serving.ServingEngine`` on the card (or on the
-CPU with ``--device cpu``), serves a synthetic request stream to
-exhaustion, and prints the per-metric CSV and the Table-I-style row like
-``repro.launch.serve``.  Declaring the job as a manifest through a
-``Session`` waits for the port's API slice.
+Both forms declare the SAME ``repro_torch.api.ServeJob`` the JAX CLI
+(``repro.launch.serve``) declares and apply it through a ``Session`` on a
+one-device ``Cluster`` (the card, or the CPU with ``--device cpu``):
+requests ride a WorkQueue into the continuous batcher
+(``repro_torch.serving.ServingEngine``), or with ``max_replicas > 1``
+into replicas behind the router.  It prints the per-metric CSV and the
+Table-I-style row like ``repro.launch.serve``.
 
 ``--static`` (``serve_static``) runs the drain-then-refill baseline of the
 JAX package instead: lease a batch, prefill its rows together, decode
 until the LONGEST request in the batch finishes, truncate each request at
-its stop length, ack, repeat.
+its stop length, ack, repeat.  It is the serving benchmark's baseline,
+not a workload kind, so it takes no ``--manifest``.
 """
 from __future__ import annotations
 
@@ -25,32 +30,35 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.api import ServeJob, Session
 from repro_torch.configs import registry
 from repro_torch.core.metrics import Registry, table_one
+from repro_torch.core.orchestrator import Cluster
 from repro_torch.device import resolve_device
+from repro_torch.launch import cli
 from repro_torch.models import params as pr
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import steps as steps_mod
-from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.report import (GAUGES, record_serving_totals,
                                         request_queue, serving_report)
 
 
-def serve(arch: str, *, smoke: bool, n_requests: int, prompt_len: int,
-          gen: int, slots: int = 4, seed: int = 0, device="cuda",
-          gen_lens: Optional[Sequence[int]] = None):
-    """Serve ``n_requests`` synthetic requests after one warmup prefill and
-    decode step (kernel build, CUDA context) off the clock; returns
-    (results, metrics)."""
-    cfg = registry.get_smoke(arch) if smoke else registry.get_config(arch)
-    engine = ServingEngine(cfg, device=device, num_slots=slots,
-                           prompt_len=prompt_len, max_new_tokens=gen,
-                           seed=seed)
-    engine.warmup()
-    queue = request_queue(None, cfg, n_requests=n_requests,
-                          prompt_len=prompt_len, gen=gen, seed=seed,
-                          gen_lens=gen_lens, lease_timeout=30.0)
-    return engine.run(queue)
+def serve_job(arch: str, *, smoke: bool, n_requests: int, prompt_len: int,
+              gen: int, batch: int = 4, seed: int = 0,
+              gen_lens: Optional[Sequence[int]] = None) -> ServeJob:
+    """The ServeJob resource the flag surface declares."""
+    return ServeJob(
+        name=f"serve-{arch}", arch=arch, smoke=smoke,
+        n_requests=n_requests, prompt_len=prompt_len, max_new_tokens=gen,
+        slots=batch, seed=seed,
+        gen_lens=tuple(gen_lens) if gen_lens is not None else None)
+
+
+def apply_serve(spec: ServeJob, *, device="cuda"):
+    """Run one ServeJob on a fresh one-device cluster Session."""
+    session = Session(cluster=Cluster(devices=[resolve_device(device)],
+                                      metrics=Registry()))
+    return session.apply(spec).wait(cli.APPLY_TIMEOUT_S)
 
 
 @torch.inference_mode()
@@ -151,17 +159,15 @@ def serve_static(arch: str, *, smoke: bool, n_requests: int, prompt_len: int,
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="phi4-mini-3.8b",
-                    choices=registry.ARCHS)
-    ap.add_argument("--smoke", action="store_true",
-                    help="a tiny same-family config")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default; raises without a card) or cpu")
-    ap.add_argument("--seed", type=int, default=0)
+    cli.add_manifest(ap)
+    cli.add_arch(ap)
+    cli.add_smoke(ap)
+    cli.add_seed(ap)
+    cli.add_device(ap)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--slots", "--batch", dest="slots", type=int, default=4)
     ap.add_argument("--spread", action="store_true",
                     help="heterogeneous stop lengths (gen halved 4x, cycled)")
     ap.add_argument("--static", action="store_true",
@@ -170,13 +176,27 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     gen_lens = None
     if args.spread:
         gen_lens = [max(1, args.gen // (2 ** i)) for i in range(4)]
-    run = serve_static if args.static else serve
-    kw = {"batch" if args.static else "slots": args.slots}
-    results, metrics = run(
-        args.arch, smoke=args.smoke, n_requests=args.requests,
-        prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
-        device=args.device, gen_lens=gen_lens, **kw)
-    mode = "static" if args.static else "continuous"
+    if args.static:
+        if args.manifest:
+            raise SystemExit("--static is the benchmark baseline, not an "
+                             "API workload: it cannot run a --manifest "
+                             "declaration")
+        results, metrics = serve_static(
+            args.arch, smoke=args.smoke, n_requests=args.requests,
+            prompt_len=args.prompt_len, gen=args.gen, batch=args.slots,
+            seed=args.seed, gen_lens=gen_lens, device=args.device)
+        mode = "static"
+    else:
+        spec = cli.manifest_spec(args, ServeJob.KIND)
+        if spec is None:
+            spec = serve_job(args.arch, smoke=args.smoke,
+                             n_requests=args.requests,
+                             prompt_len=args.prompt_len, gen=args.gen,
+                             batch=args.slots, seed=args.seed,
+                             gen_lens=gen_lens)
+        out = apply_serve(spec, device=args.device)
+        results, metrics = out["results"], out["metrics"]
+        mode = "continuous"
     print(f"[serve:{mode}] completed {len(results)} requests")
     print(metrics.to_csv())
     print()

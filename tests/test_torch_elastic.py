@@ -367,7 +367,9 @@ def test_cli_declares_the_jax_train_job(monkeypatch):
             seen["spec"], seen["devices"] = spec, cluster.devices
             super().__init__(cluster, spec, **kw)
 
-    monkeypatch.setattr(train, "ElasticTrainer", Spy)
+    # the CLI applies a TrainJob through a Session, whose cluster backend
+    # builds the trainer
+    monkeypatch.setattr(trainer_mod, "ElasticTrainer", Spy)
     kw = dict(steps=4, seq=16, batch=2, smoke=True, ckpt_every=2,
               log_every=3, device_steps=2)
     out = train.train(ARCH, device="cpu", **kw)

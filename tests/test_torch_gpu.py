@@ -26,7 +26,9 @@ another order), and checkpoints restored onto the card bit for bit.  The
 router and RL slice: flash at the static batcher's B=4 prefill (2e-2, as
 above), the xent backward with the RL learner's dy (zeros and negative
 values; 1e-5 in f32, and exactly 0 on the rows whose dy is 0), and an RL
-fleet on the card launching each kernel where its path says.
+fleet on the card launching each kernel where its path says.  The workload
+API: a smoke ServeJob (f32) through a Session on the card's ``Cluster()``
+gives the greedy tokens of a CPU Session's, with flash in every prefill.
 """
 import numpy as np
 import pytest
@@ -551,3 +553,45 @@ def test_checkpoint_round_trip_on_the_card_is_bit_exact(tmp_path):
     assert torch.equal(got["m"]["a"].view(torch.int32),
                        want["a"].view(torch.int32))
     assert int(got["count"]) == 7
+
+
+@pytest.mark.gpu
+def test_session_serves_on_the_card_as_on_the_cpu(monkeypatch):
+    """A smoke ServeJob (f32, paged) through a Session on the card's
+    ``Cluster()`` gives the greedy tokens of the same job through a CPU
+    Session, with flash attention in every prefill.  Both draw their
+    params on the CPU from the job's seed (a CUDA generator draws other
+    numbers)."""
+    _card()
+    from repro_torch.api import ServeJob, Session, runners
+    from repro_torch.configs import registry
+    from repro_torch.core.orchestrator import Cluster
+    from repro_torch.models import params as pr
+    from repro_torch.serving.report import GAUGES
+
+    cfg = registry.get_smoke("phi4-mini-3.8b").replace(
+        param_dtype="float32", compute_dtype="float32")
+    monkeypatch.setattr(runners, "resolve_serve_cfg", lambda job: cfg)
+    draw = pr.init_params
+
+    def init(schema, gen, dtype, device="cuda"):
+        cpu = draw(schema, torch.Generator().manual_seed(gen.initial_seed()),
+                   dtype, "cpu")
+
+        def move(tree):
+            return {k: move(v) for k, v in tree.items()} \
+                if isinstance(tree, dict) else tree.to(device)
+        return move(cpu)
+    monkeypatch.setattr(pr, "init_params", init)
+    job = ServeJob(name="card", n_requests=5, prompt_len=16,
+                   max_new_tokens=8, slots=2, gen_lens=(8, 3), paged=True,
+                   block_size=8)
+    before = fa.launches
+    card = Session(cluster=Cluster()).apply(job).wait(300)
+    launched = fa.launches - before
+    cpu = Session(cluster=Cluster(devices=[torch.device("cpu")])).apply(
+        job).wait(300)
+    assert card["results"] == cpu["results"]
+    assert [len(card["results"][i]) for i in range(5)] == [8, 3, 8, 3, 8]
+    prefills = card["metrics"].series(GAUGES.PREFILL_S).stats()["count"]
+    assert prefills >= 1 and launched == cfg.num_layers * prefills
