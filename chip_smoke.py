@@ -121,13 +121,44 @@ Phases (any failure raises and the script exits non-zero):
                request at its stop length, flash 32 a prefill, a fresh
                prefill on the same weights finite with the session's
                first token as its argmax.
+ 13. connect — the CONNECT case study (paper §III) at the paper-shaped
+               grid (4 chunks of 24 frames x 361 x 576) and the full FFN
+               width (depth 8, width 32, fov 16 x 32 x 32, 4 flood
+               iterations; 120 train steps of 4), a WorkflowRun naming
+               ``repro_torch.apps.connect.pipeline:add_connect_steps``
+               through ``Session(cluster=Cluster())``: Succeeded, a mask
+               per chunk, objects found, the trained model's mean loss over
+               its training windows below the initial model's (the first
+               and last batch losses are printed, not compared: their
+               windows hold 0.15 % and 1.08 % object voxels); a second apply over
+               the same store skips all four steps with an equal analysis;
+               the card's ``ffn_apply`` on one batch of the trained model
+               within FFN_RTOL of the CPU's (f32, no TF32), and
+               ``connect_label`` on chunk 0's mask equal to the CPU's;
+               prints Table I, seconds a step, ms a train step, flood-fill
+               voxels/s, IoU against the labels, peak GB, bytes written;
+ 14. fabric  — the three sites of ``examples/federated_connect.py`` (4, 2
+               and 1 logical slots, 10 Gbps sdsc-calit2, 1 Gbps to edge,
+               time_scale 0) computing on the card: phase 13's run with the
+               locality planner, the data-blind one (more bytes moved), and
+               the hub killed after download (completes on the survivors, a
+               migrated step recorded), each training phase 13's model and
+               finding its objects (the convolutions are deterministic);
+               then through ``Session(fabric=, planner=)`` a full-width
+               phi4 ServeJob (4 requests of 512 tokens, stops 16/64/8/32,
+               flash 32 a prefill, the site named) and a phi4 smoke
+               TrainJob whose site is killed once step 7 is logged (one
+               migration, finished on the survivor, a finite loss a step,
+               exact xent/AdamW launches).
 The phases that write checkpoints (elastic, rl, session) print the bytes
-they wrote and left on disk.  Then it prints a ``{"kernels": [...]}`` line, a
+they wrote and left on disk, and connect and fabric the bytes their runs
+wrote.  Then it prints a ``{"kernels": [...]}`` line, a
 ``{"serve": {...}}`` line with one entry per arch, a ``{"train": {...}}``
 line, an ``{"elastic": {...}}`` line, a ``{"router": ..., "static":
 ...}`` line, an ``{"rl": {...}}`` line, one ``{"session": {...}}`` line a
 workload (apply -> Running and wall seconds, tok/s beside the direct
-engine's, ms a step, events, peak GB, the card), the card's name and
+engine's, ms a step, events, peak GB, the card), a ``{"connect": {...}}``
+and a ``{"fabric": {...}}`` line (each with the card), the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2272,6 +2303,447 @@ def phase_session(smi: str, clean_spread: float):
     return rows, launches
 
 
+# ---------------------------------------------------------------- connect
+# The paper-shaped CONNECT run of examples/connect_workflow.py --full: 4
+# chunks of 24 frames x 361 x 576 (3 events), the default FFN (depth 8,
+# width 32, fov 16 x 32 x 32, 4 flood iterations), 120 train steps of 4.
+CONNECT_PARAMS = {"n_chunks": 4, "download_workers": 4,
+                  "inference_workers": 4,
+                  "vol": {"lat": 361, "lon": 576, "frames": 24},
+                  "train_steps": 120}
+# the card's ffn_apply vs the CPU's in f32 (no TF32), of the output's
+# scale: 18 convolutions of up to 864-term sums, added in another order
+FFN_RTOL = 1e-4
+# fabric TrainJob: phi4 smoke (11 leaves) for FABRIC_STEPS steps of
+# FABRIC_BATCH x FABRIC_SEQ (one xent chunk a step), checkpoints every 2
+# steps mirrored to a second site; its site is killed once step
+# FABRIC_KILL_AT is logged (its checkpoints are tiny: phi4 at 4 layers
+# would write 10.17 GB a save twice, at home and at the mirror)
+FABRIC_STEPS, FABRIC_SEQ, FABRIC_BATCH, FABRIC_KILL_AT = 16, 32, 4, 7
+
+
+def _tree_bytes(root) -> int:
+    """Bytes of every file under ``root`` (what a run wrote there)."""
+    return sum(p.stat().st_size for p in Path(root).rglob("*") if p.is_file())
+
+
+def _connect_manifest():
+    return {"apiVersion": "repro/v1", "kind": "WorkflowRun",
+            "metadata": {"name": "chip-smoke-connect"},
+            "spec": {"namespace": "atmos-science",
+                     "entrypoint": "repro_torch.apps.connect.pipeline:"
+                                   "add_connect_steps",
+                     "params": CONNECT_PARAMS}}
+
+
+def _train_set_loss(cc, params, xs, ys, batch: int = 16) -> float:
+    """Mean BCE of the FFN's one-step update over every training window,
+    on the card."""
+    from repro_torch.models import ffn3d
+    total = 0.0
+    with torch.inference_mode(), ffn3d.reference_convs():
+        for i in range(0, len(xs), batch):
+            x = torch.as_tensor(xs[i:i + batch], device="cuda")
+            y = torch.as_tensor(ys[i:i + batch], device="cuda")
+            total += float(ffn3d.bce_loss(cc.ffn, params, x, y)) * len(x)
+    return total / len(xs)
+
+
+def phase_connect(smi: str):
+    """Phase 13: the CONNECT case study at the paper-shaped grid and the
+    full FFN width, a WorkflowRun through ``Session(cluster=Cluster())``:
+    Succeeded, a mask per chunk, objects found, and the trained model's
+    mean loss over its training windows below the initial model's (the
+    first and last batch losses are printed: they are losses of
+    different windows, whose object shares differ); a second apply over
+    the same store skips all four steps with an equal analysis; the
+    card's ``ffn_apply`` against the CPU's on one batch of the trained
+    model, and ``connect_label`` card against CPU on chunk 0's mask,
+    exactly."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.api import Session, WorkloadState
+    from repro_torch.apps.connect import pipeline, segment
+    from repro_torch.core.orchestrator import Cluster
+    from repro_torch.data import volumes
+    from repro_torch.data.objectstore import ObjectStore
+    from repro_torch.models import ffn3d
+    from repro_torch.models import params as pr
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cc = pipeline.connect_config(**json.loads(json.dumps(CONNECT_PARAMS)))
+    ft, fy, fx = cc.ffn.fov
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-connect-") as root:
+        store = ObjectStore(root)
+        session = Session(cluster=Cluster(), store=store)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        h = session.apply(_connect_manifest())
+        out = h.wait(1200)                # raises if the workload FAILED
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        written = _tree_bytes(root)
+        results = out["results"]
+        if h.state != WorkloadState.SUCCEEDED:
+            raise AssertionError(f"connect: {h.state}")
+        keys = volumes.chunk_keys(cc.n_chunks)
+        missing = [k for k in keys if not store.exists(f"{k}/mask.npy")]
+        if missing or results["analyze"]["objects"] < 1:
+            raise AssertionError(f"connect: no mask for {missing}, or no "
+                                 f"object: {results['analyze']}")
+        step_s = {r.step: r.total_time_s for r in out["reports"]}
+        # every train step syncs on its loss: the gauge's stamps time it
+        stamps = [t for t, _ in
+                  session.metrics.series("ffn_train/loss").snapshot()]
+        train_ms = (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3
+        covered = (cc.vol.frames // ft * ft) * (cc.vol.lat // fy * fy) * \
+            (cc.vol.lon // fx * fx)
+        tiles = covered // (ft * fy * fx)
+        ious = [float(ffn3d.iou(
+            torch.as_tensor(store.get_array(f"{k}/mask.npy")),
+            torch.as_tensor(store.get_array(f"{k}/labels.npy"))))
+            for k in keys]
+
+        # a second apply over the same store skips every step
+        again_session = Session(cluster=Cluster(), store=store)
+        again = again_session.apply(_connect_manifest()).wait(600)
+        skipped = [s for s in ("download", "train", "inference", "analyze")
+                   if again_session.metrics.series(
+                       f"workflow/chip-smoke-connect/{s}/skipped").total]
+
+        # did training lower the loss?  Over every training window, the
+        # trained model against the initial one (the same seeded draw)
+        params = pipeline._load_ffn_params(store, cc, "cuda")
+        xs, ys = pipeline.train_windows(store, cc, keys[0])
+        init = pr.init_params(
+            ffn3d.ffn_schema(cc.ffn),
+            torch.Generator(device="cuda").manual_seed(cc.seed), "float32",
+            "cuda")
+        set_loss = (_train_set_loss(cc, init, xs, ys),
+                    _train_set_loss(cc, params, xs, ys))
+        rng = np.random.RandomState(cc.seed)      # the train step's draws
+        draws = [rng.randint(0, len(xs), cc.train_batch)
+                 for _ in range(cc.train_steps)]
+        shares = (float(ys[draws[0]].mean()), float(ys[draws[-1]].mean()))
+        del xs, ys, init
+
+        # the card's FFN forward against the CPU's on one train batch of
+        # tiles of chunk 0, with the trained params
+        ivt0 = store.get_array(f"{keys[0]}/ivt.npy")
+        x = torch.as_tensor(np.stack([ivt0[0:ft, 0:fy, i * fx:(i + 1) * fx]
+                                      for i in range(cc.train_batch)]))
+        with torch.inference_mode(), ffn3d.reference_convs():
+            got = ffn3d.ffn_apply(
+                cc.ffn, params, x.cuda(),
+                ffn3d.seed_mask(cc.ffn, x.shape, "cuda")).cpu()
+            want = ffn3d.ffn_apply(
+                cc.ffn, {k: v.cpu() for k, v in params.items()}, x,
+                ffn3d.seed_mask(cc.ffn, x.shape, "cpu"))
+        ffn_err = float((got - want).abs().max()) / \
+            max(float(want.abs().max()), 1.0)
+
+        # connect_label on chunk 0's mask: card against CPU, exactly
+        mask0 = torch.as_tensor(store.get_array(f"{keys[0]}/mask.npy"))
+        t1 = time.perf_counter()
+        lab_card = segment.connect_label(mask0.cuda()).cpu()
+        label_card_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        lab_cpu = segment.connect_label(mask0)
+        label_cpu_s = time.perf_counter() - t1
+        label_equal = torch.equal(lab_card, lab_cpu)
+        label_objects = int(torch.unique(lab_cpu).numel()) - \
+            int(bool((lab_cpu == 0).any()))
+
+    row = {"workload": "chip-smoke-connect", "kind": "WorkflowRun",
+           "state": h.state.value, "params": CONNECT_PARAMS,
+           "wall_s": wall, "step_s": step_s,
+           "first_loss": results["train"]["first_loss"],
+           "last_loss": results["train"]["last_loss"],
+           "n_windows": results["train"]["n_windows"],
+           "first_last_batch_object_share": shares,
+           "train_set_loss_initial": set_loss[0],
+           "train_set_loss_trained": set_loss[1],
+           "train_ms_per_step": train_ms,
+           "tiles_per_chunk": tiles,
+           "flood_fill_voxels_per_s": covered * cc.n_chunks /
+           step_s["inference"],
+           "inference_voxels_per_s": session.metrics.series(
+               "inference/voxels_per_s").last,
+           "iou": ious, "objects": results["analyze"]["objects"],
+           "longest_lifecycle": results["analyze"]["longest_lifecycle"],
+           "unsegmented_share": 1 - covered / (cc.vol.frames * cc.vol.lat *
+                                               cc.vol.lon),
+           "peak_gb": peak, "bytes_written": written,
+           "again_skipped": skipped,
+           "again_analyze_equal": again["results"]["analyze"] ==
+           results["analyze"],
+           "ffn_card_vs_cpu_err": ffn_err, "ffn_rtol": FFN_RTOL,
+           "label_equal": label_equal, "label_objects_chunk0": label_objects,
+           "label_card_s": label_card_s, "label_cpu_s": label_cpu_s,
+           "card": smi}
+    log(out["table"])
+    log(f"[connect] {h.state.value} in {wall:.2f} s; steps "
+        f"{ {k: round(v, 3) for k, v in step_s.items()} } s; loss "
+        f"{row['first_loss']:.4f} -> {row['last_loss']:.4f}; "
+        f"{train_ms:.2f} ms a train step; flood fill "
+        f"{row['flood_fill_voxels_per_s']:.4g} voxels/s ({tiles} tiles a "
+        f"chunk, {row['unsegmented_share']:.1%} of each chunk never "
+        f"tiled); IoU {[round(v, 4) for v in ious]}; objects "
+        f"{row['objects']}; peak {peak:.2f} GB; {written / 1e6:.1f} MB "
+        f"written")
+    log(f"[connect] loss of the first batch {row['first_loss']:.4f} and "
+        f"the last {row['last_loss']:.4f} ({shares[0]:.2%} and "
+        f"{shares[1]:.2%} object voxels); over all {row['n_windows']} "
+        f"training windows {set_loss[0]:.6f} initial -> {set_loss[1]:.6f} "
+        f"trained")
+    log(f"[connect] second apply skipped {skipped}, analysis equal: "
+        f"{row['again_analyze_equal']}; ffn_apply card vs CPU {ffn_err:.3g}"
+        f" of scale (tolerance {FFN_RTOL}); connect_label card == CPU: "
+        f"{label_equal} ({label_objects} objects; card {label_card_s:.3f} "
+        f"s, CPU {label_cpu_s:.3f} s)")
+    if not set_loss[1] < set_loss[0]:
+        raise AssertionError(f"connect: training did not lower the loss "
+                             f"over its windows: {set_loss}")
+    if len(skipped) != 4 or again["reports"]:
+        raise AssertionError(f"connect: second apply skipped {skipped}, "
+                             f"ran {[r.step for r in again['reports']]}")
+    if not row["again_analyze_equal"]:
+        raise AssertionError("connect: second apply's analysis differs")
+    if not ffn_err <= FFN_RTOL:
+        raise AssertionError(f"connect: ffn_apply card vs CPU {ffn_err}")
+    if not label_equal:
+        raise AssertionError("connect: connect_label card != CPU")
+    return row, results
+
+
+def _fabric_connect(cc, want):
+    """The CONNECT run of phase 13 across the three sites of
+    ``examples/federated_connect.py`` on the card: locality placement,
+    data-blind placement, and the hub killed after download.  The
+    convolutions are deterministic (``reference_convs``), so every run
+    trains the model of phase 13 and finds its objects."""
+    import tempfile
+
+    from repro_torch.data import volumes
+    from repro_torch.data.objectstore import ObjectStore
+    from repro_torch.examples import federated_connect as fc
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fabric-") as root:
+        for tag, blind, kill in (("locality", False, ""),
+                                 ("blind", True, ""),
+                                 ("site_kill", False, "sdsc")):
+            sub = f"{root}/{tag}"
+            t0 = time.perf_counter()
+            fabric, out, stats = fc.run_once(cc, data_blind=blind,
+                                             kill_site=kill, device="cuda",
+                                             root=sub)
+            stats["wall_s"] = time.perf_counter() - t0
+            stats["bytes_written"] = _tree_bytes(sub)
+            res = out["results"]
+            stats.update(train=res["train"], analyze=res["analyze"])
+            # each mask lies at the site its inference ran at
+            for key in (f"{k}/mask.npy" for k in
+                        volumes.chunk_keys(cc.n_chunks)):
+                if not any(ObjectStore(f"{sub}/{s.name}").exists(key)
+                           for s in fabric.up_sites()):
+                    raise AssertionError(f"fabric {tag}: {key} missing")
+            if tag == "locality":
+                log(out["table"])
+            if kill:
+                log(out["table"])
+                post = [r for r in out["reports"] if r.step != "download"]
+                if not post or any(r.site == kill for r in post):
+                    raise AssertionError(f"fabric: steps on the dead site "
+                                         f"{[(r.step, r.site) for r in post]}")
+                if not stats["migrated"]:
+                    raise AssertionError("fabric: the kill left no migration")
+                if not fabric.metrics.series(
+                        "workflow/connect/download/skipped").points:
+                    raise AssertionError("fabric: download ran again")
+            log(f"[fabric] {tag}: sites {stats['sites']}, moved "
+                f"{stats['bytes_moved']} B over the links "
+                f"({stats['transfer_s']} simulated s), migrated "
+                f"{stats['migrated']}; {stats['wall_s']:.2f} s; loss "
+                f"{res['train']['first_loss']:.4f} -> "
+                f"{res['train']['last_loss']:.4f}; objects "
+                f"{res['analyze']['objects']}; "
+                f"{stats['bytes_written'] / 1e6:.1f} MB written")
+            if res["train"] != want["train"] or \
+                    res["analyze"] != want["analyze"]:
+                raise AssertionError(
+                    f"fabric {tag}: {res['train']}, {res['analyze']} differ "
+                    f"from the cluster run's {want['train']}, "
+                    f"{want['analyze']}")
+            runs[tag] = stats
+    loc, bld = runs["locality"], runs["blind"]
+    if not loc["bytes_moved"] < bld["bytes_moved"] or \
+            not loc["transfer_s"] <= bld["transfer_s"]:
+        raise AssertionError(f"fabric: locality moved {loc['bytes_moved']} "
+                             f"B, blind {bld['bytes_moved']} B")
+    return runs
+
+
+def phase_fabric(smi: str, connect_results):
+    """Phase 14: the federation on the card.  a. the CONNECT run of phase
+    13 across three sites (locality, data-blind, the hub killed after
+    download), each equal to phase 13's run; b. a full-width phi4
+    ServeJob through ``Session(fabric=, planner=)``: 4 requests of 512
+    tokens at their stop lengths, the site named, flash 32 a prefill;
+    c. a phi4 smoke TrainJob there whose site is killed once step
+    FABRIC_KILL_AT is logged: one migration, finished on the survivor,
+    a finite loss a step, exact xent/AdamW launches."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.api import Session
+    from repro_torch.apps.connect import pipeline
+    from repro_torch.configs import registry
+    from repro_torch.core.orchestrator import PodState
+    from repro_torch.examples import federated_connect as fc
+    from repro_torch.fabric import FederatedStore, PlacementPlanner
+    from repro_torch.kernels import adamw_update as au
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import xent
+    from repro_torch.models import params as pr
+    from repro_torch.models import transformer as tfm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cc = pipeline.connect_config(**json.loads(json.dumps(CONNECT_PARAMS)))
+    runs = _fabric_connect(cc, connect_results)
+
+    def zero():
+        fa.launches = xent.fwd_launches = xent.bwd_launches = au.launches = 0
+
+    def counts():
+        return {"flash_attention": fa.launches, "xent_fwd": xent.fwd_launches,
+                "xent_bwd": xent.bwd_launches, "adamw_update": au.launches}
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fabric-") as root:
+        fabric = fc.build_fabric(0.0, "cuda", root)
+        planner = PlacementPlanner(FederatedStore(fabric))
+        session = Session(fabric=fabric, planner=planner)
+
+        # b. ServeJob: full-width phi4, 4 requests of 512 random tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        t0 = time.perf_counter()
+        h = session.apply({
+            "kind": "ServeJob",
+            "metadata": {"name": "chip-smoke-fabric-serve"},
+            "spec": {"arch": ARCH, "smoke": False, "n_requests": 4,
+                     "prompt_len": PROMPT, "max_new_tokens": GEN,
+                     "gen_lens": list(GEN_LENS), "slots": SLOTS,
+                     "paged": True, "block_size": BLOCK,
+                     "prefix_cache": False, "seed": 0}})
+        out = h.wait(900)
+        torch.cuda.synchronize()
+        ran = counts()
+        got = [len(out["results"].get(i, [])) for i in range(4)]
+        rep = out["report"]
+        serve = {"workload": h.spec.name, "state": h.state.value,
+                 "site": out["site"], "stop_lengths": got,
+                 "wall_s": time.perf_counter() - t0,
+                 "tok_s": rep.extra["tokens/s"],
+                 "p50_ttft_s": rep.extra["p50 ttft (s)"],
+                 "launches": ran,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "card": smi}
+        session.forget(h)
+        del out, h
+        log(f"[fabric] serve {ARCH} at {serve['site']}: {serve['state']}, "
+            f"stop lengths {got}, {serve['tok_s']:.1f} tok/s, flash "
+            f"{ran['flash_attention']}, peak {serve['peak_gb']:.2f} GB")
+        if serve["state"] != "Succeeded" or got != list(GEN_LENS) or \
+                serve["site"] not in fabric.sites:
+            raise AssertionError(f"fabric serve: {serve}")
+        if ran["flash_attention"] != 32 * 4:
+            raise AssertionError(f"fabric serve: flash {ran}, want 32 a "
+                                 f"prefill of 4")
+
+        # c. TrainJob: phi4 smoke; its site dies once step KILL_AT is logged
+        n_leaves = len(pr.leaves(tfm.lm_schema(registry.get_smoke(ARCH))))
+        xent_per_step = max(FABRIC_SEQ // 512, 1)     # one loss chunk
+        gc.collect()
+        torch.cuda.empty_cache()
+        killed, errors = {}, []
+
+        def kill_at_step(name, value, ts):
+            if name != "elastic/step" or value < FABRIC_KILL_AT or killed:
+                return
+            try:
+                site = next(s for s in fabric.up_sites() if any(
+                    p.state == PodState.RUNNING
+                    for j in s.cluster.jobs for p in j.pods))
+                killed["site"], killed["step"] = site.name, int(value)
+                fabric.fail_site(site.name)
+            except Exception as e:         # the registry swallows it
+                errors.append(e)
+
+        fabric.metrics.add_listener(kill_at_step)
+        zero()
+        t0 = time.perf_counter()
+        h = session.apply({
+            "kind": "TrainJob",
+            "metadata": {"name": "chip-smoke-fabric-train"},
+            "spec": {"arch": ARCH, "smoke": True, "steps": FABRIC_STEPS,
+                     "seq_len": FABRIC_SEQ, "global_batch": FABRIC_BATCH,
+                     "ckpt_every": 2, "log_every": 1,
+                     "rejoin_timeout_s": 0.5, "verbose": False}})
+        out = h.wait(900)
+        torch.cuda.synchronize()
+        ran = counts()
+        rep = out["report"]
+        losses = out["losses"]
+        executed = rep.steps_executed
+        train = {"workload": h.spec.name, "state": h.state.value,
+                 "killed": killed, "sites": out["sites"],
+                 "migrations": [dataclasses.asdict(m)
+                                for m in out["migrations"]],
+                 "segments": [[s.start, s.end, s.outcome]
+                              for s in rep.segments],
+                 "steps_executed": executed, "steps_lost": rep.steps_lost,
+                 "wall_s": time.perf_counter() - t0,
+                 "launches": ran, "losses": losses,
+                 "bytes_moved": fabric.metrics.series(
+                     "fabric/bytes_moved").total,
+                 "bytes_written": _tree_bytes(root), "card": smi}
+        session.forget(h)
+        del out, h
+        log(f"[fabric] train {ARCH} smoke: {train['state']}; killed "
+            f"{killed}; sites {train['sites']}; migrations "
+            f"{train['migrations']}; segments {train['segments']}; "
+            f"executed {executed}, lost {rep.steps_lost}; launches {ran}; "
+            f"{train['bytes_moved']:.0f} B over the links; "
+            f"{train['bytes_written'] / 1e6:.1f} MB written")
+        if errors:
+            raise AssertionError(f"fabric train: the kill failed: {errors}")
+        if train["state"] != "Succeeded" or not killed or \
+                len(train["migrations"]) != 1 or \
+                train["sites"] != [killed["site"],
+                                   train["migrations"][0]["to_site"]]:
+            raise AssertionError(f"fabric train: {train}")
+        if rep.segments[-1].end != FABRIC_STEPS - 1 or \
+                len(losses) != FABRIC_STEPS or \
+                not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"fabric train: losses {losses}")
+        want = {"flash_attention": 0, "xent_fwd": executed * xent_per_step,
+                "xent_bwd": executed * xent_per_step,
+                "adamw_update": executed * n_leaves}
+        if ran != want:
+            raise AssertionError(f"fabric train: launches {ran} != {want}")
+    return {"connect": runs, "serve": serve, "train": train}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2314,6 +2786,13 @@ def main() -> int:
     written = elastic["disk_written_gb"] + rl["disk_written_gb"] + \
         session["cancel"]["disk_written_gb"]
     log(f"[disk] written so far {written:.2f} GB")
+    connect, connect_results = phase_connect(smi)
+    written += connect["bytes_written"] / 1e9
+    log(f"[disk] written so far {written:.2f} GB")
+    fabric = phase_fabric(smi, connect_results)
+    written += (sum(r["bytes_written"] for r in fabric["connect"].values())
+                + fabric["train"]["bytes_written"]) / 1e9
+    log(f"[disk] written so far {written:.2f} GB")
     flash["launches_by_path"].update({
         f"{ARCH} serve router": ran_router["router"],
         f"{ARCH} serve static": ran_router["static"],
@@ -2321,7 +2800,9 @@ def main() -> int:
         f"{ARCH} session serve": session_launches["serve"]["flash_attention"],
         f"{ARCH} session graph": session_launches["graph"]["flash_attention"],
         f"{CODEQWEN} session serve":
-            session_launches["codeqwen"]["flash_attention"]})
+            session_launches["codeqwen"]["flash_attention"],
+        f"{ARCH} fabric serve":
+            fabric["serve"]["launches"]["flash_attention"]})
     for row in (xent_fwd, xent_bwd, adamw):
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {
@@ -2330,7 +2811,9 @@ def main() -> int:
             f"{ARCH} rl learner": rl_launches[row["name"]],
             f"{ARCH} session train": session_launches["train"][row["name"]],
             f"{ARCH} session train cancelled":
-                session_launches["cancel"][row["name"]]}
+                session_launches["cancel"][row["name"]],
+            f"{ARCH} smoke fabric train (site killed)":
+                fabric["train"]["launches"][row["name"]]}
     kernels = [flash, xent_fwd, xent_bwd, adamw, ssd, wkv, gmm]
     for row in kernels:
         row["card"] = smi
@@ -2343,6 +2826,8 @@ def main() -> int:
     print(json.dumps({"rl": rl}))
     for row in session.values():
         print(json.dumps({"session": row}))
+    print(json.dumps({"connect": connect}))
+    print(json.dumps({"fabric": fabric}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

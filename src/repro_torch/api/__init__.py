@@ -1,6 +1,7 @@
 """The unified declarative workload API — one manifest-driven control
-plane for train / serve / batch / workflow / RL on a cluster (the JAX
-package's ``api``, with the cluster backend).
+plane for train / serve / batch / workflow / RL on a cluster or a
+multi-site fabric (the JAX package's ``api``, with the cluster and fabric
+backends).
 
     from repro_torch.api import Session, TrainJob
 

@@ -10,12 +10,16 @@ Runners execute inside the Handle's reconcile thread: they move the
 handle PLACING -> RUNNING, thread its cooperative ``should_stop`` into
 the subsystem, and return the workload's result dict.
 
-Training, serving and RL run on the cluster's device (its first online
-device, a CUDA or CPU ``torch.device``); the drivers below take it as
-``device`` (``"cuda"`` by default, which raises without a card).  The
-drivers' ``handle`` may be ``None`` for callers outside a Session (the
-RL CLI's direct path): no status probes, no transitions, no cancel hook.
-The fabric and tenant backends wait for ROADMAP A8.
+The fabric backend (``repro_torch.fabric``) places each workload at a
+site of the federation: placed workflows, cross-site failover for
+training, metered weight traffic for RL.  Training, serving and RL run
+on the cluster's ``compute_device`` (the session cluster's first online
+CUDA or CPU device; at a fabric site, the fabric's device or the site
+cluster's own); the drivers below take it as ``device`` (``"cuda"`` by
+default, which raises without a card).  The drivers' ``handle`` may be
+``None`` for callers outside a Session (the RL CLI's direct path): no
+status probes, no transitions, no cancel hook.  The tenant backend waits
+for ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -395,13 +399,10 @@ class ClusterBackend:
 
     @property
     def device(self) -> torch.device:
-        """Where training, serving and RL run: the cluster's first online
-        device (a CUDA or CPU device; a cluster of logical slots runs
-        batch jobs and workflows only)."""
-        online = self.cluster.online_devices
-        if not online:
-            raise RuntimeError("the session's cluster has no online device")
-        return resolve_device(online[0])
+        """Where training, serving and RL run: the cluster's compute device
+        (its first online CUDA or CPU device; a cluster of bare logical
+        slots runs batch jobs only)."""
+        return self.cluster.compute_device
 
     # ------------------------------------------------------------ TrainJob
     def run_train(self, handle: Handle, job: TrainJob):
@@ -478,6 +479,146 @@ class ClusterBackend:
         handle._transition(WorkloadState.PLACING)
         wf = Workflow(run.name, cluster=self.cluster, store=self.store,
                       metrics=self.metrics,
+                      namespace=run.namespace or self.session.namespace
+                      or "default", bus=self.session.bus)
+        return _run_workflow(handle, run, wf)
+
+
+class FabricBackend:
+    """The multi-site federation (``repro_torch.fabric``) — placed
+    workloads, cross-site failover."""
+
+    kind = "fabric"
+
+    def __init__(self, session, fabric, planner, store):
+        self.session = session
+        self.fabric = fabric
+        self.planner = planner
+        self.store = store
+        self.metrics = session.metrics
+
+    def _need_planner(self, what: str):
+        if self.planner is None:
+            raise ManifestError(
+                f"{what} on a fabric session needs "
+                f"Session(planner=PlacementPlanner(FederatedStore(...))) "
+                f"for placement + replica tracking")
+        return self.planner
+
+    def _pick_site(self, job, need: int):
+        if job.site is not None:
+            site = self.fabric.sites[job.site]
+            if not site.up:
+                raise RuntimeError(f"site {job.site!r} is down")
+            return site
+        cands = [s for s in self.fabric.up_sites()
+                 if len(s.cluster.online_devices) >= max(need, 1)]
+        if not cands:
+            raise RuntimeError(
+                f"no live site can host {job.name!r} ({need} devices)")
+        return min(cands, key=lambda s: (s.queue_depth(), -s.capacity,
+                                         s.name))
+
+    # ------------------------------------------------------------ TrainJob
+    def run_train(self, handle: Handle, job: TrainJob):
+        from repro_torch.fabric.failover import run_elastic_federated
+        planner = self._need_planner("TrainJob")
+        handle._transition(WorkloadState.PLACING)
+        stop = threading.Event()
+        handle.add_cancel_hook(stop.set)
+        on_trainer = trainer_probe(handle)
+        handle._transition(WorkloadState.RUNNING)
+        # each site's trainer computes on that site's device
+        result = run_elastic_federated(
+            planner, elastic_spec(job, device=self.fabric.device),
+            metrics=self.metrics, stop=stop, on_trainer=on_trainer)
+        out = train_result(result.out) if result.out else {}
+        out.update({"sites": result.sites,
+                    "migrations": result.migrations,
+                    "report": result.report})
+        return out
+
+    # ------------------------------------------------------------ ServeJob
+    def run_serve(self, handle: Handle, job: ServeJob):
+        handle._transition(WorkloadState.PLACING)
+        from repro_torch.core.queue import WorkQueue
+        site = self._pick_site(job, 1)
+        ns = self.session.namespace or "serve"
+        if ns not in site.cluster.namespaces:
+            site.cluster.create_namespace(ns)
+        queue = WorkQueue(serve_requests(job),
+                          lease_timeout=job.lease_timeout)
+
+        def serve_pod(ctx):
+            # built on the pod's clock, on its site's device
+            engine = build_engine(job, device=site.cluster.compute_device)
+            results, metrics = engine.run(
+                queue, default_max_new=job.max_new_tokens,
+                should_stop=lambda: ctx.should_stop() or
+                handle.should_stop())
+            return {"results": results,
+                    "report": serving_report(metrics, step=job.name)}
+
+        kjob = site.cluster.submit(ns, JobSpec(
+            job.name, serve_pod, replicas=1, devices_per_pod=1,
+            backoff_limit=1))
+        handle._transition(WorkloadState.RUNNING, site=site.name)
+        pods = _watch_job(handle, site.cluster, kjob)
+        out = pods[0] if pods and pods[0] is not None \
+            else {"results": {}, "report": None}
+        out["site"] = site.name
+        return out
+
+    # ------------------------------------------------------------ BatchJob
+    def run_batch(self, handle: Handle, job: BatchJob):
+        fn = job.resolve_fn()
+        ns = job.namespace or self.session.namespace or "default"
+        handle._transition(WorkloadState.PLACING)
+        site = self._pick_site(job, job.devices_per_pod * job.replicas)
+        if ns not in site.cluster.namespaces:
+            site.cluster.create_namespace(ns)
+        kjob = site.cluster.submit(ns, JobSpec(
+            job.name, fn, replicas=job.replicas,
+            devices_per_pod=job.devices_per_pod,
+            backoff_limit=job.backoff_limit, priority=job.priority))
+        handle._transition(WorkloadState.RUNNING, site=site.name)
+        return {"results": _watch_job(handle, site.cluster, kjob),
+                "site": site.name}
+
+    # --------------------------------------------------------------- RLJob
+    def run_rl(self, handle: Handle, job: RLJob):
+        """Actors and learner at (possibly) different sites of the
+        federation: the learner publishes weight versions into its
+        site's store view, actors fetch through THEIR site's view, so
+        every pull-on-bump is a metered cross-link transfer.  Both
+        compute on the actors' site's device."""
+        planner = self._need_planner("RLJob")
+        handle._transition(WorkloadState.PLACING)
+        actor_site = self._pick_site(job, job.actors)
+        if job.learner_site is not None:
+            learner_site = self.fabric.sites[job.learner_site]
+            if not learner_site.up:
+                raise RuntimeError(f"site {job.learner_site!r} is down")
+        else:
+            learner_site = actor_site
+        handle._transition(WorkloadState.PLACING, site=actor_site.name,
+                           learner_site=learner_site.name)
+        fed = planner.fed
+        learner_store = fed.view(learner_site.name)
+        actor_store = None if learner_site.name == actor_site.name \
+            else fed.view(actor_site.name)
+        out = run_rl_fleet(handle, job, learner_store=learner_store,
+                           actor_store=actor_store, metrics=Registry(),
+                           device=actor_site.cluster.compute_device)
+        out["site"] = actor_site.name
+        out["learner_site"] = learner_site.name
+        return out
+
+    # --------------------------------------------------------- WorkflowRun
+    def run_workflow(self, handle: Handle, run: WorkflowRun):
+        planner = self._need_planner("WorkflowRun")
+        handle._transition(WorkloadState.PLACING)
+        wf = Workflow(run.name, planner=planner, metrics=self.metrics,
                       namespace=run.namespace or self.session.namespace
                       or "default", bus=self.session.bus)
         return _run_workflow(handle, run, wf)

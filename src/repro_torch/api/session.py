@@ -26,11 +26,11 @@ drain primitives (``Cluster.preempt_pod``, the serving engine's
 ``should_stop``, the workflow's step boundary), so a cancelled training
 job keeps its checkpoint.
 
-A copy of the JAX package's ``api/session.py`` with the cluster backend
-only: the fabric and tenant backends wait for the port of the federation
-and the multi-tenant scheduler (ROADMAP A8), and asking for one raises
-``NotImplementedError``.  Workloads run on the cluster's device; nothing
-moves to the CPU unless the cluster's devices are CPU devices.
+A copy of the JAX package's ``api/session.py`` with the cluster and the
+fabric backends: the tenant backend waits for the port of the
+multi-tenant scheduler (ROADMAP A8), and asking for it raises
+``NotImplementedError``.  Workloads run on their cluster's compute
+device; nothing moves to the CPU unless that device is the CPU.
 """
 from __future__ import annotations
 
@@ -247,10 +247,14 @@ class Session:
     ``cluster``
         A bare ``repro_torch.core.orchestrator.Cluster`` (plus an
         optional ``store`` for checkpoints / workflow state).
-    ``fabric`` / ``planner`` and ``tenant``
-        The JAX package's multi-site federation and tenant fair share:
-        not ported yet (ROADMAP A8), so they raise
-        ``NotImplementedError``.
+    ``fabric`` / ``planner``
+        The multi-site federation.  A ``planner``
+        (``repro_torch.fabric.PlacementPlanner``) enables placed
+        workflows and cross-site failover; a bare fabric routes by queue
+        depth.
+    ``tenant``
+        The JAX package's tenant fair share: not ported yet (ROADMAP
+        A8), so it raises ``NotImplementedError``.
     """
 
     def __init__(self, *, cluster=None, store=None, fabric=None,
@@ -267,21 +271,30 @@ class Session:
             raise TypeError(
                 "Session needs exactly one backend: cluster=..., "
                 f"fabric=.../planner=..., or tenant=... (got {backends})")
-        if cluster is None:
+        if tenant is not None:
             raise NotImplementedError(
-                f"Session({backends[0]}=...): the port has the cluster "
-                f"backend only; the fabric and tenant backends wait for "
-                f"ROADMAP A8")
+                "Session(tenant=...): the port has the cluster and fabric "
+                "backends; the tenant backend waits for ROADMAP A8")
         self.namespace = namespace
         self.workloads: List[Handle] = []
-        self.metrics = metrics or cluster.metrics
-        self.bus = bus or self._own_bus(cluster)
-        self._backend = runners.ClusterBackend(self, cluster, store)
+        if cluster is not None:
+            self.metrics = metrics or cluster.metrics
+            self.bus = bus or self._own_bus(cluster=cluster)
+            self._backend = runners.ClusterBackend(self, cluster, store)
+        else:
+            fabric = fabric if fabric is not None else planner.fabric
+            self.metrics = metrics or fabric.metrics
+            self.bus = bus or self._own_bus(fabric=fabric)
+            self._backend = runners.FabricBackend(self, fabric, planner,
+                                                  store)
 
-    def _own_bus(self, cluster):
+    def _own_bus(self, cluster=None, fabric=None):
         from repro_torch.vcluster.monitor import EventBus
         bus = EventBus(metrics=self.metrics)
-        bus.attach_cluster(cluster)
+        if cluster is not None:
+            bus.attach_cluster(cluster)
+        if fabric is not None:
+            bus.attach_fabric(fabric)
         return bus
 
     # -------------------------------------------------------------- verbs

@@ -1,13 +1,15 @@
 """Cluster / Namespace / Job / Pod — the Kubernetes constructs of CHASE-CI
 (§II-A, §IV, §V) over a list of devices.
 
-A copy of the JAX package's ``core/orchestrator.py`` without its site
-tags and its ``lease_device_s/<namespace>`` lease billing (the
-federation and the multi-tenant chargeback, which read those, are not
-ported).  The default device list differs: the card's CUDA devices
-(raising without a card) where JAX took ``jax.devices()``.  Tests pass
-logical slots (``devices=[f"slot{i}" ...]``): the orchestrator only
-leases names, and a training segment runs on its trainer's device.
+A copy of the JAX package's ``core/orchestrator.py`` without its
+``lease_device_s/<namespace>`` lease billing (the multi-tenant
+chargeback, which reads it, is not ported).  The default device list
+differs: the card's CUDA devices (raising without a card) where JAX took
+``jax.devices()``.  Tests and the federation pass logical slots
+(``devices=[0, 1, ...]``): the orchestrator only leases names.  Work
+computes on ``Cluster.compute_device``: the ``compute`` device a cluster
+of logical slots was built with (a fabric site's), else its first online
+CUDA or CPU device.
 
 Kubernetes semantics reproduced:
   * declarative jobs: you specify *what* (replicas, work), the controller
@@ -77,6 +79,7 @@ class PodCtx:
     devices: List[Any]
     metrics: Registry
     attempt: int = 0
+    site: str = "local"       # which federation site's cluster runs this pod
     stop: threading.Event = field(default_factory=threading.Event)
     # graceful eviction (fair-share preemption): unlike ``stop`` — whose
     # node is gone — the hardware is healthy, so the pod is expected to
@@ -147,14 +150,24 @@ class Job:
 
 
 class Cluster:
-    """A set of devices ("nodes") + Kubernetes-style controller loop."""
+    """A set of devices ("nodes") + Kubernetes-style controller loop.
+
+    ``site`` tags the cluster (and every pod it schedules) with the
+    federation site that owns it — one PRP appliance in the paper's terms.
+    A standalone cluster is the degenerate single-site case ("local");
+    ``repro_torch.fabric`` wires many site-tagged clusters into one
+    fabric.  ``compute`` is where a cluster of logical slots computes.
+    """
 
     def __init__(self, devices: Optional[List[Any]] = None,
-                 metrics: Optional[Registry] = None):
+                 metrics: Optional[Registry] = None, site: str = "local",
+                 compute=None):
         if devices is None:
             resolve_device("cuda")          # raises without a card
             devices = [torch.device("cuda", i)
                        for i in range(torch.cuda.device_count())]
+        self.site = site
+        self.compute = None if compute is None else resolve_device(compute)
         self._lock = threading.Lock()
         self.devices = list(devices)
         self.offline: set = set()
@@ -231,7 +244,7 @@ class Cluster:
                         if spec.devices_per_pod else []
                     ctx = PodCtx(pod_id=f"{spec.name}-{i}",
                                  namespace=namespace, devices=devs,
-                                 metrics=self.metrics)
+                                 metrics=self.metrics, site=self.site)
                     pod = Pod(ctx.pod_id, spec.fn, ctx)
                     pod.holds_devices = bool(devs)
                     pods.append(pod)
@@ -327,7 +340,8 @@ class Cluster:
                         continue
                     pod.restarts += 1
                     pod.ctx = PodCtx(pod.pod_id, job.namespace, devs,
-                                     self.metrics, attempt=pod.restarts)
+                                     self.metrics, attempt=pod.restarts,
+                                     site=self.site)
                     pod.holds_devices = bool(devs)
                     pod.error = None
                     pod.state = PodState.PENDING
@@ -505,3 +519,20 @@ class Cluster:
     @property
     def online_devices(self) -> List[Any]:
         return [d for d in self.devices if d not in self.offline]
+
+    @property
+    def compute_device(self) -> torch.device:
+        """Where this cluster's work computes: its ``compute`` device, else
+        its first online device that names a CUDA or CPU device (an int
+        or a ``"slot0"`` is a logical slot, never a device).  Raises when
+        there is none: work never slides onto the CPU by itself."""
+        if self.compute is not None:
+            return self.compute
+        for d in self.online_devices:
+            if isinstance(d, torch.device) or (
+                    isinstance(d, str) and d.split(":")[0] in ("cuda", "cpu")):
+                return resolve_device(d)
+        raise RuntimeError(
+            f"cluster {self.site!r} has no online CUDA or CPU device to "
+            f"compute on (devices {self.devices}, offline "
+            f"{sorted(map(str, self.offline))})")

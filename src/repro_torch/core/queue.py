@@ -14,8 +14,8 @@ die simply stop acking and their work is re-queued.  Semantics reproduced:
 The queue is transport-agnostic and in-process here (single-container run);
 a production deployment backs the same API with Redis.  State is
 snapshot/restorable so the RL learner's checkpoint can carry its rollout
-queue.  This copy holds what serving, the router and the RL workload call
-(no ``run_workers`` or ``leased_by``).
+queue.  This copy holds what serving, the router, the RL workload and
+the CONNECT workflow's worker pods call (no ``leased_by``).
 """
 from __future__ import annotations
 
@@ -215,3 +215,49 @@ class WorkQueue:
         q._pending = [tid for tid in order if tid not in dead
                       and not q._tasks[tid].done]
         return q
+
+
+def run_workers(queue: WorkQueue, fn: Callable[[Any], Any], n_workers: int,
+                *, name: str = "worker") -> List[Any]:
+    """Drain a queue with n threads (the Kubernetes Job with N pods pattern).
+
+    Returns results in task order.  A worker exception nacks the task so a
+    healthy worker retries it — the paper's pod-crash story.  If every
+    attempt of some task failed (dead-lettered), raises with the last error
+    so failures are not silent.
+    """
+    results: Dict[int, Any] = {}
+    lock = threading.Lock()
+    last_error: List[BaseException] = []
+
+    def loop(wid: str):
+        while True:
+            got = queue.lease(wid)
+            if got is None:
+                if queue.drained():
+                    return
+                time.sleep(0.001)
+                continue
+            tid, item = got
+            try:
+                out = fn(item)
+            except Exception as e:
+                with lock:
+                    last_error.append(e)
+                queue.nack(tid, wid)
+                continue
+            if queue.ack(tid, wid):
+                with lock:
+                    results[tid] = out
+
+    threads = [threading.Thread(target=loop, args=(f"{name}-{i}",))
+               for i in range(n_workers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if queue.dead:
+        raise RuntimeError(
+            f"{len(queue.dead)} task(s) dead-lettered; last error: "
+            f"{last_error[-1]!r}") from (last_error[-1] if last_error else None)
+    return [results[k] for k in sorted(results)]

@@ -16,8 +16,7 @@ Here a ``Workflow`` is a DAG of ``Step``s executed on a ``Cluster``:
     the queue's at-least-once and the checkpointer's auto-resume);
   * ``only=`` runs a single step in isolation (PPoDS independent testing).
 
-Federated mode (paper §IV, the JAX package's ``fabric``, not yet ported;
-the planner is duck-typed here): construct the workflow with
+Federated mode (paper §IV, ``repro_torch.fabric``): construct the workflow with
 a ``planner`` instead of a fixed cluster/store, and annotate steps with
 the dataset keys they consume/produce (``inputs=``/``outputs=``).  Every
 step is then *placed*: the planner scores each live site by the simulated
@@ -80,8 +79,7 @@ class Workflow:
                  metrics: Optional[Registry] = None,
                  namespace: str = "default", planner=None, bus=None):
         """Single-cluster mode needs ``cluster`` + ``store``; federated
-        mode needs a placement planner (the JAX package's
-        ``fabric.PlacementPlanner``) and places each
+        mode needs a ``repro_torch.fabric.PlacementPlanner`` and places each
         step on the fabric instead.  ``bus`` (a
         ``repro_torch.vcluster.monitor.EventBus``) streams per-step lifecycle
         events — placed / done / skipped — to live subscribers."""

@@ -9,8 +9,7 @@ shared fabric as typed, timestamped events:
                    scheduler, not yet ported);
   * ``pod``      — pod lifecycle transitions (orchestrator pod watchers);
   * ``node``     — node churn: fail / join (orchestrator churn watchers);
-  * ``transfer`` — metered cross-site byte movements (fabric watchers,
-                   once the federation is ported);
+  * ``transfer`` — metered cross-site byte movements (fabric watchers);
   * ``metric``   — selected throughput gauges (Registry listeners);
   * ``step``     — workflow step placed / done / skipped / scatter;
   * ``branch``   — workflow-program branch lifecycle: one event per
@@ -28,7 +27,7 @@ a dashboard degrades to "recent window" instead of stalling publishers —
 the paper's near-real-time contract over a lossy window.
 
 A copy of the JAX package's ``vcluster/monitor.py``; the port's
-``api.Session`` builds one bus per cluster session.
+``api.Session`` builds one bus per cluster or fabric session.
 """
 from __future__ import annotations
 

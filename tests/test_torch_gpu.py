@@ -29,6 +29,9 @@ values; 1e-5 in f32, and exactly 0 on the rows whose dy is 0), and an RL
 fleet on the card launching each kernel where its path says.  The workload
 API: a smoke ServeJob (f32) through a Session on the card's ``Cluster()``
 gives the greedy tokens of a CPU Session's, with flash in every prefill.
+CONNECT: the FFN's forward and flood fill on the card within 1e-4 of the
+output's scale of the CPU's (f32 with TF32 off), ``connect_label`` equal
+exactly.
 """
 import numpy as np
 import pytest
@@ -595,3 +598,37 @@ def test_session_serves_on_the_card_as_on_the_cpu(monkeypatch):
     assert [len(card["results"][i]) for i in range(5)] == [8, 3, 8, 3, 8]
     prefills = card["metrics"].series(GAUGES.PREFILL_S).stats()["count"]
     assert prefills >= 1 and launched == cfg.num_layers * prefills
+
+
+@pytest.mark.gpu
+def test_connect_ffn_and_labels_on_the_card_match_the_cpu():
+    """CONNECT on the card: the FFN's forward and flood fill (f32, TF32
+    off, through ``reference_convs``) within 1e-4 of the output's scale of
+    the CPU's on the same params (18 convolutions summed in another
+    order), and ``connect_label`` equal to the CPU's exactly (integers)."""
+    _card()
+    from repro_torch.apps.connect import segment
+    from repro_torch.models import ffn3d
+
+    cfg = ffn3d.FFNConfig(depth=3, width=16, fov=(8, 16, 16), flood_iters=2)
+    rng = np.random.RandomState(0)
+    params = {k: torch.as_tensor((rng.standard_normal(p.shape) * 0.2)
+                                 .astype(np.float32))
+              for k, p in ffn3d.ffn_schema(cfg).items()}
+    x = torch.as_tensor(rng.rand(4, *cfg.fov).astype(np.float32))
+    card = {k: v.cuda() for k, v in params.items()}
+    with torch.inference_mode(), ffn3d.reference_convs():
+        got = ffn3d.flood_fill(cfg, card, x.cuda()).cpu()
+        one = ffn3d.ffn_apply(cfg, card, x.cuda(), ffn3d.seed_mask(
+            cfg, x.shape, "cuda")).cpu()
+    with torch.inference_mode():
+        want = ffn3d.flood_fill(cfg, params, x)
+        want_one = ffn3d.ffn_apply(cfg, params, x, ffn3d.seed_mask(
+            cfg, x.shape, "cpu"))
+    for a, b in ((got, want), (one, want_one)):
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            float(b.abs().max()), 1.0)
+    for seed, shape in ((1, (8, 40, 56)), (2, (24, 64, 96))):
+        mask = torch.as_tensor(np.random.RandomState(seed).rand(*shape) > 0.5)
+        assert torch.equal(segment.connect_label(mask.cuda()).cpu(),
+                           segment.connect_label(mask))
