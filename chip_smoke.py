@@ -150,16 +150,31 @@ Phases (any failure raises and the script exits non-zero):
                TrainJob whose site is killed once step 7 is logged (one
                migration, finished on the survivor, a finite loss a step,
                exact xent/AdamW launches).
+ 15. tenant  — a fabric of logical slots on the card (gpu 2, edge 1, hub
+               1; time_scale 0) under a started ``FairShareScheduler``
+               with a ``FederatedStore``, every workload a manifest through
+               ``Session(tenant=)``: a full-width phi4 ServeJob of tenant
+               chat (the serve phase's 8 requests: its tokens, flash 32 a
+               prefill); a 1 to 2 replica phi4 ServeJob whose scale-up the
+               claim caps at 1 while tenant ops holds a gpu slot; a phi4
+               smoke TrainJob of tenant research preempted once by a
+               priority-10 surge, resumed, its losses equal bit for bit to
+               an unpreempted run's, exact xent/AdamW launches;
+               ``lease_device_s`` billed per tenant within wall x slots;
+               ``run_scenario`` over 3 windows (chat's waves full-width
+               phi4, research's smoke TrainJob, an edge kill and a gpu-hub
+               brown-out mid-wave, both restored), the grade table printed.
 The phases that write checkpoints (elastic, rl, session) print the bytes
-they wrote and left on disk, and connect and fabric the bytes their runs
-wrote.  Then it prints a ``{"kernels": [...]}`` line, a
+they wrote and left on disk, and connect, fabric and tenant the bytes
+their runs wrote.  Then it prints a ``{"kernels": [...]}`` line, a
 ``{"serve": {...}}`` line with one entry per arch, a ``{"train": {...}}``
 line, an ``{"elastic": {...}}`` line, a ``{"router": ..., "static":
 ...}`` line, an ``{"rl": {...}}`` line, one ``{"session": {...}}`` line a
 workload (apply -> Running and wall seconds, tok/s beside the direct
-engine's, ms a step, events, peak GB, the card), a ``{"connect": {...}}``
-and a ``{"fabric": {...}}`` line (each with the card), the card's name and
-power limit, and as its last line ``{"ok": true, "device": {...}}``.
+engine's, ms a step, events, peak GB, the card), a ``{"connect": {...}}``,
+a ``{"fabric": {...}}`` and a ``{"tenant": {...}}`` line (each with the
+card), the card's name and power limit, and as its last line ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2744,6 +2759,448 @@ def phase_fabric(smi: str, connect_results):
     return {"connect": runs, "serve": serve, "train": train}
 
 
+# ----------------------------------------------------------------- tenant
+# tenant phase: a fabric of logical slots on the card (gpu 2, edge 1, hub
+# 1; time_scale 0) under one started FairShareScheduler with a
+# FederatedStore.  phi4 smoke trains TENANT_STEPS steps of FABRIC_BATCH x
+# FABRIC_SEQ, saving every TENANT_CKPT; a priority-10 surge of
+# TENANT_SURGE_DEVICES gpu slots fires once elastic/step reaches
+# TENANT_BURST_AT.  The replicated ServeJob queues TENANT_REPLICA_REQUESTS
+# (desired 2 at a backlog of ROUTER_BACKLOG a replica).
+TENANT_SITES = (("gpu", 2), ("edge", 1), ("hub", 1))
+TENANT_STEPS, TENANT_CKPT, TENANT_BURST_AT = 12, 2, 3
+TENANT_SURGE_DEVICES, TENANT_REPLICA_REQUESTS = 2, 8
+# the scenario: tests/test_scenarios.py's shape (3 windows over 120 sim-s,
+# an edge kill and a gpu-hub brown-out at 50 s, restored at 110 and 100)
+SCENARIO_HORIZON, SCENARIO_WINDOWS = 120.0, 3
+
+
+def _tenant_fabric(root):
+    from repro_torch.fabric import Fabric, FederatedStore
+    from repro_torch.vcluster import FairShareScheduler
+    fabric = Fabric(time_scale=0.0, device="cuda")
+    for name, slots in TENANT_SITES:
+        fabric.add_site(name, devices=list(range(slots)),
+                        store_root=f"{root}/{name}")
+    fabric.connect("gpu", "edge", gbps=10.0, latency_ms=1.0)
+    fabric.connect("gpu", "hub", gbps=1.0, latency_ms=5.0)
+    fabric.connect("edge", "hub", gbps=1.0, latency_ms=5.0)
+    sched = FairShareScheduler(fed=FederatedStore(fabric), reconcile_s=0.02,
+                               preempt_grace_s=60.0)
+    sched.bus.attach_fabric(fabric)
+    return fabric, sched
+
+
+def _tenant_train_manifest(name, root):
+    return {"kind": "TrainJob", "metadata": {"name": name},
+            "spec": {"arch": ARCH, "smoke": True,
+                     "steps": TENANT_STEPS, "seq_len": FABRIC_SEQ,
+                     "global_batch": FABRIC_BATCH, "base_shape": [1, 1],
+                     "max_data": 1, "ckpt_every": TENANT_CKPT,
+                     "keep": None, "log_every": 1,
+                     "ckpt_dir": f"{root}/ckpt-{name}",
+                     "rejoin_timeout_s": 300.0, "verbose": False,
+                     "site": "gpu", "devices": 1, "min_devices": 0,
+                     "optimizer": {"warmup_steps": 2, "decay_steps": 100}}}
+
+
+def phase_tenant(smi: str, phi4_run):
+    """Phase 15: the tenant backend on the card.  A fabric of logical
+    slots (gpu 2, edge 1, hub 1) under a started FairShareScheduler, every
+    workload a manifest through ``Session(tenant=)``: a. tenant ``chat``
+    (priority 5) serves full-width phi4, 8 requests of 512 tokens, tokens
+    equal to the serve phase's, flash 32 a prefill; b. tenant ``ops``
+    holds a gpu slot with a gated BatchJob while ``chat`` applies a 1 to 2
+    replica phi4 ServeJob: the autoscaler asks for 2 and the claim grants
+    1 (the replicas gauge stays 1) until ``ops`` finishes; c. tenant
+    ``research`` (priority 0) trains phi4 smoke on a claim of 1 gpu slot,
+    preempted once by tenant ``surge`` (priority 10, 2 gpu slots) at step
+    >= TENANT_BURST_AT, resumed, every step's loss equal bit for bit to an
+    unpreempted run's; d. ``lease_device_s/tenant-<t>`` billed for every
+    tenant within its wall time x slots; e. ``run_scenario`` (3 windows,
+    chat's waves full-width phi4, research's smoke TrainJob, an edge kill
+    and a gpu-hub brown-out mid-wave, both restored): every tenant graded,
+    every chaos event applied."""
+    import tempfile
+    import threading
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import adamw_update as au
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import xent
+    from repro_torch.models import params as pr
+    from repro_torch.models import transformer as tfm
+    from repro_torch.scenarios import (SLO, ChaosEvent, ChaosSchedule,
+                                       DiurnalRate, ScenarioSpec, ServePlan,
+                                       TrafficShape, TrainPlan, grade_table,
+                                       run_scenario)
+    from repro_torch.serving.report import GAUGES
+    from repro_torch.vcluster import TenantSpec
+    from repro_torch.api import Session
+
+    cfg = registry.get_config(ARCH)
+    n_leaves = len(pr.leaves(tfm.lm_schema(registry.get_smoke(ARCH))))
+    xent_per_step = max(FABRIC_SEQ // 512, 1)      # one loss chunk a step
+
+    def zero():
+        fa.launches = xent.fwd_launches = xent.bwd_launches = au.launches = 0
+
+    def counts():
+        return {"flash_attention": fa.launches, "xent_fwd": xent.fwd_launches,
+                "xent_bwd": xent.bwd_launches, "adamw_update": au.launches}
+
+    def clear():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    def serve_manifest(name, **spec):
+        return {"kind": "ServeJob", "metadata": {"name": name},
+                "spec": {"arch": ARCH, "smoke": False, "prompt_len": PROMPT,
+                         "max_new_tokens": GEN, "slots": SLOTS,
+                         "paged": True, "block_size": BLOCK,
+                         "prefix_cache": True, "seed": 0, **spec}}
+
+    t_phase = time.perf_counter()
+    out_rows, launches = {}, {}
+    walls = {}                  # tenant -> [first apply, last terminal]
+
+    def span(tenant, h):
+        evs = h.events()
+        w = walls.setdefault(tenant, [evs[0]["ts"], evs[-1]["ts"]])
+        w[0], w[1] = min(w[0], evs[0]["ts"]), max(w[1], evs[-1]["ts"])
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tenant-") as root:
+        fabric, sched = _tenant_fabric(root)
+        sched.start()
+        try:
+            chat = Session(tenant=sched.create_tenant(
+                TenantSpec("chat", priority=5)))
+            ops = Session(tenant=sched.create_tenant(
+                TenantSpec("ops", priority=5)))
+            research = Session(tenant=sched.create_tenant(
+                TenantSpec("research", priority=0)))
+            surge = Session(tenant=sched.create_tenant(
+                TenantSpec("surge", priority=10, preemptible=False)))
+
+            # a. full-width phi4 through the tenant's fair share
+            clear()
+            zero()
+            reqs = _requests(cfg.vocab_size)
+            h = chat.apply(serve_manifest("chip-smoke-tenant-serve",
+                                          requests=reqs))
+            got = h.wait(900)
+            ran = counts()
+            evs = h.events()
+            running = next(e["ts"] for e in evs if e["state"] == "Running")
+            sm = got["metrics"].summary()
+            prefills = int(sm[GAUGES.PREFILL_S]["count"])
+            results = got["results"]
+            row = {"workload": h.spec.name, "state": h.state.value,
+                   "site": got["site"], "lifecycle": _lifecycle(evs),
+                   "apply_to_running_s": running - evs[0]["ts"],
+                   "wall_s": evs[-1]["ts"] - evs[0]["ts"],
+                   "tok_s": sm[GAUGES.TOK_S]["last"],
+                   "p50_ttft_s": sm[GAUGES.TTFT_S]["p50"],
+                   "prefills": prefills, "launches": ran,
+                   "stop_lengths": [len(results.get(r["id"], []))
+                                    for r in reqs],
+                   "peak_gb": peak_gb(), "card": smi}
+            span("chat", h)
+            chat.forget(h)
+            del got, h
+            equal = sum(results.get(i) == v
+                        for i, v in phi4_run["results"].items())
+            row["tokens_equal_serve_phase"] = \
+                f"{equal}/{len(phi4_run['results'])}"
+            log(f"[tenant] a. serve {ARCH} as chat at {row['site']}: "
+                f"{row['state']} {row['lifecycle']}, apply -> Running "
+                f"{row['apply_to_running_s']:.3f} s, {row['tok_s']:.1f} tok/s,"
+                f" p50 TTFT {row['p50_ttft_s']:.3f} s, flash "
+                f"{ran['flash_attention']} over {prefills} prefills, tokens "
+                f"equal to the serve phase's "
+                f"{row['tokens_equal_serve_phase']}, peak "
+                f"{row['peak_gb']:.2f} GB")
+            if row["state"] != "Succeeded" or row["stop_lengths"] != [
+                    r["max_new_tokens"] for r in reqs]:
+                raise AssertionError(f"tenant serve: {row}")
+            if ran["flash_attention"] != cfg.num_layers * prefills:
+                raise AssertionError(f"tenant serve: flash {ran} over "
+                                     f"{prefills} prefills")
+            if equal != len(phi4_run["results"]):
+                raise AssertionError(f"tenant serve: tokens equal the serve "
+                                     f"phase's on {equal}/"
+                                     f"{len(phi4_run['results'])}")
+            out_rows["serve"], launches["serve"] = row, ran
+
+            # b. claim-capped scale-up: ops holds one gpu slot
+            clear()
+            zero()
+            gate = threading.Event()
+
+            def hold(ctx):
+                while not gate.is_set() and not ctx.should_stop():
+                    time.sleep(0.01)
+                return "released"
+
+            sub = sched.bus.subscribe(maxlen=1_000_000)
+            hold_h = ops.apply({"kind": "BatchJob",
+                                "metadata": {"name": "chip-smoke-ops-hold"},
+                                "spec": {"devices_per_pod": 1, "site": "gpu"}},
+                               fn=hold)
+            deadline = time.monotonic() + 60
+            while hold_h.state.value != "Running":
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"tenant ops: {hold_h.events()}")
+                time.sleep(0.01)
+            capped = {}
+
+            def watch(h):
+                # release ops once the autoscaler asked for 2 and got 1
+                while not gate.is_set():
+                    for e in sub.poll(timeout=0.05):
+                        d = e.data
+                        if e.kind == "sched" and e.source == "chat" and \
+                                d.get("action") == "resized" and \
+                                d.get("want") == 2 and d.get("granted") == 1:
+                            capped.update(
+                                t=time.monotonic(),
+                                replicas=h.status().observed.get("replicas"))
+                            gate.set()
+                            break
+                    if h.state.value in ("Succeeded", "Failed"):
+                        gate.set()
+
+            rep_reqs = _requests(cfg.vocab_size, TENANT_REPLICA_REQUESTS)
+            h = chat.apply(serve_manifest(
+                "chip-smoke-tenant-replicated", requests=rep_reqs,
+                site="gpu", min_replicas=1, max_replicas=2,
+                target_backlog=ROUTER_BACKLOG))
+            watcher = threading.Thread(target=watch, args=(h,), daemon=True)
+            watcher.start()
+            got = h.wait(900)
+            watcher.join(timeout=60)
+            hold_out = hold_h.wait(120)
+            ran = counts()
+            sub.close()
+            scale = [e["replicas"] for e in h.events() if "replicas" in e]
+            results = got["results"]
+            rrow = {"workload": h.spec.name, "state": h.state.value,
+                    "capped_at": capped, "replicas_details": scale,
+                    "replicas_max": int(got["metrics"].series(
+                        GAUGES.REPLICAS).max),
+                    "scale_events": [list(e[1:]) for e in
+                                     got["scale_events"]],
+                    "ops": hold_out["results"],
+                    "second_replica_started": "2→2" in scale,
+                    "stop_lengths": [len(results.get(r["id"], []))
+                                     for r in rep_reqs],
+                    "launches": ran,
+                    "wall_s": h.events()[-1]["ts"] - h.events()[0]["ts"],
+                    "peak_gb": peak_gb(), "card": smi}
+            span("chat", h)
+            span("ops", hold_h)
+            chat.forget(h)
+            del got, h
+            log(f"[tenant] b. replicated serve: {rrow['state']}; the "
+                f"autoscaler asked for 2 against ops' slot, granted 1, "
+                f"replicas then {capped.get('replicas')}; replica details "
+                f"{scale}; scale events {rrow['scale_events']}; ops "
+                f"{rrow['ops']}; flash {ran['flash_attention']}")
+            if rrow["state"] != "Succeeded" or rrow["stop_lengths"] != [
+                    r["max_new_tokens"] for r in rep_reqs]:
+                raise AssertionError(f"tenant replicated: {rrow}")
+            if not capped or capped["replicas"] != 1 or \
+                    rrow["ops"] != ["released"]:
+                raise AssertionError(f"tenant replicated: the claim never "
+                                     f"capped the scale-up: {rrow}")
+            out_rows["replicated"], launches["replicated"] = rrow, ran
+
+            # c. preemption and resume against unpreempted runs: one
+            # before (its losses; it also takes the first training's
+            # start-up costs) and one after (the wall to compare with)
+            clear()
+
+            def train(name):
+                h = research.apply(_tenant_train_manifest(name, root))
+                got = h.wait(900)
+                evs = h.events()
+                span("research", h)
+                research.forget(h)
+                return got, evs[-1]["ts"] - evs[0]["ts"]
+
+            clean, _ = train("chip-smoke-tenant-train-clean")
+            fired = {}
+
+            def burst():
+                while sched.metrics.series("elastic/step").last < \
+                        TENANT_BURST_AT:
+                    time.sleep(0.005)
+                hb = surge.apply({"kind": "BatchJob",
+                                  "metadata": {"name": "chip-smoke-surge"},
+                                  "spec": {"devices_per_pod":
+                                           TENANT_SURGE_DEVICES,
+                                           "priority": 10, "site": "gpu"}},
+                                 fn=lambda ctx: time.sleep(0.3) or "surge")
+                fired["out"] = hb.wait(600)
+                fired["state"] = hb.state.value
+                span("surge", hb)
+
+            sched.metrics.gauge("elastic/step", -1)   # not the clean run's
+            zero()
+            burster = threading.Thread(target=burst, daemon=True)
+            burster.start()
+            got, pre_wall = train("chip-smoke-tenant-train")
+            burster.join(timeout=600)
+            ran_pre = counts()
+            rep = got["report"]
+            _, clean_wall = train("chip-smoke-tenant-train-clean-2")
+            losses = [got["loss_by_step"][i] for i in range(TENANT_STEPS)]
+            want = [clean["loss_by_step"][i] for i in range(TENANT_STEPS)]
+            executed = rep.steps_executed
+            trow = {"state": "Succeeded", "surge": fired.get("state"),
+                    "segments": [[s.start, s.end, s.outcome]
+                                 for s in rep.segments],
+                    "steps_executed": executed, "steps_lost": rep.steps_lost,
+                    "recoveries": rep.recoveries,
+                    "preemptions": int(sched.metrics.series(
+                        "elastic/preemptions").total),
+                    "segment_t_first_s": [round(s.t_first_s, 4)
+                                          for s in rep.segments],
+                    "wall_s": pre_wall, "unpreempted_wall_s": clean_wall,
+                    "preemption_cost_s": pre_wall - clean_wall,
+                    "losses": losses,
+                    "losses_equal_unpreempted": losses == want,
+                    "max_abs_diff": max(abs(a - b)
+                                        for a, b in zip(losses, want)),
+                    "launches": ran_pre,
+                    "card": smi}
+            del got, clean
+            log(f"[tenant] c. train {ARCH} smoke as research: segments "
+                f"{trow['segments']}, surge {trow['surge']}, executed "
+                f"{executed}, lost {rep.steps_lost}, first-chunk seconds a "
+                f"segment {trow['segment_t_first_s']}, wall {pre_wall:.2f} s "
+                f"against {clean_wall:.2f} s unpreempted, launches {ran_pre}; "
+                f"losses equal to an unpreempted run's "
+                f"{trow['losses_equal_unpreempted']} (max diff "
+                f"{trow['max_abs_diff']:.3g})")
+            outcomes = [s.outcome for s in rep.segments]
+            if trow["surge"] != "Succeeded" or \
+                    outcomes.count("preempted") != 1 or \
+                    outcomes[-1] != "done" or rep.steps_lost > 2 or \
+                    not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"tenant train: {trow}")
+            if not trow["losses_equal_unpreempted"]:
+                raise AssertionError(f"tenant train: losses {losses} != "
+                                     f"unpreempted {want}")
+            want_ran = {"flash_attention": 0,
+                        "xent_fwd": executed * xent_per_step,
+                        "xent_bwd": executed * xent_per_step,
+                        "adamw_update": executed * n_leaves}
+            if ran_pre != want_ran:
+                raise AssertionError(f"tenant train: launches {ran_pre} != "
+                                     f"{want_ran}")
+            out_rows["train"], launches["train"] = trow, ran_pre
+
+            # d. lease billing per tenant
+            slots = {"chat": 1, "ops": 1, "research": 1,
+                     "surge": TENANT_SURGE_DEVICES}
+            bill = {}
+            for t, (t0, t1) in walls.items():
+                billed = sched.metrics.series(
+                    f"lease_device_s/tenant-{t}").total
+                bill[t] = {"device_s": billed, "wall_s": t1 - t0,
+                           "slots": slots[t]}
+                if not 0 < billed <= (t1 - t0) * slots[t]:
+                    raise AssertionError(f"tenant billing {t}: {bill[t]}")
+            log(f"[tenant] d. lease_device_s by tenant: " + ", ".join(
+                f"{t} {b['device_s']:.3f} (wall {b['wall_s']:.2f} s x "
+                f"{b['slots']})" for t, b in bill.items()))
+            out_rows["billing"] = bill
+            out_rows["bytes_written"] = _tree_bytes(root)
+        finally:
+            sched.stop()
+
+        # e. the scenario, on a fresh fabric and scheduler
+        clear()
+        zero()
+        fabric, sched = _tenant_fabric(f"{root}/scenario")
+        sched.create_tenant(TenantSpec("research", priority=0))
+        sched.create_tenant(TenantSpec("chat", priority=5))
+        spec = ScenarioSpec(
+            name="chip-smoke-chaos", horizon_s=SCENARIO_HORIZON,
+            windows=SCENARIO_WINDOWS,
+            slos={"chat": SLO(p99_ttft_s=60.0, p99_latency_s=120.0,
+                              min_goodput=0.5)})
+        serve = {"chat": ServePlan(
+            shape=TrafficShape(
+                name="chat",
+                rate=DiurnalRate(base_rps=0.05, peak_rps=0.15,
+                                 period_s=SCENARIO_HORIZON),
+                zipf_a=1.7, max_prompt_len=16, gen_mu=1.3, gen_sigma=0.5,
+                max_new_tokens=8, seed=5),
+            manifest={"kind": "ServeJob", "metadata": {"name": "chat"},
+                      "spec": {"arch": ARCH, "smoke": False, "slots": 2,
+                               "prompt_len": 16, "max_new_tokens": 8,
+                               "lease_timeout": 60.0}})}
+        train = {"research": TrainPlan(manifest=_tenant_train_manifest(
+            "chip-smoke-scenario-train", root))}
+        chaos = ChaosSchedule([
+            ChaosEvent(at_s=50.0, kind="site-kill", site="edge"),
+            ChaosEvent(at_s=50.0, kind="link-degrade", link=("gpu", "hub"),
+                       gbps=0.05),
+            ChaosEvent(at_s=100.0, kind="link-restore", link=("gpu", "hub")),
+            ChaosEvent(at_s=110.0, kind="site-restore", site="edge"),
+        ])
+        sub = sched.bus.subscribe(maxlen=1_000_000)
+        with sched:
+            result = run_scenario(sched, spec, serve=serve, train=train,
+                                  chaos=chaos, wave_timeout_s=900.0,
+                                  train_timeout_s=900.0)
+        ran = counts()
+        moves = [(e.source, e.data["action"], e.data.get("site"))
+                 for e in sub.poll(0) if e.kind == "sched" and
+                 e.data.get("action") in ("placed", "requeued", "preempt")]
+        sub.close()
+        table = grade_table(list(result.grades.values()))
+        log(table)
+        g = result.grades["chat"]
+        applied = [(r["kind"], r.get("site") or tuple(r.get("link") or ()))
+                   for r in result.chaos_fired if r["applied"]]
+        srow = dict(result.report(), waves=result.waves, placements=moves,
+                    launches=ran,
+                    train_steps_executed=result.train_results["research"][
+                        "report"].steps_executed, card=smi)
+        log(f"[tenant] e. scenario: {len(result.waves)} waves "
+            f"{[(w['window'], w['offered'], w['served']) for w in result.waves]}"
+            f", placements {moves}, chaos applied {applied}, wall "
+            f"{result.wall_s:.2f} s, "
+            f"launches {ran}")
+        if set(result.grades) != {"chat", "research"} or \
+                not g.served + g.rejected == g.offered > 0 or \
+                set(g.verdicts) != {"p99_ttft", "p99_latency", "goodput"}:
+            raise AssertionError(f"tenant scenario: {srow}")
+        if len(applied) != 4 or len(result.chaos_fired) != 4:
+            raise AssertionError(f"tenant scenario chaos: "
+                                 f"{result.chaos_fired}")
+        losses = result.train_results["research"]["loss_by_step"]
+        if sorted(losses) != list(range(TENANT_STEPS)):
+            raise AssertionError(f"tenant scenario train: {sorted(losses)}")
+        if ran["flash_attention"] == 0 or \
+                ran["flash_attention"] % cfg.num_layers:
+            raise AssertionError(f"tenant scenario: flash {ran}")
+        out_rows["scenario"], launches["scenario"] = srow, ran
+        out_rows["bytes_written"] = _tree_bytes(root)
+    out_rows["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tenant] {out_rows['bytes_written'] / 1e6:.1f} MB written; "
+        f"{out_rows['phase_s']:.1f} s")
+    return out_rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2793,6 +3250,9 @@ def main() -> int:
     written += (sum(r["bytes_written"] for r in fabric["connect"].values())
                 + fabric["train"]["bytes_written"]) / 1e9
     log(f"[disk] written so far {written:.2f} GB")
+    tenant, tenant_launches = phase_tenant(smi, phi4_run)
+    written += tenant["bytes_written"] / 1e9
+    log(f"[disk] written so far {written:.2f} GB")
     flash["launches_by_path"].update({
         f"{ARCH} serve router": ran_router["router"],
         f"{ARCH} serve static": ran_router["static"],
@@ -2802,7 +3262,13 @@ def main() -> int:
         f"{CODEQWEN} session serve":
             session_launches["codeqwen"]["flash_attention"],
         f"{ARCH} fabric serve":
-            fabric["serve"]["launches"]["flash_attention"]})
+            fabric["serve"]["launches"]["flash_attention"],
+        f"{ARCH} tenant serve":
+            tenant_launches["serve"]["flash_attention"],
+        f"{ARCH} tenant serve replicated":
+            tenant_launches["replicated"]["flash_attention"],
+        f"{ARCH} scenario waves":
+            tenant_launches["scenario"]["flash_attention"]})
     for row in (xent_fwd, xent_bwd, adamw):
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {
@@ -2813,7 +3279,11 @@ def main() -> int:
             f"{ARCH} session train cancelled":
                 session_launches["cancel"][row["name"]],
             f"{ARCH} smoke fabric train (site killed)":
-                fabric["train"]["launches"][row["name"]]}
+                fabric["train"]["launches"][row["name"]],
+            f"{ARCH} smoke tenant train (preempted)":
+                tenant_launches["train"][row["name"]],
+            f"{ARCH} smoke scenario train":
+                tenant_launches["scenario"][row["name"]]}
     kernels = [flash, xent_fwd, xent_bwd, adamw, ssd, wkv, gmm]
     for row in kernels:
         row["card"] = smi
@@ -2828,6 +3298,7 @@ def main() -> int:
         print(json.dumps({"session": row}))
     print(json.dumps({"connect": connect}))
     print(json.dumps({"fabric": fabric}))
+    print(json.dumps({"tenant": tenant}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

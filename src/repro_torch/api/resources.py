@@ -229,9 +229,8 @@ class WorkloadResource:
 
 @dataclass(frozen=True)
 class TrainJob(WorkloadResource):
-    """Self-healing elastic training (routes to
-    ``repro_torch.elastic``; the fabric and tenant backends of the JAX
-    package are not ported yet)."""
+    """Self-healing elastic training (routes to ``repro_torch.elastic`` /
+    ``repro_torch.fabric.failover`` / ``VirtualCluster.run_elastic``)."""
 
     KIND: ClassVar[str] = "TrainJob"
 

@@ -1,25 +1,28 @@
-"""Backend runners — how each workload kind lands on the cluster backend.
+"""Backend runners — how each workload kind lands on each backend.
 
-A copy of the JAX package's ``api/runners.py`` with its cluster backend:
-one runner method per workload kind, all routing into the EXISTING
-machinery — ``repro_torch.elastic`` for TrainJob, ``repro_torch.serving``
+A copy of the JAX package's ``api/runners.py``: one runner method per
+(kind, backend) cell, all routing into the EXISTING machinery —
+``repro_torch.elastic`` / ``repro_torch.fabric.failover`` /
+``VirtualCluster.run_elastic`` for TrainJob, ``repro_torch.serving``
 (one engine, or replicas behind the router) for ServeJob, the
-orchestrator for BatchJob, ``core.workflow`` / ``flow`` for WorkflowRun,
-and ``repro_torch.rl`` (actor fleet + elastic learner) for RLJob.
-Runners execute inside the Handle's reconcile thread: they move the
-handle PLACING -> RUNNING, thread its cooperative ``should_stop`` into
-the subsystem, and return the workload's result dict.
+orchestrator / fair-share scheduler for BatchJob, ``core.workflow`` /
+``flow`` for WorkflowRun, and ``repro_torch.rl`` (actor fleet + elastic
+learner) for RLJob.  Runners execute inside the Handle's reconcile
+thread: they move the handle PLACING -> RUNNING, thread its cooperative
+``should_stop`` into the subsystem, and return the workload's result
+dict.
 
 The fabric backend (``repro_torch.fabric``) places each workload at a
 site of the federation: placed workflows, cross-site failover for
-training, metered weight traffic for RL.  Training, serving and RL run
-on the cluster's ``compute_device`` (the session cluster's first online
-CUDA or CPU device; at a fabric site, the fabric's device or the site
-cluster's own); the drivers below take it as ``device`` (``"cuda"`` by
-default, which raises without a card).  The drivers' ``handle`` may be
-``None`` for callers outside a Session (the RL CLI's direct path): no
-status probes, no transitions, no cancel hook.  The tenant backend waits
-for ROADMAP A8.
+training, metered weight traffic for RL.  The tenant backend
+(``repro_torch.vcluster``) runs each inside one tenant's fair share.
+Training, serving and RL run on the cluster's ``compute_device`` (the
+session cluster's first online CUDA or CPU device; at a fabric site, the
+fabric's device or the site cluster's own; for a tenant, the device of
+the site its claim or its pod was placed at); the drivers below take it
+as ``device`` (``"cuda"`` by default, which raises without a card).  The
+drivers' ``handle`` may be ``None`` for callers outside a Session (the
+RL CLI's direct path): no status probes, no transitions, no cancel hook.
 """
 from __future__ import annotations
 
@@ -621,4 +624,160 @@ class FabricBackend:
         wf = Workflow(run.name, planner=planner, metrics=self.metrics,
                       namespace=run.namespace or self.session.namespace
                       or "default", bus=self.session.bus)
+        return _run_workflow(handle, run, wf)
+
+
+class TenantBackend:
+    """One tenant's fair share of the federation (``repro_torch.vcluster``)
+    — every workload rides the FairShareScheduler.  The scheduler's
+    reconcile loop must be running (``sched.start()`` / ``with sched:``)
+    for queued workloads to place.  Each workload computes on the
+    ``compute_device`` of the site it was placed at."""
+
+    kind = "tenant"
+
+    def __init__(self, session, tenant, store):
+        self.session = session
+        self.tenant = tenant            # a VirtualCluster
+        self.sched = tenant.sched
+        self.store = store
+        self.metrics = session.metrics
+
+    def _device(self, site: str) -> torch.device:
+        return self.sched.fabric.sites[site].cluster.compute_device
+
+    def _watch_tenant_job(self, handle: Handle, tj, *,
+                          poll_s: float = 0.01):
+        """Reconcile loop over a fair-share TenantJob: observe placement,
+        cancel cooperatively (queued jobs dequeue, running pods drain)."""
+        cancelled = False
+        running_seen = False
+        while tj.state in ("queued", "running"):
+            if handle.cancel_requested and not cancelled:
+                cancelled = True
+                self.sched.cancel(tj)
+            if tj.state == "running" and not running_seen:
+                running_seen = True
+                handle._transition(WorkloadState.RUNNING, site=tj.site)
+            time.sleep(poll_s)
+        if tj.state == "failed":
+            raise RuntimeError(
+                f"tenant job {tj.spec.name!r} failed: {tj.error}")
+        return tj
+
+    # ------------------------------------------------------------ TrainJob
+    def run_train(self, handle: Handle, job: TrainJob):
+        if job.site is None:
+            raise ManifestError(
+                "TrainJob on a tenant session needs the claim site",
+                field="spec.site")
+        if job.devices is None:
+            raise ManifestError(
+                "TrainJob on a tenant session needs the claim size",
+                field="spec.devices")
+        handle._transition(WorkloadState.PLACING, site=job.site,
+                           devices=job.devices)
+        stop = threading.Event()
+        handle.add_cancel_hook(stop.set)
+        on_trainer = trainer_probe(handle)
+        store = ObjectStore(job.ckpt_dir) if job.ckpt_dir else None
+        handle._transition(WorkloadState.RUNNING, site=job.site)
+        out = self.tenant.run_elastic(
+            elastic_spec(job, device=self._device(job.site)), site=job.site,
+            devices=job.devices, store=store, min_devices=job.min_devices,
+            stop=stop, on_trainer=on_trainer)
+        return train_result(out)
+
+    # ------------------------------------------------------------ ServeJob
+    def run_serve(self, handle: Handle, job: ServeJob):
+        handle._transition(WorkloadState.PLACING, site=job.site or "auto")
+        # the workload's own Registry rides into the engine so the raw
+        # TTFT/latency series survive per wave — the SLO grader
+        # (repro_torch.scenarios.grade) needs the samples, not just the
+        # report
+        metrics = Registry()
+        if job.max_replicas > 1:
+            # replicated fleet inside the tenant's fair share: one device
+            # per replica, claimed up front and elastically resized by the
+            # autoscaler through resize_claim — another tenant's load caps
+            # the scale-up at the granted count
+            site = job.site or next(iter(self.sched.fabric.sites))
+            claim = self.tenant.claim(site, job.min_replicas,
+                                      min_devices=job.min_replicas)
+            try:
+                out = run_serve_replicated(
+                    handle, job, metrics,
+                    capacity=lambda want: self.sched.resize_claim(
+                        claim, want),
+                    device=self._device(site))
+            finally:
+                claim.release()
+            out["site"] = site
+            return out
+        tj, queue = self.tenant.serve(
+            lambda device: build_engine(job, registry_out=metrics,
+                                        device=device),
+            serve_requests(job), site=job.site,
+            lease_timeout=job.lease_timeout,
+            default_max_new=job.max_new_tokens,
+            should_stop=handle.should_stop)
+        tj = self._watch_tenant_job(handle, tj)
+        # a cancelled pod still drained cooperatively and returned its
+        # completed requests: partial results survive, like the other
+        # backends' CANCELLED contract
+        pods = tj.results() if tj.job is not None else []
+        results = pods[0] if pods and pods[0] is not None else {}
+        return {"results": results, "site": tj.site, "job": tj,
+                "metrics": metrics,
+                "report": serving_report(metrics, step=job.name)}
+
+    # ------------------------------------------------------------ BatchJob
+    def run_batch(self, handle: Handle, job: BatchJob):
+        fn = job.resolve_fn()
+        handle._transition(WorkloadState.PLACING, site=job.site or "auto")
+        tj = self.tenant.submit(JobSpec(
+            job.name, fn, replicas=job.replicas,
+            devices_per_pod=job.devices_per_pod,
+            backoff_limit=job.backoff_limit, priority=job.priority),
+            site=job.site)
+        tj = self._watch_tenant_job(handle, tj)
+        return {"results": tj.results() if tj.state == "done" else [],
+                "site": tj.site, "preemptions": tj.preemptions}
+
+    # --------------------------------------------------------------- RLJob
+    def run_rl(self, handle: Handle, job: RLJob):
+        """Actors and learner inside the tenant's fair share: one device
+        per actor is claimed up front and the fleet resizes through
+        ``resize_claim`` — another tenant's load caps the granted width.
+        Weight traffic moves through tenant-billed store views.  Both
+        compute on the actors' site's device."""
+        site = job.site or next(iter(self.sched.fabric.sites))
+        learner_site = job.learner_site or site
+        handle._transition(WorkloadState.PLACING, site=site,
+                           learner_site=learner_site)
+        want = job.devices or job.actors
+        claim = self.tenant.claim(site, want,
+                                  min_devices=job.min_devices or 1)
+        learner_store = self.tenant.store(learner_site)
+        actor_store = None if learner_site == site \
+            else self.tenant.store(site)
+        try:
+            out = run_rl_fleet(
+                handle, job, learner_store=learner_store,
+                actor_store=actor_store, metrics=Registry(),
+                capacity=lambda w: self.sched.resize_claim(claim, w),
+                device=self._device(site))
+        finally:
+            claim.release()
+        out["site"] = site
+        out["learner_site"] = learner_site
+        return out
+
+    # --------------------------------------------------------- WorkflowRun
+    def run_workflow(self, handle: Handle, run: WorkflowRun):
+        handle._transition(WorkloadState.PLACING)
+        kw: Dict[str, Any] = {}
+        if run.namespace:
+            kw["namespace"] = run.namespace
+        wf = self.tenant.workflow(run.name, **kw)
         return _run_workflow(handle, run, wf)

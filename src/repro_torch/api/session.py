@@ -2,11 +2,13 @@
 
 The paper's users never drive subsystems by hand: they declare a
 workload and the platform schedules, places, measures and heals it
-(§II, §VI).  ``Session`` is that surface here.  Construct it over a
-cluster —
+(§II, §VI).  ``Session`` is that surface here.  Construct it from any
+backend —
 
     Session(cluster=Cluster())                          # the card(s)
     Session(cluster=Cluster(devices=[torch.device("cpu")]))
+    Session(fabric=fabric, planner=planner)    # the multi-site federation
+    Session(tenant=virtual_cluster)            # one tenant's fair share
 
 — then drive every workload kind with one verb set:
 
@@ -20,17 +22,16 @@ Each ``Handle`` owns a desired->observed reconcile loop in a background
 thread: the workload moves PENDING -> PLACING -> RUNNING -> one of
 {SUCCEEDED, FAILED, PREEMPTED, CANCELLED}, every transition is recorded
 on the handle AND published to the session's ``EventBus`` (kind
-``"workload"``), so a monitor renders train / serve / batch / workflow
-workloads uniformly.  ``cancel()`` reuses the platform's cooperative
-drain primitives (``Cluster.preempt_pod``, the serving engine's
-``should_stop``, the workflow's step boundary), so a cancelled training
-job keeps its checkpoint.
+``"workload"``), so ``repro_torch.launch.monitor`` renders train /
+serve / batch / workflow workloads uniformly.  ``cancel()`` reuses the
+platform's cooperative drain primitives (``Cluster.preempt_pod``, the
+serving engine's ``should_stop``, the workflow's step boundary), so a
+cancelled training job keeps its checkpoint.
 
-A copy of the JAX package's ``api/session.py`` with the cluster and the
-fabric backends: the tenant backend waits for the port of the
-multi-tenant scheduler (ROADMAP A8), and asking for it raises
-``NotImplementedError``.  Workloads run on their cluster's compute
-device; nothing moves to the CPU unless that device is the CPU.
+A copy of the JAX package's ``api/session.py`` with its three backends.
+Workloads run on their cluster's compute device (a tenant's, the device
+of the site its scheduler placed them at); nothing moves to the CPU
+unless that device is the CPU.
 """
 from __future__ import annotations
 
@@ -253,8 +254,8 @@ class Session:
         workflows and cross-site failover; a bare fabric routes by queue
         depth.
     ``tenant``
-        The JAX package's tenant fair share: not ported yet (ROADMAP
-        A8), so it raises ``NotImplementedError``.
+        A ``repro_torch.vcluster.VirtualCluster`` — every workload runs
+        inside the tenant's fair share, placed by its scheduler.
     """
 
     def __init__(self, *, cluster=None, store=None, fabric=None,
@@ -271,16 +272,16 @@ class Session:
             raise TypeError(
                 "Session needs exactly one backend: cluster=..., "
                 f"fabric=.../planner=..., or tenant=... (got {backends})")
-        if tenant is not None:
-            raise NotImplementedError(
-                "Session(tenant=...): the port has the cluster and fabric "
-                "backends; the tenant backend waits for ROADMAP A8")
         self.namespace = namespace
         self.workloads: List[Handle] = []
         if cluster is not None:
             self.metrics = metrics or cluster.metrics
             self.bus = bus or self._own_bus(cluster=cluster)
             self._backend = runners.ClusterBackend(self, cluster, store)
+        elif tenant is not None:
+            self.metrics = metrics or tenant.sched.metrics
+            self.bus = bus or tenant.sched.bus
+            self._backend = runners.TenantBackend(self, tenant, store)
         else:
             fabric = fabric if fabric is not None else planner.fabric
             self.metrics = metrics or fabric.metrics

@@ -1,11 +1,9 @@
 """Cluster / Namespace / Job / Pod — the Kubernetes constructs of CHASE-CI
 (§II-A, §IV, §V) over a list of devices.
 
-A copy of the JAX package's ``core/orchestrator.py`` without its
-``lease_device_s/<namespace>`` lease billing (the multi-tenant
-chargeback, which reads it, is not ported).  The default device list
-differs: the card's CUDA devices (raising without a card) where JAX took
-``jax.devices()``.  Tests and the federation pass logical slots
+A copy of the JAX package's ``core/orchestrator.py``.  The default
+device list differs: the card's CUDA devices (raising without a card)
+where JAX took ``jax.devices()``.  Tests and the federation pass logical slots
 (``devices=[0, 1, ...]``): the orchestrator only leases names.  Work
 computes on ``Cluster.compute_device``: the ``compute`` device a cluster
 of logical slots was built with (a fabric site's), else its first online
@@ -25,8 +23,9 @@ Kubernetes semantics reproduced:
     failed device — they go FAILED, their leases are released, and the
     reconciler reschedules them onto fresh devices (§V), which pairs with
     checkpoint auto-resume (``repro_torch.checkpoint``);
-  * preemption: ``preempt_pod`` is the checkpoint-then-evict drain —
-    cooperative like a node drain, but the pod is EXPECTED to save state
+  * preemption: ``preempt_pod`` is the checkpoint-then-evict drain the
+    fair-share scheduler (``repro_torch.vcluster``) uses — cooperative
+    like a node drain, but the pod is EXPECTED to save state
     on the way out, lands in the terminal PREEMPTED state, and is never
     respawned by the reconciler (whoever preempted it owns resubmission).
 
@@ -105,6 +104,7 @@ class Pod:
     # respawn; `holds_devices` makes lease release idempotent.
     gen: int = 0
     holds_devices: bool = False
+    lease_t0: float = 0.0        # when the current device lease started
 
 
 @dataclass
@@ -114,7 +114,7 @@ class JobSpec:
     replicas: int = 1
     devices_per_pod: int = 0             # 0 = CPU-only pod (e.g. download)
     backoff_limit: int = 3
-    # scheduling priority (the multi-tenant scheduler): higher may preempt
+    # scheduling priority (``repro_torch.vcluster``): higher may preempt
     # strictly lower.  None inherits the submitting tenant's priority.
     priority: Optional[int] = None
 
@@ -190,7 +190,7 @@ class Cluster:
             return ns
 
     def set_quota(self, namespace: str, device_quota: int) -> None:
-        """Adjust a namespace's device quota (the multi-tenant scheduler's
+        """Adjust a namespace's device quota (the fair-share scheduler's
         per-tenant accounting knob).  May drop below current usage: live
         leases are honored, only future allocations are blocked."""
         with self._lock:
@@ -223,7 +223,12 @@ class Cluster:
         return take
 
     def _release_pod_locked(self, pod: Pod) -> None:
-        """Return a pod's lease (devices + namespace quota).  Idempotent."""
+        """Return a pod's lease (devices + namespace quota).  Idempotent.
+
+        Bills the lease on the way out: ``lease_device_s/<namespace>``
+        accumulates device-seconds held (allocation -> release), the
+        per-tenant meter the scenario chargeback reads
+        (``repro_torch.scenarios``)."""
         if not pod.holds_devices:
             return
         pod.holds_devices = False
@@ -231,6 +236,9 @@ class Cluster:
         for d in pod.ctx.devices:
             self.leased.discard(d)
         ns.used_devices = max(0, ns.used_devices - len(pod.ctx.devices))
+        held = max(0.0, time.monotonic() - pod.lease_t0)
+        self.metrics.inc(f"lease_device_s/{ns.name}",
+                         held * len(pod.ctx.devices))
 
     # ----------------------------------------------------------------- jobs
     def submit(self, namespace: str, spec: JobSpec) -> Job:
@@ -247,6 +255,7 @@ class Cluster:
                                  metrics=self.metrics, site=self.site)
                     pod = Pod(ctx.pod_id, spec.fn, ctx)
                     pod.holds_devices = bool(devs)
+                    pod.lease_t0 = time.monotonic()
                     pods.append(pod)
             except Exception:
                 for p in pods:           # all-or-nothing: undo partial leases
@@ -343,6 +352,7 @@ class Cluster:
                                      self.metrics, attempt=pod.restarts,
                                      site=self.site)
                     pod.holds_devices = bool(devs)
+                    pod.lease_t0 = time.monotonic()
                     pod.error = None
                     pod.state = PodState.PENDING
                 self._notify_pod("respawned", pod)
@@ -384,8 +394,8 @@ class Cluster:
         to leave: its ``PodCtx.preempt`` event is set, a cooperative fn
         (e.g. an elastic training segment) checkpoints and exits, and the
         pod lands in the terminal PREEMPTED state — which ``reconcile``
-        never respawns; whoever preempted it (here the elastic trainer's
-        ``request_stop``) owns the resubmission.  A still-PENDING pod
+        never respawns; whoever preempted it (the fair-share scheduler, or
+        the elastic trainer's ``request_stop``) owns the resubmission.  A still-PENDING pod
         is evicted immediately.  Returns False if the pod was already
         terminal."""
         with self._lock:

@@ -14,8 +14,7 @@ die simply stop acking and their work is re-queued.  Semantics reproduced:
 The queue is transport-agnostic and in-process here (single-container run);
 a production deployment backs the same API with Redis.  State is
 snapshot/restorable so the RL learner's checkpoint can carry its rollout
-queue.  This copy holds what serving, the router, the RL workload and
-the CONNECT workflow's worker pods call (no ``leased_by``).
+queue.
 """
 from __future__ import annotations
 
@@ -169,6 +168,14 @@ class WorkQueue:
     def completed(self) -> int:
         with self._lock:
             return sum(1 for t in self._tasks.values() if t.done)
+
+    def leased_by(self, worker: str) -> int:
+        """Live leases held by ``worker`` — chaos hooks kill a worker at
+        a moment it provably holds work, tests then assert the requeue."""
+        now = self._clock()
+        with self._lock:
+            return sum(1 for t in self._leased.values()
+                       if t.worker == worker and t.lease_expiry > now)
 
     def drained(self) -> bool:
         with self._lock:

@@ -54,7 +54,7 @@ class PlacementPlanner:
         are billed to the tenant's byte counters, and site scores include
         the backlog OTHER tenants' in-flight transfers queue on the links
         the staging would use — so one tenant's pre-staging cannot
-        starve another tenant's routes (the multi-tenant scheduler)."""
+        starve another tenant's routes (``repro_torch.vcluster``)."""
         self.fed = fed
         self.fabric = fed.fabric
         self.queue_cost_s = queue_cost_s

@@ -97,7 +97,7 @@ class Fabric:
         self._lock = threading.Lock()
         # in-flight bytes per (link, tenant) — the backlog a tenant-aware
         # placement scorer reads so one tenant's pre-staging cannot
-        # silently starve another tenant's links (the multi-tenant scheduler)
+        # silently starve another tenant's links (``repro_torch.vcluster``)
         self._inflight: Dict[Tuple[str, str], Dict[str, int]] = {}
         # transfer watchers: cb(src, dst, nbytes, sim_s, tenant) after
         # every metered cross-site move (feeds the monitor event bus)

@@ -5,8 +5,7 @@ A single in-process ``EventBus`` carries everything that happens on the
 shared fabric as typed, timestamped events:
 
   * ``sched``    — tenant job queued / placed / preempted / requeued /
-                   done / failed, capacity grants (the multi-tenant
-                   scheduler, not yet ported);
+                   done / failed, capacity grants (FairShareScheduler);
   * ``pod``      — pod lifecycle transitions (orchestrator pod watchers);
   * ``node``     — node churn: fail / join (orchestrator churn watchers);
   * ``transfer`` — metered cross-site byte movements (fabric watchers);
@@ -26,8 +25,9 @@ drop and are counted (``Subscription.dropped``, ``monitor/dropped``), so
 a dashboard degrades to "recent window" instead of stalling publishers —
 the paper's near-real-time contract over a lossy window.
 
-A copy of the JAX package's ``vcluster/monitor.py``; the port's
-``api.Session`` builds one bus per cluster or fabric session.
+A copy of the JAX package's ``vcluster/monitor.py``;
+``repro_torch.launch.monitor`` renders the stream as a live text
+dashboard.
 """
 from __future__ import annotations
 

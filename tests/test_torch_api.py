@@ -4,7 +4,8 @@
 
 Twins of ``tests/test_api_manifest.py`` (round trips, field-naming
 validation, entrypoints), ``tests/test_api_session.py`` (the cluster
-backend's lifecycle, events and cooperative cancel) and
+backend's lifecycle, events and cooperative cancel; the tenant backend's
+five kinds through ``Session(tenant=)`` against the JAX one) and
 ``tests/test_api_equivalence.py`` (the same workload through both
 Sessions).  Every manifest is held to the JAX schema: the same file
 loads to the same ``to_manifest()`` dict in both stacks, and a malformed
@@ -36,12 +37,15 @@ from repro.core.orchestrator import Cluster as JCluster          # noqa: E402
 from repro.launch import cli as jcli                             # noqa: E402
 from repro.models import params as jpr                           # noqa: E402
 from repro.models import transformer as jtfm                     # noqa: E402
+from repro import fabric as jfab                                 # noqa: E402
+from repro import vcluster as jvc                                # noqa: E402
 
 from repro_torch import api                                      # noqa: E402
 from repro_torch import bridge                                   # noqa: E402
-from repro_torch.api import (BatchJob, ManifestError, ServeJob,  # noqa: E402
-                             Session, TrainJob, WorkflowRun, WorkloadState,
-                             from_json, from_manifest, resolve_entrypoint)
+from repro_torch.api import (BatchJob, ManifestError, RLJob,     # noqa: E402
+                             ServeJob, Session, TrainJob, WorkflowRun,
+                             WorkloadState, from_json, from_manifest,
+                             resolve_entrypoint)
 from repro_torch.api import runners                              # noqa: E402
 from repro_torch.api import session as session_mod               # noqa: E402
 from repro_torch.checkpoint.checkpoint import Checkpointer        # noqa: E402
@@ -50,7 +54,9 @@ from repro_torch.core.metrics import Registry                    # noqa: E402
 from repro_torch.core.orchestrator import Cluster, JobSpec       # noqa: E402
 from repro_torch.core.workflow import Step                       # noqa: E402
 from repro_torch.data.objectstore import ObjectStore             # noqa: E402
+from repro_torch.fabric import Fabric, FederatedStore            # noqa: E402
 from repro_torch.models import params as tpr                     # noqa: E402
+from repro_torch.vcluster import FairShareScheduler, TenantSpec  # noqa: E402
 
 ARCH = "phi4-mini-3.8b"
 F32 = dict(param_dtype="float32", compute_dtype="float32")
@@ -420,14 +426,6 @@ def test_session_requires_exactly_one_backend():
         Session(cluster=cpu_cluster(), fabric=object())
 
 
-@pytest.mark.parametrize("backend", ["tenant"])
-def test_fabric_and_tenant_backends_wait_for_a8(backend):
-    """The tenant backend still waits for A8; the fabric backend is ported
-    (its sessions: tests/test_torch_fabric.py)."""
-    with pytest.raises(NotImplementedError, match="A8"):
-        Session(**{backend: object()})
-
-
 def test_default_cluster_needs_a_card(monkeypatch):
     """``Cluster()`` leases the card; without one the session cannot be
     built, and nothing falls back to the CPU by itself."""
@@ -507,6 +505,207 @@ def test_serve_paged_manifest_matches_the_direct_router_run():
     assert sorted(got["results"]) == list(range(spec.n_requests))
     reps = [e["replicas"] for e in h.events() if "replicas" in e]
     assert reps[0] == "1→0" and reps[-1].endswith("→0")
+
+
+# ------------------------------------------------------- the tenant backend
+def jax_sched(tmp_path):
+    """The JAX tests' tenant fabric: s0 with two devices, s1 with one."""
+    dev = jax.devices()[0]
+    fabric = jfab.Fabric()
+    fabric.add_site("s0", cluster=JCluster(devices=[dev, dev]),
+                    store_root=str(tmp_path / "jax-s0"))
+    fabric.add_site("s1", cluster=JCluster(devices=[dev]),
+                    store_root=str(tmp_path / "jax-s1"))
+    fabric.connect("s0", "s1", gbps=10.0, latency_ms=1.0)
+    return jvc.FairShareScheduler(fed=jfab.FederatedStore(fabric),
+                                  reconcile_s=0.01)
+
+
+def port_sched(tmp_path):
+    """The same fabric on the port: logical slots computing on the CPU."""
+    fabric = Fabric(device="cpu")
+    fabric.add_site("s0", devices=[0, 1], store_root=str(tmp_path / "s0"))
+    fabric.add_site("s1", devices=[0], store_root=str(tmp_path / "s1"))
+    fabric.connect("s0", "s1", gbps=10.0, latency_ms=1.0)
+    return FairShareScheduler(fed=FederatedStore(fabric), reconcile_s=0.01)
+
+
+def test_tenant_session_defaults_to_the_schedulers_metrics_and_bus(tmp_path):
+    sched = port_sched(tmp_path)
+    session = Session(tenant=sched.create_tenant(TenantSpec("alice")))
+    assert session.metrics is sched.metrics and session.bus is sched.bus
+    assert session._backend.kind == "tenant"
+
+
+def test_tenant_batch_serve_workflow(tmp_path):
+    sched = port_sched(tmp_path)
+    vc = sched.create_tenant(TenantSpec("alice"))
+    session = Session(tenant=vc)
+    with sched:
+        out = session.apply(BatchJob(name="tb", devices_per_pod=1),
+                            fn=lambda ctx: "ok").wait(60)
+        assert out["results"] == ["ok"]
+
+        # a queued job cancelled before placement dequeues cleanly
+        blocker = session.apply(
+            BatchJob(name="hog", devices_per_pod=2, site="s0"),
+            fn=lambda ctx: time.sleep(0.5) or "hog")
+        queued = session.apply(
+            BatchJob(name="stuck", devices_per_pod=2, site="s0"),
+            fn=lambda ctx: "never")
+        time.sleep(0.1)
+        queued.cancel(wait=True, timeout=30)
+        assert queued.state == WorkloadState.CANCELLED
+        assert queued.result()["results"] == []
+        assert blocker.wait(60)["results"] == ["hog"]
+
+        def define(wf):
+            wf.add(Step("t", lambda ctx: {"tenant": ctx.namespace}))
+
+        wout = session.apply(WorkflowRun(name="twf"),
+                             define=define).wait(60)
+        assert wout["results"]["t"] == {"tenant": "tenant-alice"}
+
+        sout = session.apply(ServeJob(
+            name="tserve", slots=2, prompt_len=8, max_new_tokens=4,
+            requests=[{"id": i, "prompt": [1 + i] * 8,
+                       "max_new_tokens": 4} for i in range(3)])).wait(300)
+        assert len(sout["results"]) == 3
+        assert all(len(v) == 4 for v in sout["results"].values())
+    assert sched.metrics.series("lease_device_s/tenant-alice").total > 0
+
+
+@pytest.mark.parametrize("missing", ["site", "devices"])
+def test_tenant_train_names_the_missing_field_as_jax_does(missing,
+                                                         tmp_path):
+    kw = {"site": "s0", "devices": 1}
+    del kw[missing]
+    errors = []
+    for sess, job in (
+            (Session(tenant=port_sched(tmp_path).create_tenant(
+                TenantSpec("bob"))), tiny_train("t", steps=2, **kw)),
+            (japi.Session(tenant=jax_sched(tmp_path).create_tenant(
+                jvc.TenantSpec("bob"))),
+             japi.TrainJob(name="t", steps=2, seq_len=16, global_batch=2,
+                           log_every=1, verbose=False, **kw))):
+        h = sess.apply(job)
+        with pytest.raises(RuntimeError, match=f"spec.{missing}"):
+            h.wait(60)
+        assert h.state.value == "Failed"
+        errors.append(h.events()[-1]["error"])
+    assert errors[0] == errors[1]
+    assert errors[0].startswith(f"spec.{missing}: TrainJob on a tenant")
+
+
+def test_tenant_train_job_matches_the_jax_session(jax_params_in_the_port,
+                                                 tmp_path):
+    jcfg, tcfg = _f32_cfgs()
+    kw = dict(steps=4, seq_len=16, global_batch=2, log_every=1,
+              verbose=False, site="s0", devices=1)
+    jsched = jax_sched(tmp_path)
+    with jsched:
+        want = japi.Session(tenant=jsched.create_tenant(
+            jvc.TenantSpec("research"))).apply(japi.TrainJob(
+                name="tt", config=jrunners.dataclass_kwargs(jcfg),
+                **kw)).wait(600)
+    sched = port_sched(tmp_path)
+    with sched:
+        h = Session(tenant=sched.create_tenant(TenantSpec("research"))) \
+            .apply(TrainJob(name="tt", config=runners.dataclass_kwargs(tcfg),
+                            **kw))
+        got = h.wait(600)
+    assert h.state == WorkloadState.SUCCEEDED
+    assert len(got["losses"]) == len(want["losses"]) == 4
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    leaf = got["params"]
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    assert leaf.device.type == "cpu"          # the site's compute device
+    for ms in (sched.metrics, jsched.metrics):
+        assert ms.series("lease_device_s/tenant-research").total > 0
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_tenant_serve_job_matches_the_jax_session(jax_params_in_the_port,
+                                                 monkeypatch, tmp_path,
+                                                 replicas):
+    jcfg, tcfg = _f32_cfgs()
+    monkeypatch.setattr(jrunners, "resolve_serve_cfg", lambda job: jcfg)
+    monkeypatch.setattr(runners, "resolve_serve_cfg", lambda job: tcfg)
+    job = dict(name="ts", slots=2, prompt_len=8, max_new_tokens=4,
+               max_replicas=replicas,
+               requests=[{"id": i, "prompt": [1 + i] * 8, "max_new_tokens": 4}
+                         for i in range(3)])
+    jsched = jax_sched(tmp_path)
+    with jsched:
+        want = japi.Session(tenant=jsched.create_tenant(
+            jvc.TenantSpec("chat"))).apply(japi.ServeJob(**job)).wait(300)
+    sched = port_sched(tmp_path)
+    with sched:
+        h = Session(tenant=sched.create_tenant(TenantSpec("chat"))).apply(
+            ServeJob(**job))
+        got = h.wait(300)
+    assert h.state == WorkloadState.SUCCEEDED
+    assert got["site"] == want["site"] == "s0"
+    assert got["results"] == want["results"]
+    assert sorted(got["results"]) == [0, 1, 2]
+    assert got["report"].extra["requests"] == 3
+
+
+def test_tenant_rl_job_reaches_the_jax_state(tmp_path):
+    job = dict(name="rl", arch=ARCH, smoke=True, learner_steps=2, actors=1,
+               rollouts_per_step=2, prompt_len=8, max_new_tokens=4,
+               seq_len=16, slots=2, broadcast_every=1, ckpt_every=0,
+               site="s0", learner_site="s1")
+    jsched = jax_sched(tmp_path)
+    with jsched:
+        jh = japi.Session(tenant=jsched.create_tenant(
+            jvc.TenantSpec("rl"))).apply(japi.RLJob(**job))
+        want = jh.wait(600)
+    sched = port_sched(tmp_path)
+    with sched:
+        h = Session(tenant=sched.create_tenant(TenantSpec("rl"))).apply(
+            RLJob(**job))
+        got = h.wait(600)
+    assert h.state.value == jh.state.value == "Succeeded"
+    assert got["done"] and want["done"]
+    assert (got["site"], got["learner_site"]) == \
+        (want["site"], want["learner_site"]) == ("s0", "s1")
+    assert got["steps_done"] == want["steps_done"] == 2
+    assert got["actors_granted"] == want["actors_granted"] == 1
+    # the actors pull each published version across the link, billed to
+    # the tenant
+    assert sched.metrics.series("fabric/tenant/rl/bytes_moved").total > 0
+    assert not sched._claims          # the claim was released
+
+
+def test_tenant_workflow_and_batch_reach_the_jax_states(tmp_path):
+    def define(wf):
+        wf.add(Step("ns", lambda ctx: {"ns": ctx.namespace}))
+
+    def jdefine(wf):
+        from repro.core.workflow import Step as JStep
+        wf.add(JStep("ns", lambda ctx: {"ns": ctx.namespace}))
+
+    out = {}
+    for tag, sched, sess_cls, spec, wf_cls, dfn in (
+            ("port", port_sched(tmp_path), Session, TenantSpec,
+             WorkflowRun, define),
+            ("jax", jax_sched(tmp_path), japi.Session, jvc.TenantSpec,
+             japi.WorkflowRun, jdefine)):
+        with sched:
+            session = sess_cls(tenant=sched.create_tenant(spec("lab")))
+            wf = session.apply(wf_cls(name="w"), define=dfn)
+            b = session.apply({"kind": "BatchJob",
+                               "metadata": {"name": "b"},
+                               "spec": {"devices_per_pod": 1, "site": "s1"}},
+                              fn=lambda ctx: ctx.site)
+            out[tag] = (wf.wait(60)["results"], wf.state.value,
+                        b.wait(60), b.state.value)
+    assert out["port"] == out["jax"]
+    assert out["port"][0] == {"ns": {"ns": "tenant-lab"}}
+    assert out["port"][2] == {"results": ["s1"], "site": "s1",
+                              "preemptions": 0}
 
 
 # --------------------------------------------------------------- the CLIs

@@ -31,7 +31,9 @@ API: a smoke ServeJob (f32) through a Session on the card's ``Cluster()``
 gives the greedy tokens of a CPU Session's, with flash in every prefill.
 CONNECT: the FFN's forward and flood fill on the card within 1e-4 of the
 output's scale of the CPU's (f32 with TF32 off), ``connect_label`` equal
-exactly.
+exactly.  The tenant backend: a full-width phi4 ServeJob through
+``Session(tenant=)`` on a fabric computing on the card gives a direct
+engine's tokens.
 """
 import numpy as np
 import pytest
@@ -632,3 +634,52 @@ def test_connect_ffn_and_labels_on_the_card_match_the_cpu():
         mask = torch.as_tensor(np.random.RandomState(seed).rand(*shape) > 0.5)
         assert torch.equal(segment.connect_label(mask.cuda()).cpu(),
                            segment.connect_label(mask))
+
+
+@pytest.mark.gpu
+def test_tenant_session_serves_full_width_phi4_as_a_direct_engine(tmp_path):
+    """A full-width phi4 ServeJob (bf16, random weights from its seed)
+    through ``Session(tenant=)`` on a fabric of logical slots computing
+    on the card: the fair-share scheduler places its pod, the pod builds
+    the engine on the placed site's device, and the greedy tokens equal a
+    direct engine's on the same job, with flash in every prefill."""
+    _card()
+    import gc
+
+    from repro_torch.api import ServeJob, Session, runners
+    from repro_torch.core.metrics import Registry
+    from repro_torch.core.queue import WorkQueue
+    from repro_torch.fabric import Fabric, FederatedStore
+    from repro_torch.serving.report import GAUGES
+    from repro_torch.vcluster import FairShareScheduler, TenantSpec
+
+    fabric = Fabric(device="cuda")
+    fabric.add_site("gpu", devices=[0, 1], store_root=str(tmp_path / "gpu"))
+    fabric.add_site("edge", devices=[0], store_root=str(tmp_path / "edge"))
+    fabric.connect("gpu", "edge", gbps=10.0, latency_ms=1.0)
+    sched = FairShareScheduler(fed=FederatedStore(fabric), reconcile_s=0.01)
+    job = ServeJob(name="tenant-card", arch="phi4-mini-3.8b", smoke=False,
+                   n_requests=4, prompt_len=64, max_new_tokens=16, slots=2,
+                   gen_lens=(16, 3), paged=True, block_size=16)
+    before = fa.launches
+    with sched:
+        session = Session(tenant=sched.create_tenant(TenantSpec("chat")))
+        h = session.apply(job)
+        got = h.wait(600)
+    launched = fa.launches - before
+    results, site = got["results"], got["site"]
+    prefills = got["metrics"].series(GAUGES.PREFILL_S).stats()["count"]
+    session.forget(h)
+    del got, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = runners.build_engine(job, registry_out=Registry(),
+                                  device="cuda")
+    direct, _ = engine.run(WorkQueue(runners.serve_requests(job)),
+                           default_max_new=job.max_new_tokens)
+    del engine
+    assert site in ("gpu", "edge")
+    assert results == direct
+    assert [len(results[i]) for i in range(4)] == [16, 3, 16, 3]
+    assert prefills >= 1 and launched == 32 * prefills
+    assert sched.metrics.series("lease_device_s/tenant-chat").total > 0

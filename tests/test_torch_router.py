@@ -247,6 +247,42 @@ def test_scale_up_after_a_burst_serves_none_of_it(stack):
     assert served == {"replica-0": list(range(12)), "replica-1": []}
 
 
+@pytest.mark.parametrize("stack", ["jax", "port"])
+def test_a_capped_scale_up_leaves_no_scale_event(stack):
+    """A fault of the JAX router, copied as it is: when the capacity grant
+    clamps a scale-up to the replicas already running,
+    ``ReplicaSet.scale_to`` returns before recording anything, so neither
+    ``scale_events`` nor ``on_scale`` (a Session's ``replicas:
+    desired→observed`` detail) ever shows the desired count; only the
+    grant's own records do (the tenant scheduler's ``resized`` events,
+    ROADMAP queue C)."""
+    from repro.serving.router import ReplicaSet as JReplicaSet
+    asked, scaled = [], []
+
+    def capacity(want):
+        asked.append(want)
+        return 1                        # another tenant holds the rest
+
+    def on_scale(desired, observed, reason):
+        scaled.append((desired, observed, reason))
+
+    if stack == "jax":
+        rset = JReplicaSet(lambda name, reg: IdleEngine(reg),
+                           registry=JRegistry(), capacity=capacity,
+                           on_scale=on_scale)
+    else:
+        rset = ReplicaSet(idle, device="cpu", registry=Registry(),
+                          capacity=capacity, on_scale=on_scale)
+    try:
+        rset.scale_to(1, reason="startup")
+        rset.scale_to(2, reason="reconcile")
+        assert asked == [1, 2] and rset.observed() == 1
+        assert [e[1:] for e in rset.scale_events] == [(0, 1, "startup")]
+        assert scaled == [(1, 1, "startup")]
+    finally:
+        rset.scale_to(0, reason="shutdown")
+
+
 def test_router_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
