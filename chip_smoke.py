@@ -16,8 +16,16 @@ Phases (any failure raises and the script exits non-zero):
                launches enqueued while a sleep kernel holds the stream, so
                the host's launch cost is not counted; the median of three.
                Flash attention at phi4's prefill, zamba2's (dh 80),
-               granite-moe's (dh 64), the static batcher's (B=4) and
-               codeqwen1.5-7b's (H = KV = 32); xent forward and backward
+               granite-moe's (dh 64), the static batcher's (B=4),
+               codeqwen1.5-7b's (H = KV = 32), gemma2-9b's
+               (dh 256, softcap 50) local layer at 512 tokens (window
+               4096) and local and global at 5120, whisper's encoder (576
+               frames) and cross attention (384 against 576), the VLM's
+               cross attention (512 against 1600 patches), non-causal;
+               SDPA times only the rows without a softcap (it has none),
+               with the window as a mask; edge shapes include a window of
+               128 at Sq 96 against Sk 520 (bf16, f16), f32 at dh 256 and
+               Sq > Sk under a window; xent forward and backward
                at the train phase's loss chunk, and the backward with the RL learner's dy (zero on prompt rows
                and on a zero-advantage rollout, negative where the
                advantage is); AdamW at phi4's embedding; the SSD scan at
@@ -39,6 +47,10 @@ Phases (any failure raises and the script exits non-zero):
                included, card (kernels) against CPU (plain versions); then
                granite-moe smoke with two layers in f32: a prefill and 4
                decode steps, logits and the KV cache, card against CPU;
+               then gemma2 smoke (its window cut to 8, under the 100-token
+               prompt), whisper smoke and the VLM smoke (seeded image
+               embeddings, its gates seeded nonzero) in f32 alike, flash
+               once a layer of each prefill (whisper: 2 + 2 x 1);
   5. small-train — phi4 smoke in f32 with two layers: two train steps on the
                card (through the kernels) against the CPU (through the plain
                versions) on the same params and batches;
@@ -57,6 +69,17 @@ Phases (any failure raises and the script exits non-zero):
                request completes with its stop length, and the SSD kernel
                ran on all 54 zamba2 layers (flash on its 9 shared-attention
                layers) and WKV6 on all 24 rwkv6 layers of every full prefill;
+               then gemma2-9b (42 layers, 9.24 B) serves the mix paged with
+               the prefix cache as phase 6 (flash 42 a prefill, paged
+               tokens equal slotted) and one 5120-token request of 16 new
+               tokens on a 1-slot engine (past the 4096 window; finite
+               logits, flash 42); whisper-small (12 + 12 layers, prompt
+               padded to 384, 576 zero frames) and llama-3.2-vision at full
+               width cut to 5 layers (4 attn + 1 cross, 6.37 B) serve it
+               slotted, flash 36 and 5 a prefill; the VLM's weights then
+               get seeded nonzero gates and a forward with seeded image
+               embeddings holds each of its flash calls (the cross one
+               512 x 1600) against the plain version;
   8. train   — full-width phi4-mini-3.8b, random weights from seed 0 with
                the attention projections at their contracted fan-in: first
                the grads of the first batch in bf16 against f32 on the same
@@ -228,6 +251,19 @@ RL_ROLLOUTS, RL_STEPS, RL_BROADCAST, RL_LAG = 8, 4, 2, 2
 CODEQWEN = "codeqwen1.5-7b"
 CODEQWEN_ATTN = (1, 32, 32, PROMPT, PROMPT, 128)   # codeqwen's prefill
 CODEQWEN_REQUESTS, CODEQWEN_GEN = 4, 32
+# gemma2-9b (dh 256, window 4096 on its local layers, softcap
+# 50), whisper-small (encoder over PROMPT + GEN frames, the decoder's
+# prompt padded to decoder_len - GEN), llama-3.2-vision (1600 patches)
+GEMMA2, WHISPER, VLM = "gemma2-9b", "whisper-small", "llama-3.2-vision-90b"
+GEMMA2_WINDOW, GEMMA2_CAP = 4096, 50.0
+GEMMA2_ATTN = (1, 16, 8, PROMPT, PROMPT, 256)
+GEMMA2_LONG_PROMPT, GEMMA2_LONG_GEN = 5120, 16    # past the window
+GEMMA2_LONG = (1, 16, 8, GEMMA2_LONG_PROMPT, GEMMA2_LONG_PROMPT, 256)
+WHISPER_FRAMES, WHISPER_PAD = PROMPT + GEN, 448 - GEN
+WHISPER_ENC = (1, 12, 12, WHISPER_FRAMES, WHISPER_FRAMES, 64)
+WHISPER_CROSS = (1, 12, 12, WHISPER_PAD, WHISPER_FRAMES, 64)
+VLM_LAYERS = 5            # one pattern group: 6.37 B params; 100 is 87.4 B
+VLM_CROSS = (1, 64, 8, PROMPT, 1600, 128)
 SESSION_STEPS, SESSION_K, SESSION_CANCEL_STEPS, SESSION_CANCEL_AT = 4, 2, 40, 2
 # the TrainJobs' learning rate: the TrainJob's default (1e-3, one warmup
 # step) is a smoke model's; at full width its first Adam step raises the
@@ -354,81 +390,163 @@ def _time_cold_ms(fn, args_list, rounds: int = 4) -> float:
     return statistics.median(_device_ms(calls) for _ in range(3))
 
 
-def _attention_bound(B, H, KV, Sq, Sk, dh, causal, dtype):
+def _attention_bound(B, H, KV, Sq, Sk, dh, causal, dtype, window=None):
     """(bound_ms, bound_by): q, k, v read once and o written once, against
-    the score and PV products this mask needs (visible pairs only)."""
+    the score and PV products this mask needs (visible pairs only: below
+    the bottom-right diagonal and, under a window, inside it)."""
     item = torch.empty((), dtype=dtype).element_size()
     nbytes = item * (2 * B * H * Sq * dh + 2 * B * KV * Sk * dh)
     if causal:
-        pairs = sum(max(0, min(Sk, i + Sk - Sq + 1)) for i in range(Sq))
+        d = Sk - Sq
+        w = window or Sk + Sq
+        pairs = sum(max(0, min(Sk, i + d + 1) - max(0, i + d - w + 1))
+                    for i in range(Sq))
     else:
         pairs = Sq * Sk
     return _bound(nbytes, 4.0 * B * H * pairs * dh, dtype)
 
 
+def _sdpa(q, k, v, causal, window):
+    """The one PyTorch call computing the same function (no softcap):
+    SDPA, with the bottom-right window as a boolean mask where there is
+    one."""
+    g = q.shape[1] // k.shape[1]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window is None:
+        return lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=g > 1)
+    Sq, Sk = q.shape[2], k.shape[2]
+    i = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    j = torch.arange(Sk, device=q.device)[None, :]
+    mask = (j <= i) & (j > i - window)
+    return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=g > 1)
+
+
+def _flash_errs(got, want):
+    """(max abs error, max over query rows of the row's abs error over the
+    row's scale: its largest |want|, at least 1/16)."""
+    d = (got.float() - want.float()).abs()
+    scale = want.float().abs().amax(-1).clamp_min(1 / 16)
+    return d.max().item(), (d.amax(-1) / scale).max().item()
+
+
+def _flash_mutants_fail(fa, q, k, v, kw, want, tol, shape):
+    """Show that the row can fail a wrong kernel: the plain version without
+    the softcap, and with the window one 32-key tile (the dh 256 kernel's)
+    longer, must each miss ``want`` by more than the tolerance.  Only where
+    the feature bites: a window longer than every row's keys masks
+    nothing, so its mutant equals ``want``."""
+    mutants = {}
+    if kw["softcap"] is not None:
+        mutants["no softcap"] = dict(kw, softcap=None)
+    if kw["window"] is not None and kw["window"] < k.shape[2]:
+        mutants["window + 32"] = dict(kw, window=kw["window"] + 32)
+    for name, mkw in mutants.items():
+        _, miss = _flash_errs(fa.attention_plain(q, k, v, **mkw), want)
+        log(f"[kernels] flash_attention {shape}: a kernel with {name} "
+            f"would be off by {miss:.3g} row-scaled (tolerance {tol})")
+        if not miss > tol:
+            raise AssertionError(f"the check at {shape} cannot tell a "
+                                 f"kernel with {name}: {miss} <= {tol}")
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(main_shape):
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [  # (B, H, KV, Sq, Sk, dh, causal, dtype, tolerance)
-        main_shape + (True, torch.bfloat16, 2e-2),
-        ZAMBA_ATTN + (True, torch.bfloat16, 2e-2),               # dh 80
-        GRANITE_ATTN + (True, torch.bfloat16, 2e-2),             # dh 64
-        STATIC_ATTN + (True, torch.bfloat16, 2e-2),              # B=4
-        CODEQWEN_ATTN + (True, torch.bfloat16, 2e-2),            # KV = H
-        (2, 4, 2, 130, 130, 80, True, torch.float32, 2e-5),
-        (1, 24, 8, 300, 300, 128, True, torch.bfloat16, 2e-2),   # ragged
-        (2, 24, 8, 300, 300, 128, False, torch.bfloat16, 2e-2),
-        (1, 8, 2, 200, 200, 64, True, torch.float32, 2e-5),
-        (1, 8, 8, 96, 520, 128, True, torch.float16, 2e-2),      # Sq<Sk, KV==H
-        (2, 4, 4, 130, 130, 32, False, torch.float32, 2e-5),
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    cases = [  # (B, H, KV, Sq, Sk, dh, causal, dtype, tolerance, window, cap)
+        main_shape + (True, bf, 2e-2, None, None),
+        ZAMBA_ATTN + (True, bf, 2e-2, None, None),               # dh 80
+        GRANITE_ATTN + (True, bf, 2e-2, None, None),             # dh 64
+        STATIC_ATTN + (True, bf, 2e-2, None, None),              # B=4
+        CODEQWEN_ATTN + (True, bf, 2e-2, None, None),            # KV = H
+        # gemma2 (dh 256, window 4096, softcap 50),
+        # whisper's encoder and cross attention, the VLM's cross attention
+        GEMMA2_ATTN + (True, bf, 2e-2, GEMMA2_WINDOW, GEMMA2_CAP),
+        GEMMA2_LONG + (True, bf, 2e-2, GEMMA2_WINDOW, GEMMA2_CAP),
+        GEMMA2_LONG + (True, bf, 2e-2, None, GEMMA2_CAP),
+        WHISPER_ENC + (False, bf, 2e-2, None, None),
+        WHISPER_CROSS + (False, bf, 2e-2, None, None),
+        VLM_CROSS + (False, bf, 2e-2, None, None),
+        # edge shapes
+        (2, 4, 2, 130, 130, 80, True, f32, 2e-5, None, None),
+        (1, 24, 8, 300, 300, 128, True, bf, 2e-2, None, None),   # ragged
+        (2, 24, 8, 300, 300, 128, False, bf, 2e-2, None, None),
+        (1, 8, 2, 200, 200, 64, True, f32, 2e-5, None, None),
+        (1, 8, 8, 96, 520, 128, True, f16, 2e-2, None, None),    # Sq<Sk
+        (2, 4, 4, 130, 130, 32, False, f32, 2e-5, None, None),
+        (1, 8, 4, 96, 520, 256, True, bf, 2e-2, 128, None),      # a small
+        (1, 8, 4, 96, 520, 256, True, f16, 2e-2, 128, 50.0),     # window
+        (1, 4, 2, 700, 700, 256, True, f32, 2e-5, 128, 50.0),    # f32 dh 256
+        (1, 4, 2, 130, 60, 256, True, bf, 2e-2, 16, 50.0),       # Sq > Sk
     ]
     rows = []
-    for (B, H, KV, Sq, Sk, dh, causal, dtype, tol) in cases:
-        q = torch.randn(B, H, Sq, dh, generator=gen, device="cuda").to(dtype)
+    for (B, H, KV, Sq, Sk, dh, causal, dtype, tol, window, cap) in cases:
+        # with a softcap c, q is scaled by c so that the scores spread over
+        # +-c and the cap bends them (unit q and k give scores of N(0, 1),
+        # which a cap of 50 moves by less than 1e-2)
+        qs = cap if cap is not None and dtype != f32 else 1.0
+        q = (qs * torch.randn(B, H, Sq, dh, generator=gen,
+                              device="cuda")).to(dtype)
         k = torch.randn(B, KV, Sk, dh, generator=gen, device="cuda").to(dtype)
         v = torch.randn(B, KV, Sk, dh, generator=gen, device="cuda").to(dtype)
-        got = fa.flash_attention(q, k, v, causal=causal)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        want = fa.attention_plain(q, k, v, causal=causal)
-        err = (got.float() - want.float()).abs().max().item()
+        want = fa.attention_plain(q, k, v, **kw)
+        err, row_err = _flash_errs(got, want)
         shape = f"B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} dh={dh} " \
-                f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
-        log(f"[kernels] flash_attention {shape}: max_abs_err={err:.3g} "
-            f"(tolerance {tol})")
-        if not err <= tol:
+                f"{str(dtype)[6:]} {'causal' if causal else 'full'}" + \
+                (f" window={window}" if window else "") + \
+                (f" softcap={cap} q*{qs:g}" if cap else "")
+        # f32: absolute; f16/bf16: each query row's error over that row's
+        # scale (its largest |output|, at least 1/16).  Kernel and plain
+        # version each round P and the output once, about 2^-8 of the
+        # row's scale apiece, so small outputs (a long softmax's average)
+        # are held to their own scale, and large ones (q scaled by the cap
+        # picks single keys: |o| up to 5, where one rounding is 2^-5) are
+        # not failed for one rounding
+        held = err if dtype == f32 else row_err
+        rule = "absolute" if dtype == f32 else "of each row's scale"
+        log(f"[kernels] flash_attention {shape}: max_abs_err={err:.3g}, "
+            f"row-scaled {row_err:.3g} (tolerance {tol} {rule})")
+        if not held <= tol:
             raise AssertionError(f"flash_attention disagrees with its plain "
-                                 f"version at {shape}: {err} > {tol}")
-        rows.append((shape, err, q, k, v, causal))
+                                 f"version at {shape}: {held} > {tol}")
+        if dtype != f32:
+            _flash_mutants_fail(fa, q, k, v, kw, want, tol, shape)
+        rows.append((shape, err, q, k, v, kw))
+        del got, want
     timed = {}
-    for i, shape_args in ((0, main_shape), (1, ZAMBA_ATTN),
-                          (2, GRANITE_ATTN), (3, STATIC_ATTN),
-                          (4, CODEQWEN_ATTN)):
-        shape, err, q, k, v, causal = rows[i]
-        ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
-        plain_ms = _time_ms(lambda: fa.attention_plain(q, k, v,
-                                                       causal=causal))
-        g = q.shape[1] // k.shape[1]
-        library_ms = _time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=g > 1))
-        host_us = _host_us(lambda: fa.flash_attention(q, k, v,
-                                                      causal=causal))
-        bound_ms, bound_by = _attention_bound(*shape_args, causal, q.dtype)
+    for i in range(11):               # the main paths' shapes
+        shape, err, q, k, v, kw = rows[i]
+        ms = _time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        plain_ms = _time_ms(lambda: fa.attention_plain(q, k, v, **kw))
+        library_ms = None
+        if kw["softcap"] is None:     # SDPA has no softcap
+            library_ms = _time_ms(_sdpa(q, k, v, kw["causal"], kw["window"]))
+        host_us = _host_us(lambda: fa.flash_attention(q, k, v, **kw))
+        bound_ms, bound_by = _attention_bound(
+            *cases[i][:6], kw["causal"], q.dtype, kw["window"])
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"[kernels] flash timed at {shape}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}); the wrapper's host time "
-            f"{host_us:.1f} us a call")
+            f"{plain_ms:.4f} ms, sdpa {lib}, bound {bound_ms:.5f} ms "
+            f"({bound_by}); the wrapper's host time {host_us:.1f} us a call")
         timed[i] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": library_ms, "shape": shape,
                     "host_us": host_us}
+        torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:25",
             "launches": None, **timed[0],
-            "edge_shapes_max_abs_err": max(r[1] for r in rows[5:]),
+            "edge_shapes_max_abs_err": max(r[1] for r in rows[11:]),
             "zamba2_dh80": timed[1], "granite_dh64": timed[2],
-            "static_b4": timed[3], "codeqwen_kv32": timed[4]}
+            "static_b4": timed[3], "codeqwen_kv32": timed[4],
+            "gemma2_local_512": timed[5], "gemma2_local_5120": timed[6],
+            "gemma2_global_5120": timed[7], "whisper_encoder": timed[8],
+            "whisper_cross": timed[9], "vlm_cross": timed[10]}
 
 
 def _bound(nbytes: float, flops: float, dtype=torch.float32):
@@ -980,6 +1098,81 @@ def phase_small() -> None:
         raise AssertionError(f"smoke prefill on the card disagrees: {err}")
 
 
+def phase_small_families() -> None:
+    """gemma2 (the window shrunk to 8, below the 100-token prompt), whisper
+    and the VLM (seeded image embeddings, its cross block's gates set to
+    seeded nonzero values) smoke configs in f32: a B=1 prefill and 4 decode
+    steps through the flash kernel on the card against the plain versions
+    on the CPU, on the same params: every step's logits and the caches
+    after the last, within 1e-4 of their scale, and flash once a layer of
+    each prefill (whisper: encoder, decoder and cross attention)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import params as pr
+    from repro_torch.runtime import steps
+    for arch in (GEMMA2, WHISPER, VLM):
+        cfg = registry.get_smoke(arch).replace(param_dtype="float32",
+                                               compute_dtype="float32")
+        if arch == GEMMA2:
+            cfg = cfg.replace(attn=dataclasses.replace(cfg.attn, window=8))
+        cfg = steps.resolve_cfg(cfg, ShapeConfig("small", 104, 1, "prefill"))
+        mod = steps._model_module(cfg)
+        params = pr.init_params(mod.lm_schema(cfg),
+                                torch.Generator().manual_seed(1), "float32",
+                                "cpu")
+        gen = torch.Generator().manual_seed(2)
+        if arch == VLM:
+            blk = params["blocks"]["4_cross"]
+            for gate in ("gate_attn", "gate_mlp"):
+                blk[gate] = 0.5 + torch.rand(blk[gate].shape, generator=gen)
+        specs = steps.extras_specs(cfg, 1)
+        extras = None if specs is None else {
+            k: torch.randn(v.shape, generator=gen) for k, v in specs.items()}
+        T = 12 if arch == WHISPER else 100       # whisper: 16 positions
+        toks = torch.randint(1, cfg.vocab_size, (1, T), generator=gen)
+        nxt = torch.randint(1, cfg.vocab_size, (4, 1, 1), generator=gen)
+        runs = {}
+        before = fa.launches
+        for dev in ("cpu", "cuda"):
+            p_dev = _to(params, dev)
+            ex = None if extras is None else _to(extras, dev)
+            with torch.inference_mode():
+                last, small = steps.prefill_step(cfg, p_dev, toks.to(dev),
+                                                 extras=ex)
+                # whisper's self cache is decoder_len whatever S is, and
+                # its cross cache holds the encoder's frames
+                cache = steps.cache_batch_insert(
+                    steps.init_cache(cfg, 1, cfg.encoder_frames or T + 4,
+                                     dev), small, 0)
+                logits = [last]
+                for i in range(4):
+                    x, cache = mod.forward(cfg, p_dev, nxt[i].to(dev),
+                                           mode="decode", caches=cache,
+                                           pos=T + i)
+                    logits.append(mod.lm_logits(cfg, p_dev, x)[:, -1])
+            runs[dev] = ([t.cpu() for t in logits],
+                         [t.cpu() for t in steps.tree_leaves(cache)])
+        ran = fa.launches - before
+        errs = [(g - w).abs().max().item() / max(1.0, w.abs().max().item())
+                for g, w in zip(runs["cuda"][0] + runs["cuda"][1],
+                                runs["cpu"][0] + runs["cpu"][1])]
+        want_ran = (cfg.encoder_layers + 2 * cfg.num_layers
+                    if arch == WHISPER else cfg.num_layers)
+        log(f"[small] {arch} smoke f32 ({cfg.num_layers} layers"
+            f"{', window 8' if arch == GEMMA2 else ''}) prefill + 4 decode "
+            f"steps, card vs cpu: logits max error {max(errs[:5]):.3g} of "
+            f"their scale, cache {max(errs[5:]):.3g} (tolerance 1e-4); "
+            f"flash launches {ran} (want {want_ran})")
+        if not max(errs) <= 1e-4:
+            raise AssertionError(f"{arch} smoke on the card disagrees with "
+                                 f"the CPU: {errs}")
+        if ran != want_ran:
+            raise AssertionError(f"{arch} smoke flash launches {ran} != "
+                                 f"{want_ran}")
+
+
 def _prefill_errs(got, got_c, want, want_c):
     """(logits max abs error, cache leaves' max error relative to each
     leaf's scale) of one prefill against another."""
@@ -1190,11 +1383,13 @@ def _count_per_call(engine, counters):
     return per
 
 
-def phase_serve(smi: str, arch: str = ARCH):
-    """Full-width phi4 or granite-moe in bf16 serves 8 requests through the
-    paged pool with the prefix cache; flash runs on every layer of every
-    full prefill and granite's gmm 3 times a layer in every full prefill
-    and decode step; then paged equals slotted on a short run."""
+def phase_serve(smi: str, arch: str = ARCH, after=None):
+    """Full-width phi4, granite-moe or gemma2 in bf16 serves 8 requests
+    through the paged pool with the prefix cache; flash runs on every layer
+    of every full prefill and granite's gmm 3 times a layer in every full
+    prefill and decode step; then paged equals slotted on a short run.
+    ``after(cfg, params)`` runs on the served weights before they are
+    freed."""
     from repro_torch.configs import registry
     from repro_torch.core.queue import WorkQueue
     from repro_torch.kernels import flash_attention as fa
@@ -1307,6 +1502,9 @@ def phase_serve(smi: str, arch: str = ARCH):
         f"with slotted on {agree}/{len(reqs)}")
     if not same:
         raise AssertionError("paged greedy tokens differ from slotted")
+    serve["paged_equals_slotted"] = same
+    if after is not None:
+        serve.update(after(cfg, params))
     del params
     # which requests this run prefilled whole (the rest replayed a cached
     # prefix): the router phase compares its tokens on like paths
@@ -1314,34 +1512,97 @@ def phase_serve(smi: str, arch: str = ARCH):
     return serve, launches, {"results": results, "full": full}
 
 
-def phase_serve_ssm(smi: str, arch: str):
-    """Full-width zamba2 or rwkv6 in bf16 serves the phi4 phase's 8
-    requests through the slotted cache; the scan kernels (and zamba2's
-    flash) run on every layer of every full prefill."""
+def gemma2_long_request(cfg, params):
+    """One request of GEMMA2_LONG_PROMPT tokens and GEMMA2_LONG_GEN new ones
+    on a 1-slot engine (slotted: 1.8 GB of KV): past the 4096 window, so
+    the local layers' prefill (the kernel skips the k tiles left of each
+    q tile's band) and decode really mask.  A direct prefill of the prompt
+    gives finite logits; the request completes with its stop length and
+    flash once a layer of its prefill."""
+    from repro_torch.core.queue import WorkQueue
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime import steps
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.report import GAUGES
+    gen = torch.Generator().manual_seed(4)
+    prompt = torch.randint(1, cfg.vocab_size, (GEMMA2_LONG_PROMPT,),
+                           generator=gen).tolist()
+    with torch.inference_mode():
+        last, small = steps.prefill_step(cfg, params,
+                                         torch.tensor([prompt], device="cuda"))
+        finite = bool(torch.isfinite(last).all())
+    del small
+    engine = ServingEngine(cfg, device="cuda", num_slots=1,
+                           prompt_len=GEMMA2_LONG_PROMPT,
+                           max_new_tokens=GEMMA2_LONG_GEN, params=params,
+                           paged=False)
+    kv_gb = sum(leaf.numel() * leaf.element_size() for leaf in
+                steps.tree_leaves(engine._caches)) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    results, metrics = engine.run(WorkQueue([{
+        "id": 0, "prompt": prompt, "max_new_tokens": GEMMA2_LONG_GEN}]))
+    torch.cuda.synchronize()
+    ran = fa.launches
+    sm = metrics.summary()
+    row = {"long_prompt": GEMMA2_LONG_PROMPT,
+           "long_tokens": len(results.get(0, [])),
+           "long_logits_finite": finite, "long_flash": ran,
+           "long_kv_gb": kv_gb, "long_ttft_s": sm[GAUGES.TTFT_S]["p50"],
+           "long_tok_s": sm[GAUGES.TOK_S]["last"],
+           "long_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[serve:{GEMMA2}] one {GEMMA2_LONG_PROMPT}-token request, "
+        f"{GEMMA2_LONG_GEN} new (window {cfg.attn.window}): {row}")
+    del engine
+    if not (finite and row["long_tokens"] == GEMMA2_LONG_GEN
+            and ran == cfg.num_layers):
+        raise AssertionError(f"the long gemma2 request failed: {row}")
+    return row
+
+
+def phase_serve_slotted(smi: str, arch: str, layers: int = 0, after=None):
+    """Full-width zamba2, rwkv6, whisper or the VLM (``layers`` cuts the
+    depth) in bf16 serves the phi4 phase's 8 requests through the slotted
+    cache (their state, self and cross caches do not page): a full-width
+    prefill gives finite logits and caches, every request completes with
+    its stop length, and the kernels ran on every layer of every full
+    prefill: the scans on zamba2's and rwkv6's, flash on zamba2's 9
+    shared-attention layers, on whisper's 12 encoder, 12 decoder and 12
+    cross attentions, on all the VLM's layers (its cross attention
+    included).  ``after(cfg, params)`` runs on the served weights before
+    they are freed."""
     from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.queue import WorkQueue
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssm_scan, wkv6
     from repro_torch.models import params as pr
-    from repro_torch.models import transformer as tfm
     from repro_torch.runtime import steps
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.report import GAUGES
 
     torch.cuda.empty_cache()
     cfg = registry.get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    cfg = steps.resolve_cfg(cfg, ShapeConfig("serve", PROMPT + GEN, SLOTS,
+                                             "decode"))
+    schema = steps._model_module(cfg).lm_schema(cfg)
     t0 = time.perf_counter()
-    params = pr.init_params(tfm.lm_schema(cfg),
+    params = pr.init_params(schema,
                             torch.Generator(device="cuda").manual_seed(0),
                             cfg.param_dtype, "cuda")
     torch.cuda.synchronize()
-    n_params = pr.param_count(tfm.lm_schema(cfg))
+    n_params = pr.param_count(schema)
     log(f"[serve:{arch}] {n_params / 1e9:.3f} B params in bf16 on the card "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"in {time.perf_counter() - t0:.1f} s ({cfg.num_layers} layers)")
     reqs = _requests(cfg.vocab_size)
+    extras = steps.zero_extras(cfg, 1, "cuda")
+    pad = WHISPER_PAD if cfg.family == "audio" else PROMPT
     with torch.inference_mode():       # one full-width prefill: all finite
         last, small = steps.prefill_step(
-            cfg, params, torch.tensor([reqs[0]["prompt"]], device="cuda"))
+            cfg, params, torch.tensor([reqs[0]["prompt"][:pad]],
+                                      device="cuda"), extras=extras)
         finite = bool(torch.isfinite(last).all()) and all(
             bool(torch.isfinite(leaf).all())
             for leaf in steps.tree_leaves(small))
@@ -1352,7 +1613,7 @@ def phase_serve_ssm(smi: str, arch: str):
                            prompt_len=PROMPT, max_new_tokens=GEN,
                            params=params)
     if engine.paged:
-        raise AssertionError(f"{arch}'s state cache was paged")
+        raise AssertionError(f"{arch}'s cache was paged")
     engine.warmup()
     torch.cuda.synchronize()
     queue = WorkQueue(reqs)
@@ -1369,14 +1630,20 @@ def phase_serve_ssm(smi: str, arch: str):
     full_prefills = sm[GAUGES.PREFILL_S]["count"] - prefills_before
     want_tokens = sum(r["max_new_tokens"] for r in reqs)
     G = cfg.num_groups
-    layers = {k: G * sum(kind in kinds for kind in cfg.block_pattern)
-              for k, kinds in (("ssd_scan", ("mamba", "mamba_attn")),
-                               ("wkv6", ("rwkv",)),
-                               ("flash_attention", ("mamba_attn",)))}
-    want_launches = {k: n * full_prefills for k, n in layers.items()}
+    layers_of = {k: G * sum(kind in kinds for kind in cfg.block_pattern)
+                 for k, kinds in (("ssd_scan", ("mamba", "mamba_attn")),
+                                  ("wkv6", ("rwkv",)),
+                                  ("flash_attention", ("mamba_attn",)))}
+    if cfg.family == "audio":
+        layers_of["flash_attention"] = cfg.encoder_layers + 2 * cfg.num_layers
+    elif cfg.family == "vlm":
+        layers_of["flash_attention"] = cfg.num_layers
+    want_launches = {k: n * full_prefills for k, n in layers_of.items()}
     log(f"[serve:{arch}] completed {len(results)}/{len(reqs)}, tokens "
         f"{sm[GAUGES.TOKENS]['total']:.0f}/{want_tokens}, full prefills "
-        f"{full_prefills}, launches {launches} (want {want_launches})")
+        f"{full_prefills}, launches {launches} (want {want_launches}); "
+        f"{sm[GAUGES.TOK_S]['last']:.1f} tok/s, p50 TTFT "
+        f"{sm[GAUGES.TTFT_S]['p50']:.3f} s, peak {peak_gb:.2f} GB, {smi}")
     if sorted(results) != list(range(len(reqs))):
         raise AssertionError(f"requests not all completed: {sorted(results)}")
     if any(len(results[r["id"]]) != r["max_new_tokens"] for r in reqs):
@@ -1386,7 +1653,8 @@ def phase_serve_ssm(smi: str, arch: str):
     if launches != want_launches or full_prefills < 1:
         raise AssertionError(f"{arch} kernel launches {launches} != "
                              f"{want_launches}")
-    serve = {"arch": arch, "cache": "slotted", "requests": len(results),
+    serve = {"arch": arch, "cache": "slotted", "layers": cfg.num_layers,
+             "params_b": n_params / 1e9, "requests": len(results),
              "tokens": int(sm[GAUGES.TOKENS]["total"]),
              "tok_s": sm[GAUGES.TOK_S]["last"],
              "decode_tok_s": sm[GAUGES.DECODE_TOK_S]["last"],
@@ -1395,9 +1663,71 @@ def phase_serve_ssm(smi: str, arch: str):
              "wall_s": sm[GAUGES.WALL_S]["last"],
              "decode_steps": int(sm[GAUGES.DECODE_STEPS]["total"]),
              "full_prefills": full_prefills, "launches": launches,
+             "prefill_flash": layers_of["flash_attention"],
              "peak_mem_gb": peak_gb, "card": smi}
-    del engine, params
+    del engine
+    if after is not None:
+        serve.update(after(cfg, params))
+    del params
     return serve, launches
+
+
+def vlm_forward_check(cfg, params):
+    """The full-width VLM's cross block made live (seeded gates of 0.5 to
+    1.5 and seeded image embeddings, as the served mix, whose gates are the
+    reference init's zeros and whose embeddings are zeros, never makes it):
+    a bf16 prefill on the card gives finite logits, and each flash call of
+    it (the 4 self-attention layers and the cross attention, Sq 512
+    against 1600 patches) agrees with the plain version on its inputs
+    within 2e-2 of the output's scale (the reference init's residual
+    stream is far from unit scale at full width; one bf16 rounding of an
+    output of 128 is 1.0)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.runtime import steps
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    blk = params["blocks"]["4_cross"]
+    for gate in ("gate_attn", "gate_mlp"):
+        blk[gate].copy_(0.5 + torch.rand(blk[gate].shape, generator=gen,
+                                         device="cuda"))
+    img = torch.randn(1, cfg.num_patches, cfg.vision_dim, generator=gen,
+                      device="cuda").bfloat16()
+    toks = torch.randint(1, cfg.vocab_size, (1, PROMPT), generator=gen,
+                         device="cuda")
+    calls = []
+    real = attn_mod.flash_attention
+
+    def recording(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+    attn_mod.flash_attention = recording
+    try:
+        with torch.inference_mode():
+            last, _ = steps.prefill_step(cfg, params, toks,
+                                         extras={"image_embeds": img})
+            torch.cuda.synchronize()
+            errs = []
+            for q, k, v, kw, out in calls:
+                want = fa.attention_plain(q, k, v, **kw).float()
+                errs.append((out.float() - want).abs().max().item()
+                            / max(1.0, want.abs().max().item()))
+    finally:
+        attn_mod.flash_attention = real
+    cross = [i for i, c in enumerate(calls) if not c[3]["causal"]]
+    finite = bool(torch.isfinite(last).all())
+    log(f"[serve:{VLM}] live cross block (seeded gates and embeddings): "
+        f"logits finite {finite}; flash vs plain on each of its "
+        f"{len(calls)} calls: max error {max(errs):.3g} of the output's "
+        f"scale (tolerance 2e-2), "
+        f"the cross call (Sq {calls[cross[0]][0].shape[2]}, Sk "
+        f"{calls[cross[0]][1].shape[2]}) {errs[cross[0]]:.3g}")
+    if not (finite and len(calls) == cfg.num_layers and len(cross) == 1
+            and max(errs) <= 2e-2):
+        raise AssertionError(f"the VLM's live forward failed: finite "
+                             f"{finite}, calls {len(calls)}, errs {errs}")
+    return {"live_cross_max_err_of_scale": max(errs), "live_cross_calls":
+            len(calls)}
 
 
 def phase_train(smi: str):
@@ -3219,11 +3549,17 @@ def main() -> int:
     phase_small()
     phase_small_ssm()
     phase_small_moe()
+    phase_small_families()
     phase_small_train()
     serve, ran_phi4, phi4_run = phase_serve(smi)
     serve_granite, ran_granite, _ = phase_serve(smi, GRANITE)
-    serve_zamba, ran_zamba = phase_serve_ssm(smi, ZAMBA)
-    serve_rwkv, ran_rwkv = phase_serve_ssm(smi, RWKV)
+    serve_zamba, ran_zamba = phase_serve_slotted(smi, ZAMBA)
+    serve_rwkv, ran_rwkv = phase_serve_slotted(smi, RWKV)
+    serve_gemma2, ran_gemma2, _ = phase_serve(smi, GEMMA2,
+                                              after=gemma2_long_request)
+    serve_whisper, ran_whisper = phase_serve_slotted(smi, WHISPER)
+    serve_vlm, ran_vlm = phase_serve_slotted(smi, VLM, layers=VLM_LAYERS,
+                                             after=vlm_forward_check)
     flash["launches"] = ran_phi4["flash_attention"]
     ssd["launches"] = ran_zamba["ssd_scan"]
     wkv["launches"] = ran_rwkv["wkv6"]
@@ -3231,7 +3567,12 @@ def main() -> int:
     flash["launches_by_path"] = {
         f"{ARCH} serve": ran_phi4["flash_attention"],
         f"{GRANITE} serve": ran_granite["flash_attention"],
-        f"{ZAMBA} serve": ran_zamba["flash_attention"]}
+        f"{ZAMBA} serve": ran_zamba["flash_attention"],
+        f"{GEMMA2} serve": ran_gemma2["flash_attention"],
+        f"{GEMMA2} serve, {GEMMA2_LONG_PROMPT}-token request":
+            serve_gemma2["long_flash"],
+        f"{WHISPER} serve": ran_whisper["flash_attention"],
+        f"{VLM} serve ({VLM_LAYERS} layers)": ran_vlm["flash_attention"]}
     train, launches = phase_train(smi)
     elastic, elastic_launches = phase_elastic(smi)
     log(f"[disk] written so far {elastic['disk_written_gb']:.2f} GB")
@@ -3289,7 +3630,9 @@ def main() -> int:
         row["card"] = smi
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": {ARCH: serve, GRANITE: serve_granite,
-                                ZAMBA: serve_zamba, RWKV: serve_rwkv}}))
+                                ZAMBA: serve_zamba, RWKV: serve_rwkv,
+                                GEMMA2: serve_gemma2, WHISPER: serve_whisper,
+                                VLM: serve_vlm}}))
     print(json.dumps({"train": train}))
     print(json.dumps({"elastic": elastic}))
     print(json.dumps(router))

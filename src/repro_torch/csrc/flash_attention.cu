@@ -2,9 +2,15 @@
 //
 // Replaces the JAX package's Pallas TPU kernel
 // kernels/flash_attention.py:_flash_kernel (launched by flash_attention):
-//   out = softmax(q k^T * scale [causal]) v
+//   out = softmax(mask(softcap(q k^T * scale))) v
 // with an online max and sum over k tiles, f32 accumulators and row
-// statistics, and the result written in q's dtype.
+// statistics, and the result written in q's dtype.  The function is the
+// JAX model's (models/attention.py _qchunk_attention): the scores in f32,
+// c * tanh(s / c) when a softcap c is given, the mask, the softmax in f32
+// and P rounded to q's type before P V.  (The JAX einsum also rounds the
+// products q k^T to q's type before its f32 scale; the kernel keeps them
+// in f32, as the oracle does: a second rounding of each score would let
+// two f32 sums of another order round apart, one bf16 step of a score.)
 //
 // Layout: q (B,H,Sq,dh), k/v (B,KV,Sk,dh), o (B,H,Sq,dh), each given by its
 // (batch, head, seq) strides in elements with a unit stride on dh, so the
@@ -15,12 +21,17 @@
 //
 // Mask: the causal mask is bottom-right aligned like the oracle
 // (kernels/ref.py attention_ref, tril(k = Sk - Sq)): key j is visible to
-// query i iff j <= i + Sk - Sq.  Masked scores are NEG_INF (-1e30), as in
-// the oracle, so a fully masked row averages v uniformly there too; keys
-// past Sk (the ragged tail of the last tile) are -inf and add nothing.
-// When every row of a q tile sees key 0 (causal with Sq <= Sk), k tiles
-// wholly above the diagonal are skipped: their probabilities are exactly 0.
-// Head dims 16, 32, 64, 80 and 128 are instantiated.
+// query i iff j <= i + d, d = Sk - Sq; a sliding window w (gemma2's local
+// layers) also requires j > i + d - w, the JAX model's _mask on absolute
+// positions.  Non-causal attention (encoders, cross attention) masks
+// nothing and has no window.  Masked scores are NEG_INF (-1e30), as in the
+// oracle, so a fully masked row averages v uniformly there too; keys past
+// Sk (the ragged tail of the last tile) are -inf and add nothing.  When
+// every row of a q tile sees a key (i + d >= 0), the k tiles wholly above
+// its diagonal and, under a window, wholly left of its band are skipped:
+// their probabilities are exactly 0.  That skip is what makes a window
+// cheap: a q tile reads about w / 64 + 2 k tiles, not all of them.
+// Head dims 16, 32, 64, 80, 128 and 256 (gemma2) are instantiated.
 //
 // Bound on an H100 at phi4-mini prefill shapes (B=1, H=24, KV=8, S=512,
 // dh=128, bf16): q, k, v and o are 8.4 MB and the causal work 1.6 GFLOP,
@@ -31,13 +42,13 @@
 // f16/bf16: flash_fwd_mma, FlashAttention-2 style.  One block of 4 warps
 // owns one (batch, head, 64-row q tile); each warp owns 16 query rows, and
 // its Q fragments are loaded once and held in registers over the k loop.
-// K and V tiles of 64 keys are double-buffered in shared memory by
-// 16-byte cp.async copies (rows padded by 16 bytes, so ldmatrix hits all
-// 32 banks; rows past Sq and Sk are zero-filled), the next tile in flight
-// while this one is multiplied.  S = Q K^T is mma.sync m16n8k16 with f32
-// accumulators (K fragments through ldmatrix); the online max and sum run
-// on the accumulator fragments, with two quad shuffles for a row's max and
-// one reduction of its sum at the end; P is rounded to q's type in
+// K and V tiles of 64 keys (32 at dh 256) are double-buffered in shared
+// memory by 16-byte cp.async copies (rows padded by 16 bytes, so ldmatrix
+// hits all 32 banks; rows past Sq and Sk are zero-filled), the next tile
+// in flight while this one is multiplied.  S = Q K^T is mma.sync m16n8k16
+// with f32 accumulators (K fragments through ldmatrix); the online max and
+// sum run on the accumulator fragments, with two quad shuffles for a row's
+// max and one reduction of its sum at the end; P is rounded to q's type in
 // registers (as the JAX model rounds its probabilities to v's dtype before
 // P V) and fed straight back as the A operand of P V, whose V fragments
 // come through ldmatrix.trans.  dh 80 is five k16 steps.  Q and two K/V
@@ -48,6 +59,12 @@
 // heavy.  At phi4's prefill shape this is about 9x the byte
 // bound and 1.7x PyTorch's SDPA (PERF.md); wgmma with TMA and warp
 // specialization (FlashAttention-3's design) is the next step.
+// dh 256 (gemma2): a warp's O accumulator alone is 128 f32 registers a
+// thread, so Q is not held in registers there but reloaded from shared
+// memory by ldmatrix for each k tile (64 registers fewer, one ldmatrix
+// more per k16 step), and the K/V tiles hold 32 keys (an S tile of 16
+// registers instead of 32): Q and two K/V stages take 99 KB, two blocks
+// an SM.
 //
 // f32: flash_fwd, the CUDA-core kernel of the first port (one block of 256
 // threads per 64-row q tile, Q, K and V staged as f32 in shared memory,
@@ -111,15 +128,46 @@ struct Args {
   void* o;
   int B, H, KV, Sq, Sk;
   long long qs[3], ks[3], vs[3], os[3];  // (batch, head, seq) strides
-  float scale_log2;                       // softmax scale * log2(e)
+  // score in log2 units: x = s * qk_scale, then x = cap_log2 * tanh(x)
+  // when cap_log2 > 0 (softcap c: qk_scale = scale / c, cap_log2 =
+  // c log2(e); none: qk_scale = scale log2(e))
+  float qk_scale, cap_log2;
   int causal;
+  int window;                             // 0: none; only when causal
 };
+
+__device__ __forceinline__ float score_log2(float s, const Args& a) {
+  const float x = s * a.qk_scale;
+  return a.cap_log2 > 0.f ? a.cap_log2 * tanhf(x) : x;
+}
+
+// Whether causal masking hides key j from query i (d = Sk - Sq).
+__device__ __forceinline__ bool hidden(const Args& a, int i, int j, int d) {
+  return a.causal && (j > i + d || (a.window > 0 && j <= i + d - a.window));
+}
+
+// The k tiles [first, end) a q tile of `rows` rows from q0 must read: when
+// every one of its rows sees a key, the tiles above its diagonal and left
+// of its window band are skipped; otherwise a fully masked row must still
+// average all of v.
+__device__ __forceinline__ void k_tiles(const Args& a, int q0, int rows,
+                                        int tile, int& first, int& end) {
+  const int d = a.Sk - a.Sq;
+  int lo = 0, hi = a.Sk;
+  if (a.causal && q0 + d >= 0) {
+    hi = min(a.Sk, q0 + rows + d);
+    if (a.window > 0) lo = max(0, q0 + d - a.window + 1);
+  }
+  first = lo / tile;
+  end = (hi + tile - 1) / tile;
+}
 
 // ---------------------------------------------------------------- f32,
 // CUDA cores (the first port's kernel).  256 threads: for S = Q K^T each
 // thread owns a 4x4 micro-tile; for the softmax and for P V each warp owns
-// 8 query rows, and lane owns the output columns lane + 32 c.  Q is
-// pre-scaled by scale * log2(e), and exp2 replaces exp.
+// 8 query rows, and lane owns the output columns lane + 32 c.  Scores are
+// taken to log2 units (score_log2), and exp2 replaces exp.  At dh 256 the
+// staging is 209 KB of the 227 KB a block may opt into.
 
 template <int DH>
 constexpr int smem_floats() {
@@ -132,7 +180,7 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
   constexpr int QP = DH + 1;            // padded rows: no bank conflicts
   constexpr int SP = BK + 1;
   constexpr int NC = (DH + 31) / 32;    // output columns per lane
-  float* sQ = smem;                     // [BQ][QP], pre-scaled
+  float* sQ = smem;                     // [BQ][QP]
   float* sK = sQ + BQ * QP;             // [BK][QP]
   float* sV = sK + BK * QP;             // [BK][DH]
   float* sS = sV + BK * DH;             // [BQ][SP] scores, then probabilities
@@ -149,14 +197,11 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
 
   for (int idx = tid; idx < BQ * DH; idx += NT) {
     const int r = idx / DH, d = idx % DH, i = q0 + r;
-    sQ[r * QP + d] = i < a.Sq ? to_f(qp[i * a.qs[2] + d]) * a.scale_log2 : 0.f;
+    sQ[r * QP + d] = i < a.Sq ? to_f(qp[i * a.qs[2] + d]) : 0.f;
   }
 
-  // Skip k tiles wholly above the diagonal only when every query row sees
-  // key 0; otherwise a fully masked row must still average all of v.
-  int kv_end = a.Sk;
-  if (a.causal && diag >= 0) kv_end = min(a.Sk, q0 + BQ + diag);
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  int t_first, t_end;
+  k_tiles(a, q0, BQ, BK, t_first, t_end);
 
   const int r0 = warp * ROWS;           // this warp's rows (softmax, PV)
   const int tr = tid >> 4, tc = tid & 15;   // S micro-tile coordinates
@@ -169,7 +214,7 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
     for (int c = 0; c < NC; ++c) acc[rr][c] = 0.f;
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_first; t < t_end; ++t) {
     const int k0 = t * BK;
     __syncthreads();                    // last tile's sK/sV/sS reads done
     for (int idx = tid; idx < BK * DH; idx += NT) {
@@ -203,10 +248,10 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int j = k0 + tc + 16 * c;
-        float x = s[r][c];
+        float x = score_log2(s[r][c], a);
         if (j >= a.Sk)
           x = -INFINITY;
-        else if (a.causal && j > i + diag)
+        else if (hidden(a, i, j, diag))
           x = NEG_INF;
         sS[(tr * 4 + r) * SP + tc + 16 * c] = x;
       }
@@ -267,24 +312,27 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
 // tensor cores
 
 constexpr int MQ = 64;                 // query rows per block, 16 a warp
-constexpr int MK = 64;                 // keys per tile
 constexpr int MNT = 128;               // 4 warps
+// Keys per tile: 64, and 32 at dh 256, where a warp's O accumulator is
+// already 128 registers a thread: the smaller S tile keeps it from
+// spilling, and Q plus two K/V stages (99 KB) let two blocks share an SM.
+#define KEYS_PER_TILE(DH) ((DH) > 128 ? 32 : 64)
 
 template <int DH>
 constexpr int mma_smem_bytes() {       // Q, then K and V in two stages
-  return (MQ + 4 * MK) * (DH + 8) * 2;
+  return (MQ + 4 * KEYS_PER_TILE(DH)) * (DH + 8) * 2;
 }
 
-// Copies rows [row0, row0 + 64) of a (rows, DH) matrix with row stride
+// Copies rows [row0, row0 + ROWS) of a (rows, DH) matrix with row stride
 // `stride` into a padded tile, zero from row `limit` on.
-template <typename T, int DH>
+template <typename T, int DH, int ROWS>
 __device__ __forceinline__ void load_rows(T* dst, const T* src,
                                           long long stride, int row0,
                                           int limit, int tid) {
   constexpr int CH = DH / 8;           // 16-byte chunks a row
-  static_assert(64 * CH % MNT == 0, "whole chunks a thread");
+  static_assert(ROWS * CH % MNT == 0, "whole chunks a thread");
 #pragma unroll
-  for (int i = 0; i < 64 * CH / MNT; ++i) {
+  for (int i = 0; i < ROWS * CH / MNT; ++i) {
     const int c = tid + i * MNT;
     const int r = c / CH, col = (c % CH) * 8;
     const bool in = row0 + r < limit;
@@ -298,6 +346,7 @@ __global__ void __launch_bounds__(MNT) flash_fwd_mma(Args a, int q_tiles,
                                                      int first_wave) {
   constexpr int LD = DH + 8;           // padded row, elements
   constexpr int KS = DH / 16;          // k16 steps of Q K^T, n16 pairs of P V
+  constexpr int MK = KEYS_PER_TILE(DH);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);   // [MQ][LD]
   T* sK = sQ + MQ * LD;                     // [2][MK][LD]
@@ -321,16 +370,13 @@ __global__ void __launch_bounds__(MNT) flash_fwd_mma(Args a, int q_tiles,
   T* op = static_cast<T*>(a.o) + b * a.os[0] + h * a.os[1];
   const int diag = a.Sk - a.Sq;         // j visible to i iff j <= i + diag
 
-  // Skip k tiles wholly above the diagonal only when every query row sees
-  // key 0; otherwise a fully masked row must still average all of v.
-  int kv_end = a.Sk;
-  if (a.causal && diag >= 0) kv_end = min(a.Sk, q0 + MQ + diag);
-  const int n_tiles = (kv_end + MK - 1) / MK;
+  int t_first, t_end;
+  k_tiles(a, q0, MQ, MK, t_first, t_end);
 
-  load_rows<T, DH>(sQ, qp, a.qs[2], q0, a.Sq, tid);
+  load_rows<T, DH, MQ>(sQ, qp, a.qs[2], q0, a.Sq, tid);
   tc::cp_async_commit();
-  load_rows<T, DH>(sK, kp, a.ks[2], 0, a.Sk, tid);
-  load_rows<T, DH>(sV, vp, a.vs[2], 0, a.Sk, tid);
+  load_rows<T, DH, MK>(sK, kp, a.ks[2], t_first * MK, a.Sk, tid);
+  load_rows<T, DH, MK>(sV, vp, a.vs[2], t_first * MK, a.Sk, tid);
   tc::cp_async_commit();
 
   // ldmatrix lane offsets.  A fragments (Q) and V (transposed): rows
@@ -341,13 +387,16 @@ __global__ void __launch_bounds__(MNT) flash_fwd_mma(Args a, int q_tiles,
   const int g = lane >> 2, qd = lane & 3;
   const int i0 = q0 + warp * 16 + g;    // this lane's rows: i0 and i0 + 8
 
-  // Q fragments, held in registers over the whole k loop
+  // Q fragments, held in registers over the whole k loop up to dh 128
+  constexpr bool QREG = DH <= 128;     // dh 256: O alone is 128 registers
   tc::cp_async_wait<1>();
   __syncthreads();
-  uint32_t qf[KS][4];
+  uint32_t qf[QREG ? KS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    tc::ldmatrix_x4(qf[ks], sQ + (warp * 16 + ar) * LD + ks * 16 + ac);
+    for (int ks = 0; ks < KS; ++ks)
+      tc::ldmatrix_x4(qf[ks], sQ + (warp * 16 + ar) * LD + ks * 16 + ac);
+  }
 
   float o[DH / 8][4];
 #pragma unroll
@@ -356,13 +405,13 @@ __global__ void __launch_bounds__(MNT) flash_fwd_mma(Args a, int q_tiles,
     for (int r = 0; r < 4; ++r) o[n][r] = 0.f;
   float m_row[2] = {NEG_INF, NEG_INF}, l_row[2] = {0.f, 0.f};
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {
-      load_rows<T, DH>(sK + (buf ^ 1) * MK * LD, kp, a.ks[2], (t + 1) * MK,
-                       a.Sk, tid);
-      load_rows<T, DH>(sV + (buf ^ 1) * MK * LD, vp, a.vs[2], (t + 1) * MK,
-                       a.Sk, tid);
+  for (int t = t_first; t < t_end; ++t) {
+    const int buf = (t - t_first) & 1;
+    if (t + 1 < t_end) {
+      load_rows<T, DH, MK>(sK + (buf ^ 1) * MK * LD, kp, a.ks[2],
+                           (t + 1) * MK, a.Sk, tid);
+      load_rows<T, DH, MK>(sV + (buf ^ 1) * MK * LD, vp, a.vs[2],
+                           (t + 1) * MK, a.Sk, tid);
     }
     tc::cp_async_commit();
     tc::cp_async_wait<1>();
@@ -377,30 +426,40 @@ __global__ void __launch_bounds__(MNT) flash_fwd_mma(Args a, int q_tiles,
       for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qk[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qk[e] = qf[ks][e];
+      } else {
+        tc::ldmatrix_x4(qk, sQ + (warp * 16 + ar) * LD + ks * 16 + ac);
+      }
 #pragma unroll
       for (int np = 0; np < MK / 16; ++np) {
         uint32_t bk[4];
         tc::ldmatrix_x4(bk, kb + (np * 16 + kr) * LD + ks * 16 + kc);
-        tc::mma16816<T>(s[2 * np], qf[ks], bk[0], bk[1]);
-        tc::mma16816<T>(s[2 * np + 1], qf[ks], bk[2], bk[3]);
+        tc::mma16816<T>(s[2 * np], qk, bk[0], bk[1]);
+        tc::mma16816<T>(s[2 * np + 1], qk, bk[2], bk[3]);
       }
     }
 
-    // Scores in log2 units; mask only the tiles that cross an edge.
+    // Scores in log2 units (softcapped); mask only the tiles that cross an
+    // edge: the ragged tail, the diagonal or the window's left edge.
     const int k0 = t * MK;
     const bool edge =
-        k0 + MK > a.Sk || (a.causal && k0 + MK - 1 > q0 + diag);
+        k0 + MK > a.Sk ||
+        (a.causal && (k0 + MK - 1 > q0 + diag ||
+                      (a.window > 0 && k0 <= q0 + MQ - 1 + diag - a.window)));
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < MK / 8; ++j) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        float x = s[j][r] * a.scale_log2;
+        float x = score_log2(s[j][r], a);
         if (edge) {
           const int key = k0 + j * 8 + 2 * qd + (r & 1);
           if (key >= a.Sk)
             x = -INFINITY;
-          else if (a.causal && key > i0 + (r >> 1) * 8 + diag)
+          else if (hidden(a, i0 + (r >> 1) * 8, key, diag))
             x = NEG_INF;
         }
         s[j][r] = x;
@@ -494,6 +553,7 @@ cudaError_t launch_mma_dh(const Args& a, int dh, cudaStream_t stream) {
     case 64: return launch_mma<T, 64>(a, stream);
     case 80: return launch_mma<T, 80>(a, stream);   // zamba2's shared attention
     case 128: return launch_mma<T, 128>(a, stream);
+    case 256: return launch_mma<T, 256>(a, stream);  // gemma2
     default: return cudaErrorInvalidValue;
   }
 }
@@ -520,6 +580,7 @@ cudaError_t launch_dh(const Args& a, int B, int dh, cudaStream_t stream) {
     case 64: return launch<T, 64>(a, B, stream);
     case 80: return launch<T, 80>(a, B, stream);    // zamba2's shared attention
     case 128: return launch<T, 128>(a, B, stream);
+    case 256: return launch<T, 256>(a, B, stream);    // 209 KB of staging
     default: return cudaErrorInvalidValue;
   }
 }
@@ -528,14 +589,17 @@ cudaError_t launch_dh(const Args& a, int B, int dh, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16 (q, k, v and o alike).
 // strides: 12 element strides, (batch, head, seq) of q, k, v, then o.
+// window: 0 for none, else the sliding window (used only when causal);
+// softcap: 0 for none, else c > 0.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* o, int dtype,
                                          int B, int H, int KV, int Sq, int Sk,
                                          int dh, const long long* strides,
-                                         float scale, int causal,
-                                         void* stream) {
-  if (B < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1)
+                                         float scale, int causal, int window,
+                                         float softcap, void* stream) {
+  if (B < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 || window < 0 ||
+      !(softcap >= 0.f))
     return cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -553,8 +617,10 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
     a.vs[i] = strides[6 + i];
     a.os[i] = strides[9 + i];
   }
-  a.scale_log2 = scale * LOG2E;
+  a.qk_scale = softcap > 0.f ? scale / softcap : scale * LOG2E;
+  a.cap_log2 = softcap > 0.f ? softcap * LOG2E : 0.f;
   a.causal = causal;
+  a.window = causal ? window : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_dh<float>(a, B, dh, s);

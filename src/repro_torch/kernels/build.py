@@ -35,7 +35,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             [_c_ptr, _c_ptr, _c_ptr, _c_ptr,                 # q k v o
              _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
              ctypes.POINTER(ctypes.c_longlong),              # 12 strides
-             ctypes.c_float, _c_int, _c_ptr],                # scale causal stream
+             ctypes.c_float, _c_int, _c_int,                 # scale causal window
+             ctypes.c_float, _c_ptr],                        # softcap stream
             _c_int),
     },
     "xent": {

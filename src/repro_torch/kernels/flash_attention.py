@@ -5,7 +5,14 @@ Replaces the JAX package's Pallas TPU kernel
 ``flash_attention``): ``softmax(q k^T * scale [causal]) v`` with an online
 max and sum over k tiles and f32 accumulators, written in q's dtype.  The
 CUDA source is ``repro_torch/csrc/flash_attention.cu``; its header says how
-the Pallas grid maps onto CUDA blocks.
+the Pallas grid maps onto CUDA blocks.  Beyond the Pallas kernel it
+computes what the JAX model's attention computes (``models/attention.py``
+``_qchunk_attention``) for every family the port serves: a logit softcap
+``c * tanh(s / c)`` on the scaled scores (gemma2: 50), a sliding window
+on the causal mask (gemma2's local layers: key j visible to query i iff
+``i + d - w < j <= i + d``, d = Sk - Sq), non-causal attention with
+Sq != Sk (whisper's encoder and cross attention, the VLM's cross layers)
+and head dim 256 (gemma2).
 
 What bounds it on an H100: at phi4-mini prefill shapes (B=1, H=24, KV=8,
 S=512, dh=128, bf16) the inputs and output are 8.4 MB against 1.6 GFLOP of
@@ -29,6 +36,8 @@ Differences from the Pallas kernel, on purpose:
     aligned and disagrees with its own oracle when Sq < Sk.
   * Sq and Sk need not be multiples of the tile: the ragged edge is masked
     inside the kernel.
+  * Under a window the kernel skips the k tiles left of every row's band,
+    so a q tile reads about w / 64 + 2 k tiles whatever Sk is.
 
 On a CPU tensor the wrapper runs the plain version (``attention_plain``);
 on a CUDA tensor it launches the kernel or raises.
@@ -40,9 +49,9 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 80, 128)   # 80: zamba2's shared attention
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # 80: zamba2; 256: gemma2
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 launches = 0          # kernel launches in this process (chip_smoke reads it)
@@ -64,19 +73,52 @@ def _check(q, k, v):
         raise ValueError("empty sequence")
 
 
-def attention_plain(q, k, v, *, causal: bool = True, scale=None):
-    """The kernel's plain version: the oracle with KV heads expanded
-    (head h reads KV head h // (H // KV))."""
+def _check_features(window, softcap):
+    if window is not None and (int(window) != window or window < 1):
+        raise ValueError(f"window {window!r}: a positive int or None")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap {softcap!r}: a positive float or None")
+
+
+def attention_plain(q, k, v, *, causal: bool = True, scale=None,
+                    window=None, softcap=None):
+    """The kernel's plain version: the oracle (``ref.attention_ref``) with
+    KV heads expanded (head h reads KV head h // (H // KV)), the JAX
+    model's softcap and window, and P rounded as the kernel and the JAX
+    model round it.  The scores are ``q k^T * scale`` in f32; with a
+    softcap c they become ``c * tanh(s / c)``; with a window w (causal
+    only, as in the JAX model) key j is visible to query i iff
+    ``i + d - w < j <= i + d``, d = Sk - Sq; masked scores are -1e30; the
+    softmax runs in f32 and P is rounded to v's dtype before P V.  In f32,
+    without a window or a softcap, that is the oracle bit for bit."""
     _check(q, k, v)
+    _check_features(window, softcap)
     g = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(g, dim=1)
     v = v.repeat_interleave(g, dim=1)
-    return ref.attention_ref(q, k, v, causal=causal, scale=scale)
+    Sq, Sk, dh = q.shape[2], k.shape[2], q.shape[3]
+    scale = dh ** -0.5 if scale is None else scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    if causal:
+        i = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        j = torch.arange(Sk, device=q.device)[None, :]
+        mask = j <= i
+        if window is not None:
+            mask &= j > i - window
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, scale=None) -> torch.Tensor:
+                    causal: bool = True, scale=None, window=None,
+                    softcap=None) -> torch.Tensor:
     """q (B,H,Sq,dh); k/v (B,KV,Sk,dh) -> (B,H,Sq,dh) in q.dtype.
+
+    ``window`` (an int, causal only: ignored without ``causal``, as in the
+    JAX model) and ``softcap`` (a float c > 0) follow ``attention_plain``.
 
     The inputs may be strided views (e.g. ``x.transpose(1, 2)`` of a
     (B,S,H,dh) projection) as long as dh is contiguous, and in f16/bf16
@@ -86,8 +128,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     global launches
     _check(q, k, v)
+    _check_features(window, softcap)
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, scale=scale)
+        return attention_plain(q, k, v, causal=causal, scale=scale,
+                               window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     B, H, Sq, dh = q.shape
@@ -115,7 +159,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rc = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, dh, strides,
-            scale, int(causal), stream)
+            scale, int(causal), int(window or 0) if causal else 0,
+            float(softcap or 0.0), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention launch failed: CUDA error {rc}")
     with _launches_lock:

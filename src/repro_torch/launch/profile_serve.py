@@ -1,13 +1,17 @@
 """Where serving time goes on the card: one prefill and a few decode steps.
 
     python -m repro_torch.launch.profile_serve [--arch granite-moe-1b-a400m]
+    python -m repro_torch.launch.profile_serve --arch llama-3.2-vision-90b \
+        --layers 5
 
 Builds the full-width serving engine of ``--arch`` (default
 ``phi4-mini-3.8b``; bf16, random weights from ``SEED``, ``SLOTS`` slots:
 the paged pool where the cache pages, the slotted cache for the
-recurrent-state families), runs one untimed prefill and decode step, then
-times one B=1 prefill of ``PROMPT`` tokens and ``STEPS`` fused decode
-steps under ``torch.profiler``.  For each phase it prints one JSON line:
+recurrent-state, encoder-decoder and VLM families; ``--layers`` cuts the
+depth, which the 100-layer VLM needs to fit one card), runs one untimed
+prefill and decode step, then times one B=1 prefill of ``PROMPT`` tokens
+(whisper's engine pads it to ``decoder_len - GEN``) and ``STEPS`` fused
+decode steps under ``torch.profiler``.  For each phase it prints one JSON line:
 host wall time, device busy time (the union of kernel intervals), the
 device's idle share of the window, the kernel count, the time of each of
 the port's own kernels (flash, SSD, WKV6, gmm) and their share of busy
@@ -90,8 +94,12 @@ def _phase(name: str, fn) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="phi4-mini-3.8b", choices=registry.ARCHS)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the config's)")
     args = ap.parse_args(argv)
     cfg = registry.get_config(args.arch)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     paged = steps_mod.paged_compatible(cfg, PROMPT + GEN, BLOCK)
     engine = ServingEngine(cfg, device="cuda", num_slots=SLOTS,
                            prompt_len=PROMPT, max_new_tokens=GEN, seed=SEED,
@@ -102,20 +110,22 @@ def main(argv=None) -> None:
             engine._tables[s, :nb + 1] = 1 + s * (nb + 1) + np.arange(nb + 1)
     prompt = torch.randint(1, cfg.vocab_size, (PROMPT,),
                            generator=torch.Generator().manual_seed(1)).tolist()
+    at = engine.prompt_pad
     engine.prefill_into(0, prompt)
-    engine.decode_step([1] * SLOTS, [PROMPT] * SLOTS)
+    engine.decode_step([1] * SLOTS, [at] * SLOTS)
     rows = [_phase("prefill", lambda: engine.prefill_into(0, prompt))]
 
     def decode():
         for i in range(STEPS):
-            engine.decode_step([1] * SLOTS, [PROMPT + i] * SLOTS)
+            engine.decode_step([1] * SLOTS, [at + i] * SLOTS)
     rows.append(_phase(f"decode x{STEPS}", decode))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
         check=True).stdout.strip().splitlines()[0]
     for row in rows:
-        print(json.dumps(dict(row, arch=args.arch, paged=paged, card=card)))
+        print(json.dumps(dict(row, arch=args.arch, layers=cfg.num_layers,
+                              paged=paged, card=card)))
 
 
 if __name__ == "__main__":

@@ -20,6 +20,10 @@ JAX package instead: lease a batch, prefill its rows together, decode
 until the LONGEST request in the batch finishes, truncate each request at
 its stop length, ack, repeat.  It is the serving benchmark's baseline,
 not a workload kind, so it takes no ``--manifest``.
+
+Every arch of the port's registry serves here; the encoder-decoder and
+the VLM get their zero stubs (``steps.zero_extras``), and whisper's
+static prompts are ``decoder_len`` tokens long, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -32,12 +36,12 @@ import torch
 
 from repro_torch.api import ServeJob, Session
 from repro_torch.configs import registry
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.metrics import Registry, table_one
 from repro_torch.core.orchestrator import Cluster
 from repro_torch.device import resolve_device
 from repro_torch.launch import cli
 from repro_torch.models import params as pr
-from repro_torch.models import transformer as tfm
 from repro_torch.runtime import steps as steps_mod
 from repro_torch.serving.report import (GAUGES, record_serving_totals,
                                         request_queue, serving_report)
@@ -73,25 +77,32 @@ def serve_static(arch: str, *, smoke: bool, n_requests: int, prompt_len: int,
     Each leased batch of up to ``batch`` requests is prefilled as one
     (batch, prompt_len) block (rows padded with token 1, empty rows too),
     its prompt-length cache spliced into the front of a full-length one,
-    and decoded until its longest request's stop length; every member is
-    then truncated to its own stop length and acked, and the next batch
-    forms.  ``params`` defaults to a draw from ``seed``; ``cfg_override``
-    replaces the arch's config.  Returns ``(results, metrics)``.
+    and decoded until its longest request's stop length, every row at one
+    position (a scalar, as the reference's whole-batch decode: a write
+    past the cache clamps onto its last row); every member is then
+    truncated to its own stop length and acked, and the next batch forms.
+    ``params`` defaults to a draw from ``seed``; ``cfg_override`` replaces
+    the arch's config.  Returns ``(results, metrics)``.
     """
     dev = resolve_device(device)
     cfg = cfg_override if cfg_override is not None else (
         registry.get_smoke(arch) if smoke else registry.get_config(arch))
+    S = prompt_len + gen
+    shape = ShapeConfig("serve", S, batch, "prefill")
+    cfg = steps_mod.resolve_cfg(cfg, shape)
     if params is None:
         params = pr.init_params(
-            tfm.lm_schema(cfg), torch.Generator(device=dev).manual_seed(seed),
-            cfg.param_dtype, dev)
-    S = prompt_len + gen
-    T = prompt_len
+            steps_mod._model_module(cfg).lm_schema(cfg),
+            torch.Generator(device=dev).manual_seed(seed), cfg.param_dtype,
+            dev)
+    T = steps_mod.token_len(cfg, shape) if cfg.family == "audio" \
+        else prompt_len
+    extras = steps_mod.zero_extras(cfg, batch, dev)
     metrics = Registry()
 
     def prefill(prompts):
         last, small = steps_mod.prefill_step(
-            cfg, params, torch.as_tensor(prompts, device=dev))
+            cfg, params, torch.as_tensor(prompts, device=dev), extras=extras)
         caches = steps_mod.cache_prefix_insert(
             steps_mod.init_cache(cfg, batch, S, dev), small)
         return last.argmax(dim=-1).to(torch.int32)[:, None], caches
@@ -99,7 +110,7 @@ def serve_static(arch: str, *, smoke: bool, n_requests: int, prompt_len: int,
     def decode(caches, tok, pos):
         return steps_mod.slot_decode_step(
             cfg, params, caches, tok,
-            torch.full((batch,), pos, dtype=torch.int64, device=dev))
+            torch.tensor(pos, dtype=torch.int64, device=dev))
 
     results: Dict[int, list] = {}
     t_start = time.perf_counter()

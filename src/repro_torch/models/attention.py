@@ -2,8 +2,11 @@
 
 Prefill (``causal_attention``) runs the port's flash kernel
 (``repro_torch.kernels.flash_attention``) on CUDA tensors, and the same
-wrapper's plain version (``ref.attention_ref`` with KV heads expanded) on
-CPU tensors.  The JAX package computes the same function in XLA
+wrapper's plain version (``attention_plain``: the oracle with KV heads
+expanded and P rounded as the kernel rounds it) on CPU tensors, with
+gemma2's sliding window and logit softcap
+and, with ``causal=False``, the encoders' and cross attention's unmasked
+Sq != Sk case.  The JAX package computes the same function in XLA
 (``models/attention.py`` ``_qchunk_attention``); its Pallas kernel is the
 hot-spot form of it.  Training (``train_attention``) is a plain PyTorch
 port of ``_qchunk_attention``, differentiable, because the JAX package
@@ -48,27 +51,23 @@ def qkv_proj(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
-def _unsupported(window, logit_softcap):
-    if window is not None or logit_softcap is not None:
-        raise NotImplementedError(
-            "sliding-window and softcapped attention (gemma2) arrive with "
-            "the gemma2 slice of the port (ROADMAP queue A, other model "
-            "families); the flash kernel has neither yet")
-
-
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: Optional[int] = None,
                      logit_softcap: Optional[float] = None,
                      causal: bool = True) -> torch.Tensor:
-    """q (B,Sq,H,dh); k,v (B,Sk,KV,dh) -> (B,Sq,H,dh)."""
-    _unsupported(window, logit_softcap)
+    """q (B,Sq,H,dh); k,v (B,Sk,KV,dh) -> (B,Sq,H,dh).  ``window`` applies
+    only when ``causal``, as in the JAX model's mask."""
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal)
+                          v.transpose(1, 2), causal=causal, window=window,
+                          softcap=logit_softcap)
     return out.transpose(1, 2)
 
 
-def _mask(qpos: torch.Tensor, kpos: torch.Tensor,
-          window: Optional[int]) -> torch.Tensor:
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, window: Optional[int],
+          causal: bool = True) -> torch.Tensor:
+    if not causal:
+        return torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                          device=qpos.device)
     m = kpos[None, :] <= qpos[:, None]
     if window is not None:
         m &= kpos[None, :] > qpos[:, None] - window
@@ -78,8 +77,10 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor,
 def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None,
                     logit_softcap: Optional[float] = None,
-                    chunk: int = 512) -> torch.Tensor:
-    """q (B,S,H,dh); k,v (B,S,KV,dh) -> (B,S,H,dh), causal, differentiable.
+                    chunk: int = 512, causal: bool = True) -> torch.Tensor:
+    """q (B,Sq,H,dh); k,v (B,Sk,KV,dh) -> (B,Sq,H,dh), differentiable;
+    causal (top-left aligned, as the JAX model's mask) unless ``causal`` is
+    False (encoders, cross attention).
 
     The reference's q-chunked attention (``_qchunk_attention``): scores in
     f32 after the product in the compute dtype, the -1e30 mask, the
@@ -102,8 +103,8 @@ def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.einsum("bckgd,bskd->bkgcs", qs, k).float() * scale
         s = softcap(s, logit_softcap)
         qpos = i * chunk + torch.arange(chunk, device=q.device)
-        s = torch.where(_mask(qpos, kpos, window)[None, None, None], s,
-                        NEG_INF)
+        s = torch.where(_mask(qpos, kpos, window, causal)[None, None, None],
+                        s, NEG_INF)
         p = torch.softmax(s, dim=-1).to(v.dtype)
         return torch.einsum("bkgcs,bskd->bckgd", p, v)
 
@@ -119,19 +120,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      logit_softcap: Optional[float] = None,
                      causal: bool = True) -> torch.Tensor:
     """One-token attention against a (B,S,KV,dh) cache.  ``pos`` is a
-    scalar or a (B,) tensor: row b sees cache positions <= pos[b]."""
-    _unsupported(window, logit_softcap)
+    scalar or a (B,) tensor: row b sees cache positions <= pos[b], and
+    under a window only those > pos[b] - window; ``causal=False`` sees the
+    whole cache (cross attention).  The softcap follows the scale."""
     B, _, H, dh = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     g = H // KV
     scale = dh ** -0.5
     qr = q.reshape(B, KV, g, dh)
     s = torch.einsum("bkgd,bskd->bkgs", qr, k_cache).float() * scale
+    s = softcap(s, logit_softcap)
     kpos = torch.arange(S, device=q.device)
     pos_col = torch.as_tensor(pos, device=q.device).reshape(-1, 1)
     mask = kpos[None] <= pos_col                     # (1|B, S)
     if not causal:
         mask = torch.ones_like(mask)
+    if window is not None and causal:
+        mask &= kpos[None] > pos_col - window
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)

@@ -145,7 +145,7 @@ def moe_block_schema(cfg: ModelConfig, G: int) -> Dict[str, PSpec]:
 
 
 def apply_moe_block(cfg: ModelConfig, p, x, *, mode, positions, cache, pos,
-                    shared):
+                    shared, extras=None):
     """Attention sub-block, then the routed MLP.  -> (x, new_cache); the
     aux loss is not computed (serving has no use for it)."""
     from repro_torch.models.transformer import attention_part

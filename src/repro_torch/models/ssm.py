@@ -90,7 +90,7 @@ def _silu_f32(x, cd):
 
 
 def apply_mamba(cfg: ModelConfig, p, x, *, mode, positions, cache, pos,
-                shared):
+                shared, extras=None):
     d_in, H, hd, N, K = _mamba_dims(cfg)
     cd = compute_dtype(cfg)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -155,7 +155,7 @@ def mamba_attn_cache_schema(cfg: ModelConfig, B: int, S: int, G: int):
 
 
 def apply_mamba_attn(cfg: ModelConfig, p, x, *, mode, positions, cache, pos,
-                     shared):
+                     shared, extras=None):
     """Mamba block followed by the *shared* attention block (zamba2)."""
     from repro_torch.models.transformer import attention_part, mlp_part
     mcache = None if cache is None else {k: cache[k] for k in ("conv", "state")}
@@ -230,7 +230,7 @@ def _token_shift(x, prev):
 
 
 def apply_rwkv(cfg: ModelConfig, p, x, *, mode, positions, cache, pos,
-               shared):
+               shared, extras=None):
     H, hd = _rwkv_dims(cfg)
     cd = compute_dtype(cfg)
     B, S, D = x.shape

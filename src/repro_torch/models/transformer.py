@@ -7,23 +7,28 @@ groups; here ``forward`` is a Python loop over the group axis.
 
 Each block kind registers (schema, cache schema, apply) in ``KINDS``, as in
 the reference: the dense attention kinds ``attn``/``global``/``local``
-live here, the top-k MoE kind (``moe``: attention, then routed experts
-through the grouped-matmul kernel, with the attention cache, so it pages)
-in ``models.moe``, Mamba2 (``mamba``), zamba2's ``mamba_attn`` and RWKV6
-(``rwkv``) in ``models.ssm``.  ``apply(cfg, p, x, *, mode, positions,
-cache, pos, shared) -> (x, new_cache)``; ``shared`` is zamba2's one set of
-shared attention weights (``params["shared_attn"]``, no G axis).  The
-cross-attention kind comes with a later slice and raises
-``NotImplementedError``.
+(gemma2's ``local`` with its sliding window, all with the config's logit
+softcap, post-norms and embed scale) live here, the top-k MoE kind
+(``moe``: attention, then routed experts through the grouped-matmul
+kernel, with the attention cache, so it pages) in ``models.moe``, Mamba2
+(``mamba``), zamba2's ``mamba_attn`` and RWKV6 (``rwkv``) in
+``models.ssm``, and the VLM's gated cross attention (``cross``) in
+``models.vlm``.  ``apply(cfg, p, x, *, mode, positions, cache, pos,
+shared, extras) -> (x, new_cache)``; ``shared`` is zamba2's one set of
+shared attention weights (``params["shared_attn"]``, no G axis) and
+``extras`` the modality stubs (``{"image_embeds": (B, P, vision_dim)}``
+for the VLM), which the other kinds take and ignore.  The whisper
+encoder-decoder is its own module, ``models.encdec``.
 
 Prefill returns new caches: each kind's cache dict per layer, every leaf
 stacked across groups.  Decode writes the step's k/v and recurrent state
 into the cache tensors in place (the JAX functions return new caches);
 callers that need the old cache clone it.
 
-Train runs the dense kinds only (the recurrent kinds need backward scan
-kernels, ROADMAP queue B item 7; MoE needs the backward grouped products
-and the aux loss, item 8), keeps the autograd graph and no caches.
+Train runs the dense kinds and ``cross`` only (the recurrent kinds need
+backward scan kernels, ROADMAP queue B item 7; MoE needs the backward
+grouped products and the aux loss, item 8), keeps the autograd graph and
+no caches.
 With ``par.remat`` each layer group runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
 body), so backward keeps one group's input per group and recomputes the
@@ -47,10 +52,10 @@ from repro_torch.models.params import PSpec
 
 # kind -> {"schema": (cfg, G) -> {name: PSpec},
 #          "cache": (cfg, B, S, G) -> {name: PSpec or dict},
-#          "apply": (cfg, p, x, *, mode, positions, cache, pos, shared)
-#                   -> (x, new_cache)}
+#          "apply": (cfg, p, x, *, mode, positions, cache, pos, shared,
+#                    extras) -> (x, new_cache)}
 KINDS: Dict[str, Dict[str, Callable]] = {}
-TRAIN_KINDS = ("attn", "global", "local")
+TRAIN_KINDS = ("attn", "global", "local", "cross")
 
 
 def register_kind(name: str, schema, cache, apply) -> None:
@@ -60,8 +65,8 @@ def register_kind(name: str, schema, cache, apply) -> None:
 def _kind(kind: str) -> Dict[str, Callable]:
     if kind not in KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet; the port runs "
-            f"{sorted(KINDS)} (ROADMAP queue A, item 9)")
+            f"block kind {kind!r} does not exist; the port runs "
+            f"{sorted(KINDS)}, as the JAX package does")
     return KINDS[kind]
 
 
@@ -197,7 +202,8 @@ def mlp_part(cfg: ModelConfig, p, x):
 
 
 def _make_attn_apply(window_of: Callable[[ModelConfig], Optional[int]]):
-    def apply(cfg, p, x, *, mode, positions, cache, pos, shared):
+    def apply(cfg, p, x, *, mode, positions, cache, pos, shared,
+              extras=None):
         x, new_cache = attention_part(
             cfg, p, x, window=window_of(cfg), mode=mode, positions=positions,
             cache=cache, pos=pos)
@@ -227,7 +233,7 @@ def _stack(trees: list):
 
 
 def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
-                   tokens: torch.Tensor) -> torch.Tensor:
+                   tokens: torch.Tensor, extras=None) -> torch.Tensor:
     x = embed_tokens(cfg, params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     # one unbind per stacked leaf: backward stacks its per-group grads in
@@ -240,7 +246,7 @@ def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
         for i, kind in enumerate(cfg.block_pattern):
             x, _ = KINDS[kind]["apply"](
                 cfg, gp[f"{i}_{kind}"], x, mode="train", positions=positions,
-                cache=None, pos=None, shared=None)
+                cache=None, pos=None, shared=None, extras=extras)
         return x
 
     for gi in range(cfg.num_groups):
@@ -256,20 +262,22 @@ def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             mode: str = "prefill", caches=None, pos=None,
-            par: Optional[ParallelConfig] = None):
+            par: Optional[ParallelConfig] = None, extras=None):
     """tokens (B,St) int.  prefill/train: St = S; decode: St = 1.
 
     Returns (final hidden states (B,St,D), caches).  Prefill returns new
     caches whose sequence axis covers the prompt; decode writes into
     ``caches`` in place and returns them; train returns no caches and
-    remats per ``par`` (default ``ParallelConfig()``).
+    remats per ``par`` (default ``ParallelConfig()``).  ``extras`` are the
+    modality stubs (``runtime.steps.extras_specs``), read by ``cross``
+    blocks in prefill and train.
     """
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode {mode!r}: one of prefill, decode, train")
     if mode == "train":
         _check_train(cfg)
         return _train_forward(cfg, par or ParallelConfig(), params,
-                              tokens), None
+                              tokens, extras), None
     kinds = [_kind(kind) for kind in cfg.block_pattern]
     x = embed_tokens(cfg, params["embed"], tokens)
     if mode == "decode":
@@ -286,7 +294,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             cache = None if caches is None else _index(caches[key], gi)
             x, nc = kinds[i]["apply"](cfg, p, x, mode=mode,
                                       positions=positions, cache=cache,
-                                      pos=pos, shared=shared)
+                                      pos=pos, shared=shared, extras=extras)
             if mode == "prefill":
                 new.setdefault(key, []).append(nc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -305,8 +313,10 @@ def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
-    """Mean token NLL of ``batch`` ({"tokens", "labels"}: (B,S) int)."""
-    x, _ = forward(cfg, params, batch["tokens"], mode="train", par=par)
+    """Mean token NLL of ``batch`` ({"tokens", "labels"}: (B,S) int, and
+    the VLM's "extras")."""
+    x, _ = forward(cfg, params, batch["tokens"], mode="train", par=par,
+                   extras=batch.get("extras"))
     head = lm_head(cfg, params).to(compute_dtype(cfg))
     S = x.shape[1]
     # the reference's rule: the sharded head needs the vocab on the model
@@ -328,7 +338,8 @@ def rl_loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
     ``losses.weighted_cross_entropy`` and its xent kernel; prompt and pad
     positions weigh 0 and get no gradient.
     """
-    x, _ = forward(cfg, params, batch["tokens"], mode="train", par=par)
+    x, _ = forward(cfg, params, batch["tokens"], mode="train", par=par,
+                   extras=batch.get("extras"))
     head = lm_head(cfg, params).to(compute_dtype(cfg))
     mask = batch["mask"].float()
     w = mask * batch["advantages"].float()[:, None]
@@ -338,11 +349,12 @@ def rl_loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
         softcap=cfg.final_logit_softcap)
 
 
-# the MoE and recurrent kinds (module imports after the definitions above:
-# models.moe and models.ssm reach back for attention_part, mlp_part and the
-# attention schemas)
+# the MoE, recurrent and cross kinds (module imports after the definitions
+# above: models.moe and models.ssm reach back for attention_part, mlp_part
+# and the attention schemas)
 from repro_torch.models import moe as _moe  # noqa: E402
 from repro_torch.models import ssm as _ssm  # noqa: E402
+from repro_torch.models import vlm as _vlm  # noqa: E402
 
 register_kind("moe", schema=_moe.moe_block_schema, cache=_attn_cache_schema,
               apply=_moe.apply_moe_block)
@@ -353,3 +365,5 @@ register_kind("mamba_attn", schema=_ssm.mamba_attn_schema,
               cache=_ssm.mamba_attn_cache_schema, apply=_ssm.apply_mamba_attn)
 register_kind("rwkv", schema=_ssm.rwkv_schema, cache=_ssm.rwkv_cache_schema,
               apply=_ssm.apply_rwkv)
+register_kind("cross", schema=_vlm.cross_schema, cache=_vlm.cross_cache_schema,
+              apply=_vlm.apply_cross)

@@ -12,7 +12,10 @@ shardings.  Training:
   * ``rl_train_chunk`` — the same with the RL learner's loss
     (``transformer.rl_loss_fn``) and batch (``rl_batch_specs``).
 
-Serving:
+Serving, for every family the port serves (``_model_module``: the
+encoder-decoder ``models.encdec`` for "audio", ``models.transformer``
+otherwise, which holds the VLM's cross kind), with the modality stubs of
+``extras_specs`` passed to prefill:
 
   * ``prefill_step``  — B=1 prefill; unembeds only the last position;
   * ``slot_decode_step`` — one greedy step over all slots, each at its own
@@ -37,30 +40,80 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
-                                      ParallelConfig)
+                                      ParallelConfig, ShapeConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import params as pr
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
 
 
-def prefill_step(cfg: ModelConfig, params, tokens: torch.Tensor):
-    """tokens (B,S) -> (last-position logits (B,V), prompt-length caches)."""
-    hidden, caches = tfm.forward(cfg, params, tokens, mode="prefill")
-    last = tfm.lm_logits(cfg, params, hidden[:, -1:, :])[:, 0, :]
+def _model_module(cfg: ModelConfig):
+    """The model module of ``cfg``'s family (the same API either way)."""
+    if cfg.family == "audio":
+        from repro_torch.models import encdec
+        return encdec
+    return tfm
+
+
+def resolve_cfg(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
+    """Bind shape-dependent stub dims (whisper's frame count) into the
+    config, as the reference does."""
+    if cfg.family == "audio" and cfg.encoder_frames == 0:
+        return cfg.replace(encoder_frames=shape.seq_len)
+    return cfg
+
+
+def token_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    """Token-sequence length for train/prefill (enc-dec: decoder length)."""
+    return cfg.decoder_len if cfg.family == "audio" else shape.seq_len
+
+
+def extras_specs(cfg: ModelConfig, B: int):
+    """The modality-frontend stubs (precomputed embeddings) as ``meta``
+    tensors, or None: the VLM's image embeddings (B, num_patches,
+    vision_dim) and whisper's frames (B, encoder_frames, d_model), bf16
+    as in the reference."""
+    def meta(shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    if cfg.family == "vlm":
+        return {"image_embeds": meta((B, cfg.num_patches, cfg.vision_dim))}
+    if cfg.family == "audio":
+        return {"frames": meta((B, cfg.encoder_frames, cfg.d_model))}
+    return None
+
+
+def zero_extras(cfg: ModelConfig, B: int, device):
+    """``extras_specs`` as bf16 zeros on ``device`` (or None): the stubs
+    the serving engines and the static batcher feed to prefill."""
+    specs = extras_specs(cfg, B)
+    return None if specs is None else {
+        k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+        for k, v in specs.items()}
+
+
+def prefill_step(cfg: ModelConfig, params, tokens: torch.Tensor,
+                 extras=None):
+    """tokens (B,S) -> (last-position logits (B,V), prompt-length caches).
+    ``extras`` holds the family's stubs (``extras_specs``), if it has any."""
+    mod = _model_module(cfg)
+    hidden, caches = mod.forward(cfg, params, tokens, mode="prefill",
+                                 extras=extras)
+    last = mod.lm_logits(cfg, params, hidden[:, -1:, :])[:, 0, :]
     return last, caches
 
 
 def _greedy_decode(cfg: ModelConfig, params, caches, token, pos):
-    hidden, caches = tfm.forward(cfg, params, token, mode="decode",
+    mod = _model_module(cfg)
+    hidden, caches = mod.forward(cfg, params, token, mode="decode",
                                  caches=caches, pos=pos)
-    logits = tfm.lm_logits(cfg, params, hidden)
+    logits = mod.lm_logits(cfg, params, hidden)
     return logits[:, -1, :].argmax(dim=-1).to(torch.int32)[:, None], caches
 
 
 def slot_decode_step(cfg: ModelConfig, params, caches, token: torch.Tensor,
                      pos: torch.Tensor):
-    """One fused greedy step: token (B,1), pos (B,) -> (next (B,1), caches)."""
+    """One fused greedy step: token (B,1), pos (B,) (or one scalar for
+    every row) -> (next (B,1), caches)."""
     return _greedy_decode(cfg, params, caches, token, pos)
 
 
@@ -89,7 +142,8 @@ def tree_leaves(tree):
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device):
     """An all-zeros decode cache for B slots of S positions."""
-    return _zeros(tfm.cache_schema(cfg, B, S), cfg.param_dtype, device)
+    return _zeros(_model_module(cfg).cache_schema(cfg, B, S),
+                  cfg.param_dtype, device)
 
 
 def cache_batch_insert(dst, src, slot: int):
@@ -124,8 +178,10 @@ def cache_batch_evict(dst, slot: int):
 # ---------------------------------------------------------------------------
 
 def paged_compatible(cfg: ModelConfig, S: int, block_size: int) -> bool:
-    """True iff every cache leaf is a (layers, batch, cache_seq, ...) KV
-    layout whose sequence axis is S and divisible into blocks."""
+    """True iff every cache leaf of the family's cache schema is a
+    (layers, batch, cache_seq, ...) KV layout whose sequence axis is S and
+    divisible into blocks.  State caches, whisper's self cache (its axis 2
+    unnamed) and the VLM's cross K/V (P rows, not S) are not."""
     if block_size < 1 or S % block_size:
         return False
     flags = []
@@ -133,14 +189,15 @@ def paged_compatible(cfg: ModelConfig, S: int, block_size: int) -> bool:
         lambda _path, ps: flags.append(
             len(ps.axes) >= 3 and ps.axes[2] == "cache_seq"
             and ps.shape[2] == S),
-        tfm.cache_schema(cfg, 1, S))
+        _model_module(cfg).cache_schema(cfg, 1, S))
     return bool(flags) and all(flags)
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      device):
     """An all-zeros pool: leaves (layers, num_blocks, block_size, KV, dh)."""
-    return _zeros(tfm.cache_schema(cfg, num_blocks, block_size),
+    return _zeros(_model_module(cfg).cache_schema(cfg, num_blocks,
+                                                  block_size),
                   cfg.param_dtype, device)
 
 
@@ -206,8 +263,25 @@ def train_par(par: ParallelConfig) -> ParallelConfig:
     return par
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse the families the train steps cannot run yet.
+
+    The steps train the decoder-only LM (``transformer.loss_fn``) on token
+    batches.  Whisper needs ``encdec.loss_fn`` and its frames, the VLM its
+    image embeddings: both losses take them as ``batch["extras"]``, which
+    the steps do not carry, so they would train another model or fail deep
+    in the cross block."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family ({cfg.name}) through the "
+            f"train steps is not ported yet: they carry no extras and do not "
+            f"dispatch to its loss (ROADMAP queue A, item A9); the port "
+            f"serves it")
+
+
 def init_opt_state(cfg: ModelConfig, ocfg: OptimizerConfig, device="cuda"):
     """All-zeros AdamW state {"m", "v", "count"} for ``cfg``'s params."""
+    check_trainable(cfg)
     return _zeros(adamw.opt_state_schema(tfm.lm_schema(cfg), ocfg),
                   "float32", resolve_device(device))
 
@@ -258,6 +332,7 @@ def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
     not depend on accum.  ``metrics`` holds f32 device tensors "loss",
     "grad_norm" and "lr".
     """
+    check_trainable(cfg)
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params are on {params['embed'].device}, the step "

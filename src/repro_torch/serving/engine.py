@@ -18,6 +18,14 @@ decode slots; this engine owns the params, the KV cache and the steps:
     the shared blocks and replays its suffix through the decode step.
     Paged decode is bit-identical to slotted.
 
+Every family the port serves runs here.  The encoder-decoder (whisper)
+follows the reference's rule: its decoder positions are its self cache,
+so the prompt pads to ``min(prompt_len, decoder_len - max_new_tokens)``
+and the cache holds ``decoder_len``; its encoder reads ``prompt_len +
+max_new_tokens`` frames of zeros (``steps.resolve_cfg``), as the VLM reads
+zero image embeddings: the stubs of ``steps.zero_extras``, fed to every
+prefill.  Their caches do not page.
+
 The lifecycle is the JAX engine's (``serving/engine.py``): admission,
 prefill-and-insert, prefix replay, lazy block growth, preempt-youngest,
 the release hook and ``run(queue, should_stop=, exit_on_drain=)``.
@@ -33,12 +41,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.metrics import Registry
 from repro_torch.core.queue import WorkQueue
 from repro_torch.device import resolve_device
 from repro_torch.models import params as pr
-from repro_torch.models import transformer as tfm
 from repro_torch.runtime import steps as steps_mod
 from repro_torch.serving.pool import BlockPool
 from repro_torch.serving.report import GAUGES, record_serving_totals
@@ -84,19 +91,30 @@ class ServingEngine:
                  block_size: int = 8, pool_blocks: Optional[int] = None,
                  prefix_cache: bool = True):
         self.device = resolve_device(device)
-        self.cfg = cfg
         self.num_slots = num_slots
         self.max_new_tokens = max_new_tokens
         self.metrics = registry if registry is not None else Registry()
         self.clock = clock
-        self.prompt_pad = prompt_len
-        self.cache_len = S = prompt_len + max_new_tokens
+
+        S = prompt_len + max_new_tokens
+        self.cfg = cfg = steps_mod.resolve_cfg(
+            cfg, ShapeConfig("serve", S, num_slots, "decode"))
+        if cfg.family == "audio":
+            # the decoder-position table is the self cache (decoder_len
+            # whatever S is): leave max_new_tokens of headroom in it
+            self.prompt_pad = max(1, min(prompt_len,
+                                         cfg.decoder_len - max_new_tokens))
+            self.cache_len = cfg.decoder_len
+        else:
+            self.prompt_pad = prompt_len
+            self.cache_len = S
 
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = pr.init_params(tfm.lm_schema(cfg), gen, cfg.param_dtype,
-                                    self.device)
+            params = pr.init_params(steps_mod._model_module(cfg).lm_schema(cfg),
+                                    gen, cfg.param_dtype, self.device)
         self.params = params
+        self._extras = steps_mod.zero_extras(cfg, 1, self.device)
 
         compatible = (steps_mod.paged_compatible(cfg, self.cache_len,
                                                  block_size)
@@ -154,7 +172,8 @@ class ServingEngine:
         generated token."""
         t0 = self.clock()
         tokens = self._tensor(self._pad_prompt(prompt))
-        last, small = steps_mod.prefill_step(self.cfg, self.params, tokens)
+        last, small = steps_mod.prefill_step(self.cfg, self.params, tokens,
+                                             extras=self._extras)
         if self.paged:
             blocks = self._tensor(self._tables[slot_index, :self._nb_prompt])
             steps_mod.paged_prompt_insert(self._pool, small, blocks)

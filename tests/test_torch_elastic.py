@@ -472,6 +472,8 @@ def test_cluster_and_spec_default_to_the_card(monkeypatch):
     ("zamba2-2.7b", "ROADMAP queue B, item 7"),
     ("rwkv6-1.6b", "ROADMAP queue B, item 7"),
     ("granite-moe-1b-a400m", "ROADMAP queue B, item 8"),
+    ("whisper-small", "ROADMAP queue A, item A9"),
+    ("llama-3.2-vision-90b", "ROADMAP queue A, item A9"),
 ])
 def test_kinds_the_port_cannot_train_raise_unwrapped(tmp_path, arch, match):
     cfg = treg.get_smoke(arch)

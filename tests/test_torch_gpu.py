@@ -7,7 +7,10 @@ counts none of them.  On a machine with an H100 and nvcc:
 
 This file imports nothing of JAX, so it runs where only PyTorch is
 installed.  Tolerances: flash attention 2e-5 for f32 (the same products
-summed in another order), 2e-2 for f16/bf16 (one rounding of the output);
+summed in another order), 2e-2 for f16/bf16 (one rounding of the output;
+kernel and plain version both round the scores and P to the input type,
+as the JAX model does, so a score near a rounding boundary may round the
+other way after another f32 sum order);
 xent 1e-4 on NLL (f32 sums over V in another order) and 1e-5 (f32) or
 2^-7 (bf16) on dlogits; AdamW 1e-6 on f32 (each step rounded as the plain
 version rounds it) and 2^-7 relative on a bf16 parameter; the SSD and
@@ -101,6 +104,44 @@ def test_flash_tensor_core_path_every_head_dim(B, H, KV, Sq, Sk, causal, dh,
     assert fa.launches == before + 1 and got.dtype == dt
     want = fa.attention_plain(q, k, v, causal=causal)
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,dh,causal,window,cap", [
+    (1, 16, 8, 512, 512, 256, True, 4096, 50.0),   # gemma2 local at 512
+    (1, 4, 2, 700, 700, 256, True, 128, 50.0),     # a window that skips
+    (1, 4, 2, 700, 700, 256, True, None, 50.0),    # gemma2 global
+    (1, 8, 8, 96, 520, 128, True, 128, None),      # Sq < Sk under a window
+    (1, 4, 2, 130, 60, 64, True, 16, 5.0),         # Sq > Sk: empty rows
+    (1, 12, 12, 384, 576, 64, False, None, None),  # whisper cross
+    (1, 8, 2, 130, 200, 128, False, None, 30.0),   # cross, ragged, capped
+    (2, 4, 2, 65, 65, 256, True, 1, None),         # a window of one key
+])
+def test_flash_window_softcap_and_cross_match_plain(B, H, KV, Sq, Sk, dh,
+                                                    causal, window, cap,
+                                                    dtype):
+    """gemma2's sliding window and softcap at dh 256, non-causal Sq != Sk
+    (whisper's and the VLM's cross attention), and their edges; under a
+    softcap q is scaled by 4 so that it bites.  The softmax is then peaked
+    and outputs reach |v|'s maximum (about 4.5), where one bf16 rounding is
+    0.031: the tolerance is taken of the output's scale."""
+    _card()
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(x).to("cuda", dt)
+               for x in _qkv(B, H, KV, Sq, Sk, dh, seed=Sq + Sk + dh))
+    if cap is not None:
+        q = q * 4
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.dtype == dt
+    want = fa.attention_plain(q, k, v, causal=causal, window=window,
+                              softcap=cap)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
 
 
 @pytest.mark.gpu

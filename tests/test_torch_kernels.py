@@ -1,10 +1,13 @@
 """The port's flash attention against the JAX Pallas kernel and the oracle.
 
-On the CPU the port's wrapper runs its plain version (the oracle with KV
-heads expanded); the JAX kernel runs in interpret mode, as
-tests/test_kernels.py runs it, with KV heads repeated (it has no GQA).
-Inputs come from numpy seeds.  Tolerances are tests/test_kernels.py's:
-2e-5 for f32, 2e-2 for bf16.
+On the CPU the port's wrapper runs its plain version (the JAX model's
+attention with KV heads expanded: in f32 the oracle bit for bit; in bf16
+it rounds the scores and P as the JAX model does); the JAX kernel runs in
+interpret mode, as tests/test_kernels.py runs it, with KV heads repeated
+(it has no GQA).  The window, the softcap and non-causal Sq != Sk are held
+against the JAX model's own XLA functions (``_qchunk_attention``,
+``_kchunk_flash``).  Inputs come from numpy seeds.  Tolerances are
+tests/test_kernels.py's: 2e-5 for f32, 2e-2 for bf16.
 
 The CUDA kernel itself runs only on a card: tests/test_torch_gpu.py holds
 it against the plain version there, and so does ``chip_smoke.py``.
@@ -127,12 +130,6 @@ def test_wrapper_rejects_bad_shapes_and_features():
     q, k, v = (torch.as_tensor(x) for x in _qkv(1, 4, 2, 8, 8, 16))
     with pytest.raises(ValueError, match="match"):
         fa.flash_attention(q, k[..., :8], v[..., :8])
-    with pytest.raises(NotImplementedError, match="gemma2"):
-        tattn.causal_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), window=4)
-    with pytest.raises(NotImplementedError, match="gemma2"):
-        tattn.causal_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), logit_softcap=50.0)
 
 
 def test_cpu_path_does_not_count_launches():
@@ -158,14 +155,15 @@ def _attention_p_rounded(q, k, v, dtype):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_bf16_probability_rounding_stays_inside_the_card_tolerance(seed):
-    """chip_smoke.py and tests/test_torch_gpu.py hold the bf16 kernel to
-    2e-2 of the oracle, which keeps P in f32.  At phi4's prefill shape
-    (24/8 heads, S 512, dh 128, causal) rounding P to bf16 before P V
-    moves the output by about one bf16 ulp of |2-4| outputs, inside that
-    tolerance: the tensor-core kernel may round P as the JAX model does."""
+    """The oracle keeps P in f32.  At phi4's prefill shape (24/8 heads,
+    S 512, dh 128, causal) rounding P to bf16 before P V moves the output
+    by about one bf16 ulp of |2-4| outputs, inside the 2e-2 tolerance of
+    the bf16 checks: the tensor-core kernel and its plain version may round
+    P as the JAX model does."""
     q, k, v = (torch.as_tensor(x).bfloat16()
                for x in _qkv(1, 24, 8, 512, 512, 128, seed=seed))
-    want = fa.attention_plain(q, k, v, causal=True)
+    want = tref.attention_ref(q, k.repeat_interleave(3, dim=1),
+                              v.repeat_interleave(3, dim=1), causal=True)
     got = _attention_p_rounded(q, k, v, torch.bfloat16)
     gap = (got.float() - want.float()).abs().max().item()
     assert 0 < gap <= 2e-2
@@ -208,3 +206,89 @@ def test_cpu_path_takes_unaligned_bf16_views():
                               k[..., :64].contiguous(),
                               v[..., :64].contiguous())
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _jax_model_attention(q, k, v, *, window, cap, causal, dtype, chunked):
+    """The JAX model's XLA attention on (B,H,S,dh) / (B,KV,S,dh) inputs:
+    ``_qchunk_attention`` (q chunks of 16) or ``_kchunk_flash`` (k chunks
+    of 8), back in the kernel's layout."""
+    from repro.models import attention as jattn
+    B, H, Sq, dh = q.shape
+    KV = k.shape[1]
+    jd = getattr(jnp, dtype)
+    qr = jnp.asarray(q, jd).transpose(0, 2, 1, 3).reshape(B, Sq, KV, H // KV,
+                                                          dh)
+    kk = jnp.asarray(k, jd).transpose(0, 2, 1, 3)
+    vv = jnp.asarray(v, jd).transpose(0, 2, 1, 3)
+    fn = jattn._qchunk_attention if chunked == "q" else jattn._kchunk_flash
+    out = fn(qr, kk, vv, scale=dh ** -0.5, window=window, cap=cap,
+             chunk=16 if chunked == "q" else 8, causal=causal)
+    return np.asarray(out.reshape(B, Sq, H, dh).transpose(0, 2, 1, 3),
+                      np.float32)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,dh,window,cap,causal", [
+    (1, 4, 2, 48, 48, 16, 8, 2.0, True),       # gemma2 local, shrunk
+    (2, 4, 2, 40, 40, 32, 8, None, True),      # window alone
+    (1, 4, 4, 48, 48, 16, None, 2.0, True),    # softcap alone (global)
+    (1, 6, 3, 64, 64, 32, 200, 2.0, True),     # window past the sequence
+    (1, 4, 2, 24, 40, 16, None, None, False),  # cross: Sq < Sk, unmasked
+    (2, 4, 4, 40, 16, 16, None, 2.0, False),   # Sq > Sk, unmasked, capped
+    (1, 4, 2, 32, 32, 16, 8, None, False),     # a window without causal: none
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunked", ["q", "k"])
+def test_window_softcap_and_cross_match_the_jax_model(
+        B, H, KV, Sq, Sk, dh, window, cap, causal, dtype, chunked):
+    """Where Sq == Sk or nothing is masked, the JAX model's top-left mask
+    and the port's bottom-right one coincide.  Under a softcap q is scaled
+    by 4 so that the cap of 2 bites (it bounds the scores, so the JAX
+    model's rounding of q k^T to bf16 stays small against it)."""
+    q, k, v = _qkv(B, H, KV, Sq, Sk, dh, seed=Sq + Sk)
+    if cap is not None:
+        q = 4.0 * q
+    want = _jax_model_attention(q, k, v, window=window, cap=cap,
+                                causal=causal, dtype=dtype, chunked=chunked)
+    got = fa.flash_attention(_torch(q, dtype), _torch(k, dtype),
+                             _torch(v, dtype), causal=causal, window=window,
+                             softcap=cap)
+    np.testing.assert_allclose(_f32(got), want, **TOL[dtype])
+    model = tattn.causal_attention(
+        _torch(q, dtype).transpose(1, 2), _torch(k, dtype).transpose(1, 2),
+        _torch(v, dtype).transpose(1, 2), window=window, logit_softcap=cap,
+        causal=causal).transpose(1, 2)
+    torch.testing.assert_close(model, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("Sq,Sk,window", [(5, 13, 4), (13, 5, 3), (9, 9, 1)])
+def test_window_is_bottom_right_aligned(Sq, Sk, window):
+    """Key j is visible to query i iff i + d - w < j <= i + d, d = Sk - Sq
+    (a row with i + d < 0 sees nothing and averages v): the plain version
+    against a row-by-row numpy softmax."""
+    q, k, v = _qkv(1, 2, 2, Sq, Sk, 8, seed=9)
+    got = fa.flash_attention(torch.as_tensor(q), torch.as_tensor(k),
+                             torch.as_tensor(v), window=window).numpy()
+    d = Sk - Sq
+    for h in range(2):
+        for i in range(Sq):
+            vis = [j for j in range(Sk) if i + d - window < j <= i + d]
+            s = (k[0, h] @ q[0, h, i]) * 8 ** -0.5
+            w = np.zeros(Sk)
+            if vis:
+                e = np.exp(s[vis] - s[vis].max())
+                w[vis] = e / e.sum()
+            else:
+                w[:] = 1.0 / Sk
+            np.testing.assert_allclose(got[0, h, i], w @ v[0, h], rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_window_and_softcap_are_checked():
+    q, k, v = (torch.as_tensor(x) for x in _qkv(1, 2, 2, 8, 8, 16))
+    for bad in (0, -3, 2.5):
+        with pytest.raises(ValueError, match="window"):
+            fa.flash_attention(q, k, v, window=bad)
+    for bad in (0.0, -1.0):
+        with pytest.raises(ValueError, match="softcap"):
+            fa.flash_attention(q, k, v, softcap=bad)
+    assert 256 in fa.HEAD_DIMS

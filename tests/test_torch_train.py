@@ -323,6 +323,24 @@ def test_cli_trains_on_the_cpu(capsys):
     assert out.startswith("[train] loss ") and "->" in out
 
 
+@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-90b"])
+def test_train_steps_and_cli_refuse_families_needing_extras(arch):
+    """Whisper's encoder and the VLM's image embeddings reach their losses
+    only through ``batch["extras"]``, which the train steps do not carry:
+    the steps and the CLI raise rather than train a decoder-only LM."""
+    from repro_torch.launch import train
+    cfg, ocfg = treg.get_smoke(arch), OptimizerConfig()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item A9"):
+        tsteps.init_opt_state(cfg, ocfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="carry no extras"):
+        tsteps.train_step(cfg, treg.get_parallel(arch), ocfg, {}, {},
+                          TokenPipeline(cfg.vocab_size, 16, 2).batch(0),
+                          device="cpu")
+    with pytest.raises(RuntimeError, match=f"{cfg.family}' family"):
+        train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                    "--steps", "2", "--seq", "16", "--batch", "2"])
+
+
 # 32 layers at width 256, with phi4's head width of 128: deep enough for
 # the reference init's growth to show, small enough for the CPU
 DEEP = dict(num_layers=32, d_model=256, num_heads=2, num_kv_heads=1,
