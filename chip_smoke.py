@@ -40,6 +40,13 @@ Phases (any failure raises and the script exits non-zero):
                copy) and cold (rotating through copies of x and w that
                together exceed the 50 MB L2 several times, as a decode
                step walks 72 distinct weight matrices), torch.bmm alike;
+               then its autograd Function at granite's train buckets (E 32,
+               cap_e 800, bf16): dx and dw against autograd of the plain
+               einsum, three launches for forward and backward, each
+               backward product timed cold and warm (and warm with its
+               transposed-operand copy) beside its bound and torch.bmm;
+               xent also at gemma2's softcapped loss chunk (1024 x 256,000,
+               softcap 30);
   4. small   — phi4 smoke config in f32: the card's prefill logits (through
                the kernel) against the CPU's (through the plain version);
                then zamba2 smoke with two groups (12 layers) and rwkv6 smoke
@@ -88,6 +95,21 @@ Phases (any failure raises and the script exits non-zero):
                ``train_chunk`` calls of 3: every loss and grad norm finite,
                the last loss below the first, and exactly 2 xent forward,
                2 xent backward and 11 AdamW launches a step;
+  8b. train-families — granite-moe-1b-a400m, zamba2-2.7b, rwkv6-1.6b and
+               whisper-small at full depth, gemma2-9b at 14 of its 42
+               layers and llama-3.2-vision at one attn and one cross layer
+               of its 100, each freed before the next: first the family's
+               smoke config in f32, one batch's loss and every grad leaf on
+               the card within 1e-4 of the CPU's (the gmm Function's
+               backward, the scans' train Functions), then in bf16 6
+               optimizer steps as three ``train_chunk`` calls of 2 on 2 x
+               1024 tokens (whisper: 2 x 448 with 1500 frames; extras
+               random normal from the seed): finite losses and grad norms,
+               the last loss below the first, and every kernel launched as
+               the code implies (gmm 12 a granite layer a step, the scans
+               2 a layer a step, xent once a 512-token loss chunk, AdamW
+               once a leaf); tokens/s, ms a step and peak memory printed;
+               nothing written to disk;
   9. elastic — phi4-mini-3.8b in bf16 at full width with depth cut to 4
                layers (1.017 B params, a 10.2 GB checkpoint) trains 8 steps
                of 2 x 1024 tokens through ``ElasticTrainer`` on a one-card
@@ -218,6 +240,7 @@ PEAK_BYTES = 3.35e12                           # H100 SXM HBM3, per second
 ARCH = "phi4-mini-3.8b"
 ZAMBA, RWKV = "zamba2-2.7b", "rwkv6-1.6b"
 GRANITE = "granite-moe-1b-a400m"
+GRANITE_TRAIN_BUCKET = (32, 800)   # E, cap_e: T 2048, top-8, cf 1.25
 SCAN_RTOL = 1e-4          # SSD/WKV6 kernel vs plain, of the output's scale
 # gmm kernel vs plain, of the output's scale: f32 sums over D in another
 # order; in f16/bf16 one rounding of the output, which the other f32 sum
@@ -256,6 +279,7 @@ CODEQWEN_REQUESTS, CODEQWEN_GEN = 4, 32
 # prompt padded to decoder_len - GEN), llama-3.2-vision (1600 patches)
 GEMMA2, WHISPER, VLM = "gemma2-9b", "whisper-small", "llama-3.2-vision-90b"
 GEMMA2_WINDOW, GEMMA2_CAP = 4096, 50.0
+GEMMA2_VOCAB, GEMMA2_FINAL_CAP = 256_000, 30.0    # its loss head's softcap
 GEMMA2_ATTN = (1, 16, 8, PROMPT, PROMPT, 256)
 GEMMA2_LONG_PROMPT, GEMMA2_LONG_GEN = 5120, 16    # past the window
 GEMMA2_LONG = (1, 16, 8, GEMMA2_LONG_PROMPT, GEMMA2_LONG_PROMPT, 256)
@@ -588,12 +612,44 @@ def _xent_errs(logits, labels, dy, softcap):
             (d.float() - want_d.float()).abs().max().item(), tol_nll, tol_d)
 
 
+def _xent_hold(cases: dict) -> dict:
+    """Hold xent at each named case -> {name: (nll err, dlogits err)}."""
+    errs = {}
+    for name, case in cases.items():
+        e_nll, e_d, t_nll, t_d = _xent_errs(*case)
+        log(f"[kernels] xent {name}: nll max_abs_err={e_nll:.3g} (tolerance "
+            f"{t_nll:.3g}), dlogits max_abs_err={e_d:.3g} (tolerance "
+            f"{t_d:.3g})")
+        if not (e_nll <= t_nll and e_d <= t_d):
+            raise AssertionError(f"xent disagrees with its plain version at "
+                                 f"{name}")
+        errs[name] = (e_nll, e_d)
+    return errs
+
+
 def phase_xent(R: int, V: int):
     """xent forward and backward against their plain versions at the train
-    phase's loss chunk (R rows, V vocab, f32) and at edge shapes."""
-    import torch.nn.functional as F
+    phase's loss chunk (R rows, V vocab, f32), at gemma2's softcapped
+    loss chunk (R rows of its 256,000 vocab, softcap 30), at the loss
+    chunks of the other families whose train loss runs the kernel
+    (granite-moe's R x 49,155; whisper-small's two 448-token decoder rows,
+    896 x 51,865) and at edge shapes."""
+    from repro_torch.configs import registry
     from repro_torch.kernels import xent
     gen = torch.Generator(device="cuda").manual_seed(4)
+    # the chunked loss's rule: 512 positions a chunk, or the whole
+    # sequence where 512 does not divide it
+    granite_v = registry.get_config(GRANITE).vocab_size
+    whisper = registry.get_config(WHISPER)
+    train_chunks = {
+        f"granite-moe train chunk R={R} V={granite_v}": _xent_case(
+            R, granite_v, gen=gen),
+        f"whisper-small train chunk R={TRAIN_BATCH * whisper.decoder_len} "
+        f"V={whisper.vocab_size}": _xent_case(
+            TRAIN_BATCH * whisper.decoder_len, whisper.vocab_size, gen=gen),
+    }
+    train_errs = _xent_hold(train_chunks)
+    del train_chunks
     edge = {
         "ragged R=100 V=777": _xent_case(100, 777, gen=gen),
         "V<block R=32 V=50": _xent_case(32, 50, gen=gen),
@@ -619,16 +675,7 @@ def phase_xent(R: int, V: int):
     rl_dy = (mask * adv[:, None] / mask.sum()).reshape(-1)
     rl_case = f"rl dy R={logits.shape[0]} V={V}"
     edge[rl_case] = (logits, labels, rl_dy, None)
-    edge_errs = {}
-    for name, case in edge.items():
-        e_nll, e_d, t_nll, t_d = _xent_errs(*case)
-        log(f"[kernels] xent {name}: nll max_abs_err={e_nll:.3g} (tolerance "
-            f"{t_nll:.3g}), dlogits max_abs_err={e_d:.3g} (tolerance "
-            f"{t_d:.3g})")
-        if not (e_nll <= t_nll and e_d <= t_d):
-            raise AssertionError(f"xent disagrees with its plain version at "
-                                 f"{name}")
-        edge_errs[name] = (e_nll, e_d)
+    edge_errs = _xent_hold(edge)
     _, lse = xent.xent_fwd(logits, labels)
     d = xent.xent_bwd(logits, labels, lse, rl_dy)
     zero_rows = rl_dy == 0
@@ -640,51 +687,81 @@ def phase_xent(R: int, V: int):
                              "dlogits, or the case has no negative dy")
     del logits, labels, d, lse
 
-    logits, labels, dy, _ = _xent_case(R, V, gen=gen)
-    e_nll, e_d, t_nll, t_d = _xent_errs(logits, labels, dy, None)
-    shape = f"R={R} V={V} f32"
-    log(f"[kernels] xent main {shape}: nll max_abs_err={e_nll:.3g} "
+    at = _xent_timed(R, V, None, gen)
+    cap = _xent_timed(R, GEMMA2_VOCAB, GEMMA2_FINAL_CAP, gen)
+    common = {"route": "cuda", "source": "src/repro_torch/csrc/xent.cu",
+              "launches": None, "shape": at["shape"]}
+    fwd = dict(common, name="xent_fwd",
+               replaces="src/repro/kernels/xent.py:37", **at["fwd"],
+               library="F.cross_entropy(reduction='none')",
+               edge_shapes_max_abs_err=max(e[0] for e in edge_errs.values()),
+               gemma2_softcap=dict(cap["fwd"], shape=cap["shape"]),
+               train_chunks_max_abs_err={k: e[0]
+                                         for k, e in train_errs.items()})
+    bwd = dict(common, name="xent_bwd",
+               replaces="src/repro/kernels/xent.py:69", **at["bwd"],
+               library="F.cross_entropy forward+backward",
+               edge_shapes_max_abs_err=max(e[1] for e in edge_errs.values()),
+               rl_dy_max_abs_err=edge_errs[rl_case][1],
+               gemma2_softcap=dict(cap["bwd"], shape=cap["shape"]),
+               train_chunks_max_abs_err={k: e[1]
+                                         for k, e in train_errs.items()})
+    return fwd, bwd
+
+
+def _xent_timed(R: int, V: int, softcap, gen) -> dict:
+    """xent forward and backward at one f32 shape: held against their
+    plain versions, then timed with the plain versions, the bound and
+    (without a softcap, which no one PyTorch call applies)
+    F.cross_entropy.  -> {"shape", "fwd": row, "bwd": row}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import xent
+    logits, labels, dy, _ = _xent_case(R, V, softcap=softcap, gen=gen)
+    e_nll, e_d, t_nll, t_d = _xent_errs(logits, labels, dy, softcap)
+    shape = f"R={R} V={V} f32" + (f" softcap {softcap}" if softcap else "")
+    log(f"[kernels] xent {shape}: nll max_abs_err={e_nll:.3g} "
         f"(tolerance {t_nll:.3g}), dlogits max_abs_err={e_d:.3g} "
         f"(tolerance {t_d:.3g})")
     if not (e_nll <= t_nll and e_d <= t_d):
         raise AssertionError(f"xent disagrees with its plain version at "
                              f"{shape}")
-    _, lse = xent.xent_fwd(logits, labels)
-    lab64 = labels.long()
-    fwd_ms = _time_ms(lambda: xent.xent_fwd(logits, labels))
-    fwd_plain = _time_ms(lambda: xent.xent_fwd_plain(logits, labels))
-    fwd_lib = _time_ms(lambda: F.cross_entropy(logits, lab64,
-                                               reduction="none"))
-    bwd_ms = _time_ms(lambda: xent.xent_bwd(logits, labels, lse, dy))
-    bwd_plain = _time_ms(lambda: xent.xent_bwd_plain(logits, labels, lse, dy))
-    leaf = logits.detach().requires_grad_()
-    bwd_lib = _time_ms(lambda: torch.autograd.grad(
-        F.cross_entropy(leaf, lab64, reduction="none"), leaf,
-        grad_outputs=dy))
+    _, lse = xent.xent_fwd(logits, labels, softcap)
+    fwd_ms = _time_ms(lambda: xent.xent_fwd(logits, labels, softcap))
+    fwd_plain = _time_ms(lambda: xent.xent_fwd_plain(logits, labels,
+                                                     softcap))
+    bwd_ms = _time_ms(lambda: xent.xent_bwd(logits, labels, lse, dy,
+                                            softcap))
+    bwd_plain = _time_ms(lambda: xent.xent_bwd_plain(logits, labels, lse, dy,
+                                                     softcap))
+    fwd_lib = bwd_lib = None
+    if softcap is None:
+        lab64 = labels.long()
+        fwd_lib = _time_ms(lambda: F.cross_entropy(logits, lab64,
+                                                   reduction="none"))
+        leaf = logits.detach().requires_grad_()
+        bwd_lib = _time_ms(lambda: torch.autograd.grad(
+            F.cross_entropy(leaf, lab64, reduction="none"), leaf,
+            grad_outputs=dy))
     n = R * V
-    fwd_bound = _bound(4.0 * n + 12.0 * R, 4.0 * n)      # max, sub, exp, add
-    bwd_bound = _bound(8.0 * n + 12.0 * R, 5.0 * n)      # sub, exp, sub, mul
-    log(f"[kernels] xent main {shape}: forward {fwd_ms:.4f} ms (plain "
-        f"{fwd_plain:.4f}, F.cross_entropy {fwd_lib:.4f}, bound "
+    # max, sub, exp, add; the backward sub, exp, sub, mul; a softcap adds
+    # div, tanh, mul to both and the backward's 1 - tanh^2 and its product
+    cap_ops = 3.0 if softcap else 0.0
+    fwd_bound = _bound(4.0 * n + 12.0 * R, (4.0 + cap_ops) * n)
+    bwd_bound = _bound(8.0 * n + 12.0 * R,
+                       (5.0 + cap_ops + (2.0 if softcap else 0.0)) * n)
+    log(f"[kernels] xent {shape}: forward {fwd_ms:.4f} ms (plain "
+        f"{fwd_plain:.4f}, F.cross_entropy {fwd_lib}, bound "
         f"{fwd_bound[0]:.4f} {fwd_bound[1]}); backward {bwd_ms:.4f} ms (plain "
-        f"{bwd_plain:.4f}, F.cross_entropy fwd+bwd {bwd_lib:.4f}, bound "
+        f"{bwd_plain:.4f}, F.cross_entropy fwd+bwd {bwd_lib}, bound "
         f"{bwd_bound[0]:.4f} {bwd_bound[1]})")
-    common = {"route": "cuda", "source": "src/repro_torch/csrc/xent.cu",
-              "launches": None, "shape": shape}
-    fwd = dict(common, name="xent_fwd",
-               replaces="src/repro/kernels/xent.py:37", max_abs_err=e_nll,
-               ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd_bound[0],
-               bound_by=fwd_bound[1], library_ms=fwd_lib,
-               library="F.cross_entropy(reduction='none')",
-               edge_shapes_max_abs_err=max(e[0] for e in edge_errs.values()))
-    bwd = dict(common, name="xent_bwd",
-               replaces="src/repro/kernels/xent.py:69", max_abs_err=e_d,
-               ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound[0],
-               bound_by=bwd_bound[1], library_ms=bwd_lib,
-               library="F.cross_entropy forward+backward",
-               edge_shapes_max_abs_err=max(e[1] for e in edge_errs.values()),
-               rl_dy_max_abs_err=edge_errs[rl_case][1])
-    return fwd, bwd
+    del logits, labels, dy, lse
+    return {"shape": shape,
+            "fwd": dict(max_abs_err=e_nll, ms=fwd_ms, plain_ms=fwd_plain,
+                        bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                        library_ms=fwd_lib),
+            "bwd": dict(max_abs_err=e_d, ms=bwd_ms, plain_ms=bwd_plain,
+                        bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                        library_ms=bwd_lib)}
 
 
 def _adamw_case(n_or_shape, pdtype, gdtype, gen):
@@ -803,7 +880,7 @@ def _scan_phase(name, kernel, plain, route, cases, make, work, seed):
     the kernel's path; work(*args) -> (bytes moved, operations) of one call
     at that shape."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    errs, paths = [], {}
+    errs, paths, by_case = [], {}, {}
     for case in cases:
         args, state, chunk, label = make(case, gen)
         paths[label] = route(*args)
@@ -812,6 +889,8 @@ def _scan_phase(name, kernel, plain, route, cases, make, work, seed):
         want = plain(*args, state, chunk=chunk)
         errs.append(_scan_check(name, f"{label} [{paths[label]} path]",
                                 zip(got, want)))
+        by_case[label] = errs[-1]
+        del got, want
         if len(errs) == 1:
             main_args, main_label = args, label
     nbytes, flops = work(*main_args)
@@ -846,13 +925,16 @@ def _scan_phase(name, kernel, plain, route, cases, make, work, seed):
             "bound_ms_f32_ops": bound_f32_ms, "library_ms": None,
             "host_us": host_us, "shape": main_label,
             "path": paths[main_label], "paths": paths,
-            "edge_shapes_max_abs_err": max(errs[1:])}
+            "edge_shapes_max_abs_err": max(errs[1:]),
+            "max_abs_err_by_case": by_case}
 
 
 def phase_ssd():
     """The SSD scan against its plain version at zamba2's prefill (bf16 x,
-    B and C) and at edge shapes, on both paths (the bf16 cases but hd 24
-    take the tensor-core one): y and the last state; timed at zamba2's."""
+    B and C), at its train forward (2 x 1024 tokens from a zero state, as
+    ``ssd_scan_train`` calls it) and at edge shapes, on both paths (the
+    bf16 cases but hd 24 take the tensor-core one): y and the last state;
+    timed at zamba2's prefill."""
     from repro_torch.kernels import ssm_scan
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     main = (1, PROMPT, 80, 64, 64)      # zamba2: 2 * 2560 / 64 heads, N 64
@@ -870,6 +952,8 @@ def phase_ssd():
         (2, 77, 3, 128, 128, bf, True, 256, "bf16 hd 128 N 128 S=77, h0"),
         (1, 130, 4, 16, 48, bf, False, 256, "bf16 hd 16 N 48 S=130"),
         (1, 40, 2, 24, 48, bf, True, 256, "bf16 hd 24 (not a multiple of 16)"),
+        (TRAIN_BATCH, TRAIN_SEQ) + main[2:] + (bf, False, 256,
+                                               "zamba2 train bf16"),
     ]
 
     def make(case, gen):
@@ -905,9 +989,11 @@ def phase_ssd():
 
 
 def phase_wkv():
-    """WKV6 against its plain version at rwkv6's prefill (bf16 r, k, v) and
-    at edge shapes, on both paths (the bf16 cases but hd 40 take the
-    tensor-core one): y and the last state; timed at rwkv6's."""
+    """WKV6 against its plain version at rwkv6's prefill (bf16 r, k, v), at
+    its train forward (2 x 1024 tokens from a zero state, as ``wkv6_train``
+    calls it) and at edge shapes, on both paths (the bf16 cases but hd 40
+    take the tensor-core one): y and the last state; timed at rwkv6's
+    prefill."""
     from repro_torch.kernels import wkv6
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     main = (1, PROMPT, 32, 64)          # rwkv6: 2048 / 64 heads
@@ -925,6 +1011,8 @@ def phase_wkv():
         (1, 77, 2, 128, bf, True, False, 64, "bf16 hd 128 S=77, s0"),
         (1, 100, 2, 128, bf, True, True, 64, "bf16 hd 128, logw -8, s0"),
         (2, 50, 3, 40, bf, True, False, 64, "bf16 hd 40 (not a multiple of 16)"),
+        (TRAIN_BATCH, TRAIN_SEQ) + main[2:] + (bf, False, False, 64,
+                                               "rwkv6 train bf16"),
     ]
 
     def make(case, gen):
@@ -1035,35 +1123,9 @@ def phase_gmm():
         if len(timed) < 4:
             timed.append((label, x, w, err))
         del x, w, got, want
-    rows = []
-    for label, x, w, err in timed:
-        nbytes, flops = _gmm_work(x, w)
-        copies = [(x, w)] + [
-            (torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype),
-             torch.randn(w.shape, generator=gen, device="cuda").to(w.dtype))
-            for _ in range(max(1, math.ceil(COLD_BYTES / nbytes) - 1))]
-        ms = _time_cold_ms(moe_gmm.gmm, copies)
-        library_ms = _time_cold_ms(torch.bmm, copies)
-        ms_warm = _time_ms(lambda: moe_gmm.gmm(x, w))
-        library_warm = _time_ms(lambda: torch.bmm(x, w))
-        plain_ms = _time_ms(lambda: moe_gmm.gmm_plain(x, w))
-        host_us = _host_us(lambda: moe_gmm.gmm(x, w))
-        n_copies = len(copies)
-        del copies
-        bound_ms, bound_by = _bound(nbytes, flops, x.dtype)
-        log(f"[kernels] gmm timed at {label}: cold ({n_copies} copies, "
-            f"{n_copies * nbytes / 1e6:.0f} MB) kernel {ms:.4f} ms, torch.bmm "
-            f"{library_ms:.4f} ms; warm kernel {ms_warm:.4f} ms, torch.bmm "
-            f"{library_warm:.4f} ms; plain {plain_ms:.4f} ms; bound "
-            f"{bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.2f} MB, "
-            f"{flops / 1e9:.3f} GFLOP); the wrapper's host time "
-            f"{host_us:.1f} us a call")
-        rows.append({"shape": label, "max_abs_err": err, "ms": ms,
-                     "host_us": host_us,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms,
-                     "ms_warm": ms_warm, "library_ms_warm": library_warm,
-                     "cold_copies": n_copies})
+    rows = [_gmm_timed(label, x, w, err, gen) for label, x, w, err in timed]
+    del timed
+    backward = _gmm_backward(gen)
     return {"name": "moe_gmm", "route": "cuda",
             "source": "src/repro_torch/csrc/moe_gmm.cu",
             "replaces": "src/repro/kernels/moe_gmm.py:21", "launches": None,
@@ -1072,7 +1134,93 @@ def phase_gmm():
                       "copies beyond L2); *_warm and plain_ms on one copy",
             "edge_shapes_max_abs_err": max(errs[4:]),
             "prefill_out": rows[1], "decode_gate_up": rows[2],
-            "decode_out": rows[3]}
+            "decode_out": rows[3], "train_backward": backward}
+
+
+def _gmm_timed(label, x, w, err, gen, extra=None) -> dict:
+    """One gmm shape timed cold (rotating copies of x and w beyond L2) and
+    warm, with torch.bmm timed alike and the plain version warm; ``extra``
+    adds more warm timings {name: fn}."""
+    from repro_torch.kernels import moe_gmm
+    nbytes, flops = _gmm_work(x, w)
+    copies = [(x, w)] + [
+        (torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype),
+         torch.randn(w.shape, generator=gen, device="cuda").to(w.dtype))
+        for _ in range(max(1, math.ceil(COLD_BYTES / nbytes) - 1))]
+    ms = _time_cold_ms(moe_gmm.gmm, copies)
+    library_ms = _time_cold_ms(torch.bmm, copies)
+    ms_warm = _time_ms(lambda: moe_gmm.gmm(x, w))
+    library_warm = _time_ms(lambda: torch.bmm(x, w))
+    plain_ms = _time_ms(lambda: moe_gmm.gmm_plain(x, w))
+    host_us = _host_us(lambda: moe_gmm.gmm(x, w))
+    more = {k: _time_ms(fn) for k, fn in (extra or {}).items()}
+    n_copies = len(copies)
+    del copies
+    bound_ms, bound_by = _bound(nbytes, flops, x.dtype)
+    log(f"[kernels] gmm timed at {label}: cold ({n_copies} copies, "
+        f"{n_copies * nbytes / 1e6:.0f} MB) kernel {ms:.4f} ms, torch.bmm "
+        f"{library_ms:.4f} ms; warm kernel {ms_warm:.4f} ms, torch.bmm "
+        f"{library_warm:.4f} ms; plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e9:.3f} GFLOP); the wrapper's host time "
+        f"{host_us:.1f} us a call; {more}")
+    return {"shape": label, "max_abs_err": err, "ms": ms,
+            "host_us": host_us, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "ms_warm": ms_warm, "library_ms_warm": library_warm,
+            "cold_copies": n_copies, **more}
+
+
+def _gmm_backward(gen) -> dict:
+    """The gmm Function's backward at granite-moe's train buckets (E 32,
+    cap_e 800: T 2048 tokens, top-8, cf 1.25) in bf16, for the gate/up and
+    the out product: dx and dw through the kernel against autograd of the
+    plain einsum (2^-7 of the output's scale: one rounding of an f32
+    sum), then each timed at its kernel shape, dx = dy @ w^T as
+    gmm(dy, w^T) and dw = x^T @ dy as gmm(x^T, dy), with the transposed
+    operand copied beforehand (warm, with that copy, too)."""
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels.ref import gmm_ref
+    bf = torch.bfloat16
+    E, C = GRANITE_TRAIN_BUCKET
+    out = {}
+    for label, D, F in (("gate/up", 1024, 512), ("out", 512, 1024)):
+        x = torch.randn(E, C, D, generator=gen, device="cuda").to(bf)
+        w = torch.randn(E, D, F, generator=gen, device="cuda").to(bf)
+        dy = torch.randn(E, C, F, generator=gen, device="cuda").to(bf)
+        before = moe_gmm.launches
+        xk, wk = (t.clone().requires_grad_() for t in (x, w))
+        moe_gmm.gmm_train(xk, wk).backward(dy)
+        torch.cuda.synchronize()
+        ran = moe_gmm.launches - before
+        xp, wp = (t.clone().requires_grad_() for t in (x, w))
+        gmm_ref(xp, wp).backward(dy)
+        errs = {}
+        for name, got, want in (("dx", xk.grad, xp.grad),
+                                ("dw", wk.grad, wp.grad)):
+            err = (got.float() - want.float()).abs().max().item()
+            tol = GMM_RTOL[bf] * max(1.0, want.float().abs().max().item())
+            log(f"[kernels] gmm backward {label} {name} {tuple(got.shape)}: "
+                f"max_abs_err={err:.3g} against the plain einsum's autograd "
+                f"(tolerance {tol:.3g})")
+            if not (err <= tol and got.dtype == bf):
+                raise AssertionError(f"gmm backward {label} {name} "
+                                     f"disagrees with the plain autograd")
+            errs[name] = err
+        if ran != 3:
+            raise AssertionError(f"gmm_train forward+backward launched {ran} "
+                                 f"kernels, not 3")
+        wt, xt = moe_gmm._transposed(w), moe_gmm._transposed(x)
+        out[f"{label} dx"] = _gmm_timed(
+            f"granite train {label} dx (E={E} C={C} F={F} D={D})", dy, wt,
+            errs["dx"], gen, extra={"ms_warm_with_transpose": lambda: (
+                moe_gmm.gmm(dy, moe_gmm._transposed(w)))})
+        out[f"{label} dw"] = _gmm_timed(
+            f"granite train {label} dw (E={E} D={D} C={C} F={F})", xt, dy,
+            errs["dw"], gen, extra={"ms_warm_with_transpose": lambda: (
+                moe_gmm.gmm(moe_gmm._transposed(x), dy))})
+        del x, w, dy, xk, wk, xp, wp, wt, xt
+    return out
 
 
 def phase_small() -> None:
@@ -1824,6 +1972,209 @@ def phase_train(smi: str):
              "grad_rel_gap_bf16_f32": gap,
              "peak_mem_gb": peak_gb, "launches": launches, "card": smi}
     return train, launches
+
+
+# (arch, layers, pattern, seq) of each family phase_train_families trains:
+# full depth but for gemma2 (14 of 42 layers, 7 local + 7 global: 9.24 B
+# params with 12 bytes each of params, moments and grads do not fit the
+# 80 GB card) and the VLM (one self- and one cross-attention layer at full
+# width of its 100); whisper's seq is its encoder frames (30 s of audio),
+# its tokens the decoder's 448
+TRAIN_FAMILIES = ((GRANITE, 0, None, TRAIN_SEQ), (ZAMBA, 0, None, TRAIN_SEQ),
+                  (RWKV, 0, None, TRAIN_SEQ), (WHISPER, 0, None, 1500),
+                  (GEMMA2, 14, None, TRAIN_SEQ),
+                  (VLM, 2, ("attn", "cross"), TRAIN_SEQ))
+# 6 steps: at phase_train's lr (3e-4 after 2 warmup steps) the loss of
+# rwkv6, gemma2 and the VLM rose at step 3 and fell below the first by
+# step 5 on an H100 (PERF.md §6): Adam's first full-rate steps overshoot
+# on wide layers under a random init
+FAMILY_STEPS, FAMILY_K = 6, 2
+# the smoke check's depth: zamba2 and the VLM at one layer of each kind,
+# as tests/test_torch_train_families.py holds them against JAX (deeper,
+# f32 rounding alone moves their grads by more than 1e-4 of a leaf)
+SMOKE_CUTS = {ZAMBA: (2, ("mamba", "mamba_attn")), VLM: (2, ("attn", "cross")),
+              GRANITE: (2, None)}
+
+
+def _train_counters():
+    from repro_torch.kernels import adamw_update as au
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm, ssm_scan, wkv6, xent
+    return {"xent_fwd": (xent, "fwd_launches"),
+            "xent_bwd": (xent, "bwd_launches"),
+            "adamw_update": (au, "launches"), "moe_gmm": (moe_gmm, "launches"),
+            "ssd_scan": (ssm_scan, "launches"), "wkv6": (wkv6, "launches"),
+            "flash_attention": (fa, "launches")}
+
+
+def _read_counts(zero: bool = False) -> dict:
+    out = {}
+    for name, (mod, attr) in _train_counters().items():
+        out[name] = getattr(mod, attr)
+        if zero:
+            setattr(mod, attr, 0)
+    return out
+
+
+def _family_launches(cfg, par, n_leaves: int, steps: int, T: int) -> dict:
+    """The launches ``steps`` train steps of ``cfg`` imply, with remat:
+    the loss's xent kernels once a 512-position chunk (one chunk when 512
+    does not divide T; none on the sharded loss, plain math in the
+    reference too), AdamW once a leaf, and per layer and step the scan
+    twice (the forward and its recompute; the backward is plain) and gmm
+    12 times (3 products forward, 3 recomputed, dx and dw of each)."""
+    from repro_torch.runtime import steps as st
+    par = st.train_par(par)
+    sharded = (cfg.family != "audio" and cfg.vocab_size % 16 == 0
+               and T % 16 == 0 and not par.pure_fsdp)
+    chunks = 0 if sharded else (T // 512 if T % 512 == 0 else 1)
+    fwd = 2 if par.remat else 1
+    kinds = cfg.block_pattern * cfg.num_groups
+    mamba = sum(k in ("mamba", "mamba_attn") for k in kinds)
+    return {"xent_fwd": steps * chunks, "xent_bwd": steps * chunks,
+            "adamw_update": steps * n_leaves,
+            "moe_gmm": steps * kinds.count("moe") * 3 * (fwd + 2),
+            "ssd_scan": steps * mamba * fwd,
+            "wkv6": steps * kinds.count("rwkv") * fwd,
+            "flash_attention": 0}
+
+
+def _named(tree, prefix=""):
+    """(path, tensor) for every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _train_smoke_check(arch) -> None:
+    """The family's smoke config in f32: one batch's loss and every grad
+    leaf on the card (the kernels, the gmm Function's backward launches,
+    the scans' plain-recompute backward) against the CPU (the plain
+    versions), on the same params: the loss within 1e-4 relative, each
+    leaf within 1e-4 of its norm, and each kernel of the path launched as
+    the code implies."""
+    from repro_torch.launch.profile_train import train_setup
+    from repro_torch.runtime import steps
+    layers, pattern = SMOKE_CUTS.get(arch, (0, None))
+    seq = 32
+    cfg, par, _, params, _, chunk = train_setup(
+        arch, layers=layers, pattern=pattern, seq=seq, batch=2, seed=1,
+        device="cpu", smoke=True, dtype="float32")
+    batch = steps._map(lambda t: torch.as_tensor(t)[0], chunk(0, 1))
+    par = steps.train_par(par)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        _read_counts(zero=True)
+        loss, grads = steps._value_and_grad(
+            cfg, par, _to(params, dev), steps._batch_on(cfg, batch, dev))
+        got[dev] = (loss.item(), {p: g.cpu() for p, g in _named(grads)})
+        ran = _read_counts()
+    T = steps.token_len(cfg, steps.ShapeConfig("t", seq, 2, "train"))
+    want = _family_launches(cfg, par, 0, 1, T)
+    ran = {k: v for k, v in ran.items() if k in ("moe_gmm", "ssd_scan",
+                                                  "wkv6", "flash_attention")}
+    want = {k: want[k] for k in ran}
+    (l_cpu, g_cpu), (l_card, g_card) = got["cpu"], got["cuda"]
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    leaf_err = {p: ((g_card[p] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                for p, g in g_cpu.items()}
+    worst = max(leaf_err, key=leaf_err.get)
+    log(f"[train-families] {arch} smoke f32 ({cfg.num_layers} layers, "
+        f"{cfg.block_pattern}), one batch card vs cpu: loss {l_card:.7f} vs "
+        f"{l_cpu:.7f} (rel err {loss_err:.3g}, tolerance 1e-4); worst grad "
+        f"leaf {worst} {leaf_err[worst]:.3g} of its norm (tolerance 1e-4); "
+        f"launches {ran} (want {want})")
+    if not (loss_err <= 1e-4 and leaf_err[worst] <= 1e-4):
+        raise AssertionError(f"{arch} smoke train grads on the card disagree "
+                             f"with the CPU")
+    if ran != want:
+        raise AssertionError(f"{arch} smoke train launches {ran} != {want}")
+
+
+def phase_train_families(smi: str):
+    """Training of the families the port used to serve only, and gemma2,
+    on the card: for each, the smoke check (``_train_smoke_check``), then
+    full width in bf16 with f32 moments, 6 steps as three train_chunk
+    calls of 2 on TokenPipeline batches of 2 x 1024 tokens (whisper: 2 x 448,
+    with 1500 frames), extras random normal from the seed, weights from
+    ``profile_train.train_setup`` (the contracted attention init, the
+    VLM's gates nonzero).  Each run's losses and grad norms are finite,
+    its last loss is below its first, and every kernel launches as
+    ``_family_launches`` implies.  Nothing is written to disk."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.profile_train import train_setup
+    from repro_torch.models import params as pr
+    from repro_torch.runtime import steps
+    # phase_train's state, held by the checkpoint's reference cycles,
+    # goes before the first family allocates
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows, launches = {}, {}
+    for arch, layers, pattern, seq in TRAIN_FAMILIES:
+        t_start = time.perf_counter()
+        _train_smoke_check(arch)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg, par, ocfg, params, opt, chunk = train_setup(
+            arch, layers=layers, pattern=pattern, seq=seq,
+            batch=TRAIN_BATCH, seed=0)
+        schema = steps._model_module(cfg).lm_schema(cfg)
+        n_params, n_leaves = pr.param_count(schema), len(pr.leaves(schema))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _read_counts(zero=True)
+        losses, norms, chunk_s = [], [], []
+        for start in range(0, FAMILY_STEPS, FAMILY_K):
+            batches = chunk(start, FAMILY_K)
+            t0 = time.perf_counter()
+            params, opt, ms = steps.train_chunk(cfg, par, ocfg, params, opt,
+                                                batches)
+            loss, norm = ms["loss"].cpu(), ms["grad_norm"].cpu()  # one sync
+            chunk_s.append(time.perf_counter() - t0)
+            losses.extend(loss.tolist())
+            norms.extend(norm.tolist())
+        ran = _read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        T = batches["tokens"].shape[-1]
+        want = _family_launches(cfg, par, n_leaves, FAMILY_STEPS, T)
+        step_ms = [1e3 * t / FAMILY_K for t in chunk_s]
+        tokens = TRAIN_BATCH * T
+        full_layers = registry.get_config(arch).num_layers
+        depth = (f"{cfg.num_layers} of {full_layers} layers"
+                 + (f", pattern {cfg.block_pattern}" if pattern else ""))
+        log(f"[train-families] {arch} ({depth}, {n_params / 1e9:.3f} B "
+            f"params, bf16): losses {[round(x, 4) for x in losses]}; grad "
+            f"norms {[round(x, 4) for x in norms]}; ms a step by chunk "
+            f"{step_ms}; {tokens * FAMILY_K / chunk_s[-1]:.0f} tokens/s "
+            f"(last chunk); peak {peak_gb:.2f} GB; set-up {setup_s:.1f} s; "
+            f"launches {ran}")
+        if not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"{arch}: a loss or grad norm is not finite")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{arch}: loss did not fall: {losses}")
+        if ran != want:
+            raise AssertionError(f"{arch} train launches {ran} != {want}")
+        rows[arch] = {
+            "layers": cfg.num_layers, "layers_full": full_layers,
+            "pattern": list(cfg.block_pattern), "params_b": n_params / 1e9,
+            "dtype": "bfloat16", "steps": FAMILY_STEPS, "batch": TRAIN_BATCH,
+            "tokens_per_step": tokens,
+            "frames": seq if cfg.family == "audio" else None,
+            "remat": par.remat, "init": "contracted attention",
+            "tokens_per_s": tokens * FAMILY_K / chunk_s[-1],
+            "p50_step_ms": statistics.median(step_ms),
+            "step_ms_by_chunk": step_ms, "losses": losses,
+            "grad_norms": norms, "peak_mem_gb": peak_gb,
+            "launches": ran, "phase_s": time.perf_counter() - t_start,
+            "card": smi}
+        launches[arch] = ran
+        del params, opt, chunk, ms, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, launches
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -3574,6 +3925,19 @@ def main() -> int:
         f"{WHISPER} serve": ran_whisper["flash_attention"],
         f"{VLM} serve ({VLM_LAYERS} layers)": ran_vlm["flash_attention"]}
     train, launches = phase_train(smi)
+    families, family_launches = phase_train_families(smi)
+    ssd["launches_by_path"] = {
+        f"{ZAMBA} serve": ran_zamba["ssd_scan"],
+        f"{ZAMBA} train ({FAMILY_STEPS} steps)":
+            family_launches[ZAMBA]["ssd_scan"]}
+    wkv["launches_by_path"] = {
+        f"{RWKV} serve": ran_rwkv["wkv6"],
+        f"{RWKV} train ({FAMILY_STEPS} steps)":
+            family_launches[RWKV]["wkv6"]}
+    gmm["launches_by_path"] = {
+        f"{GRANITE} serve": ran_granite["moe_gmm"],
+        f"{GRANITE} train ({FAMILY_STEPS} steps)":
+            family_launches[GRANITE]["moe_gmm"]}
     elastic, elastic_launches = phase_elastic(smi)
     log(f"[disk] written so far {elastic['disk_written_gb']:.2f} GB")
     router, ran_router = phase_serve_router(smi, phi4_run)
@@ -3625,6 +3989,9 @@ def main() -> int:
                 tenant_launches["train"][row["name"]],
             f"{ARCH} smoke scenario train":
                 tenant_launches["scenario"][row["name"]]}
+        row["launches_by_path"].update({
+            f"{arch} train ({FAMILY_STEPS} steps)": ran[row["name"]]
+            for arch, ran in family_launches.items()})
     kernels = [flash, xent_fwd, xent_bwd, adamw, ssd, wkv, gmm]
     for row in kernels:
         row["card"] = smi
@@ -3634,6 +4001,7 @@ def main() -> int:
                                 GEMMA2: serve_gemma2, WHISPER: serve_whisper,
                                 VLM: serve_vlm}}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"train_families": families}))
     print(json.dumps({"elastic": elastic}))
     print(json.dumps(router))
     print(json.dumps({"rl": rl}))

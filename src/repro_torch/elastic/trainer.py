@@ -34,9 +34,16 @@ re-executed since the last checkpoint (``steps_lost`` in the report).
 Each chunk of ``spec.device_steps`` optimizer steps is one
 ``runtime.steps.train_chunk`` call (xent and AdamW kernels on the card);
 its losses stay on the device until a checkpoint or log cadence flushes
-them with one copy.  A kind the port cannot train (``NotImplementedError``
-from its forward) ends the run with that error as it is: retrying cannot
-help it.  The trainer's ``[elastic]`` lines go to stderr.
+them with one copy.  Every family whose batches are tokens alone trains
+here (the dense kinds, MoE, the recurrent kinds).  Whisper and the VLM
+train only on batches that carry their ``extras`` (``runtime.steps``),
+which the trainer's ``TokenPipeline`` does not make: the JAX trainer
+builds its chunk step with the extras in its batch specs, feeds it those
+batches all the same and fails each attempt on the batch's structure.  The
+port refuses such a spec up front (``NotImplementedError``), and that
+error, as any ``NotImplementedError`` from a segment, ends the run as it
+is: retrying cannot help it.  The trainer's ``[elastic]`` lines go to
+stderr.
 """
 from __future__ import annotations
 
@@ -63,7 +70,6 @@ from repro_torch.device import resolve_device
 from repro_torch.elastic.batch import BatchPlan
 from repro_torch.elastic.controller import ChurnController, Decision
 from repro_torch.models import params as pr
-from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
 from repro_torch.runtime import steps as steps_mod
 
@@ -276,7 +282,7 @@ class ElasticTrainer:
             global_batch=spec.global_batch, seq_len=spec.seq_len,
             steps=spec.steps)
         self.cfg = spec.cfg
-        self.schema = tfm.lm_schema(self.cfg)
+        self.schema = steps_mod._model_module(self.cfg).lm_schema(self.cfg)
         self.opt_schema = adamw.opt_state_schema(self.schema, spec.ocfg)
         self.progress = -1                # last completed step, any segment
         self._seg_start = 0               # current segment's restore point
@@ -314,11 +320,24 @@ class ElasticTrainer:
         flush, checkpoint, log, stop/fail checks) only at chunk
         boundaries, so preemption latency is bounded by one chunk."""
         spec, dev = self.spec, self.device
+        if steps_mod.extras_specs(self.cfg, 1) is not None:
+            raise NotImplementedError(
+                f"the {self.cfg.family!r} family ({self.cfg.name}) trains on "
+                f"batches with extras (runtime.steps.extras_specs), which "
+                f"the trainer's TokenPipeline does not make; the JAX "
+                f"trainer feeds it those batches all the same and fails on "
+                f"the batch's structure; train it through "
+                f"runtime.steps.train_chunk with extras")
         t0 = time.perf_counter()
-        # one segment's state at a time: a dead segment's tensors held
-        # only by reference cycles go before this one allocates
-        gc.collect()
         if dev.type == "cuda":
+            # one segment's state on the card at a time: a dead segment's
+            # tensors held only by reference cycles go before this one
+            # allocates.  A full collection stops every thread of the
+            # process (0.6-0.7 s in a loaded test worker, which a live
+            # event subscriber sees as lag), so host runs, where no
+            # device memory is at stake, leave the cycles to the
+            # collector's own schedule.
+            gc.collect()
             allocated = torch.cuda.memory_allocated(dev)
             self.metrics.gauge("elastic/segment_start_allocated_bytes",
                                allocated)

@@ -26,6 +26,17 @@ without a copy.
 
 On a CPU tensor the wrapper runs the plain version (``gmm_plain``, the
 oracle ``ref.gmm_ref``); on a CUDA tensor it launches the kernel or raises.
+
+Training goes through ``gmm_train``, a ``torch.autograd.Function`` whose
+backward is two more launches of the same kernel: ``dx = dy @ w^T`` and
+``dw = x^T @ dy``, each grouped by expert and summed in f32, where the
+reference differentiates its batched einsum through XLA.  The kernel reads
+a contiguous last axis, so the transposed operand (w^T, x^T) is copied
+first, each row padded to start on 16 bytes, since x^T's rows are a
+bucket's ragged capacity long (ROADMAP A6: a kernel that reads it
+transposed).  On a
+CPU tensor both directions run ``gmm_plain``.  Serving calls ``gmm``
+directly, under ``no_grad``, and pays nothing for the Function.
 """
 from __future__ import annotations
 
@@ -97,3 +108,39 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"gmm launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+def _transposed(t: torch.Tensor) -> torch.Tensor:
+    """t (E, A, B) -> t^T (E, B, A): a copy with a contiguous last axis whose
+    rows start on 16 bytes, as the kernel's half-precision loads need."""
+    E, A, B = t.shape
+    pad = -A % (16 // t.element_size())
+    out = t.new_empty((E, B, A + pad))[:, :, :A]
+    out.copy_(t.transpose(1, 2))
+    return out
+
+
+class _GMM(torch.autograd.Function):
+    """``gmm`` with its gradient through the same kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return gmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = gmm(dy, _transposed(w))
+        if ctx.needs_input_grad[1]:
+            dw = gmm(_transposed(x), dy)
+        return dx, dw
+
+
+def gmm_train(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``gmm`` under autograd: the forward launches the kernel once, the
+    backward twice (dx (E,C,D) and dw (E,D,F), in x's dtype)."""
+    return _GMM.apply(x, w)

@@ -28,6 +28,15 @@ chunked form is exact for any chunk, up to rounding.
 On a CPU tensor the wrapper runs the plain version (``ssd_scan_plain``, a
 transcription of the JAX model's ``models/ssm.py:_ssd_chunked`` with its
 chunk rule); on a CUDA tensor it launches the kernel or raises.
+
+Training goes through ``ssd_scan_train``, a ``torch.autograd.Function``:
+its forward is ``ssd_scan`` (the kernel on a CUDA tensor), and its backward
+reruns ``ssd_scan_plain`` on the saved inputs under autograd and returns
+the gradient of that chunked form.  That is the reference's own backward:
+the JAX package has no backward Pallas kernel and trains through XLA's
+autodiff of ``_ssd_chunked``.  It is the designed backward, not a fallback;
+a hand-written backward scan kernel is ROADMAP B7.  On a CPU tensor both
+directions run the plain version.
 """
 from __future__ import annotations
 
@@ -105,8 +114,12 @@ def ssd_scan_plain(x, dt, a, B_, C, h0=None, *, chunk: int = 256):
         # queue C), which in bf16 moves y by more than the kernels' tolerance
         cb = torch.einsum("btn,bsn->bts", cc.float(), bc.float())
         delta = cumc[:, :, None, :] - cumc[:, None, :, :]         # (B,t,s,H)
-        L = torch.where(tri[None, :, :, None], torch.exp(delta),
-                        torch.zeros((), device=x.device))
+        # masked before the exp, where the reference masks after it: the
+        # values are equal, but above the diagonal delta > 0 overflows
+        # exp in f32 at a long chunk's decay (zamba2's 256 rows), and the
+        # reference's gradient there is 0 * inf = NaN (ROADMAP queue C)
+        L = torch.exp(torch.where(tri[None, :, :, None], delta,
+                                  float("-inf")))
         w = cb[..., None] * L
         dx = dtc[..., None] * xc.float()                          # (B,s,H,hd)
         y = torch.einsum("btsh,bshd->bthd", w, dx)
@@ -188,3 +201,42 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
     launches += 1
     return y, h_last
+
+
+def _recompute_grads(plain, saved, needs, dy, **kw):
+    """The backward of a scan's train Function: rerun ``plain(*saved,
+    **kw)`` under autograd and return the gradient of its first output
+    against ``dy`` for each input that ``needs`` one (None for the rest)."""
+    ins = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+    with torch.enable_grad():
+        y = plain(*ins, **kw)[0]
+        grads = iter(torch.autograd.grad(
+            y, [t for t in ins if t.requires_grad], dy))
+    return tuple(next(grads) if t.requires_grad else None for t in ins)
+
+
+class _SSDTrain(torch.autograd.Function):
+    """``ssd_scan`` from a zero state, y only, with the plain chunked form's
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, B_, C, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, a, B_, C)
+        return ssd_scan(x, dt, a, B_, C, chunk=chunk)[0]
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _recompute_grads(ssd_scan_plain, ctx.saved_tensors,
+                               ctx.needs_input_grad, dy,
+                               chunk=ctx.chunk) + (None,)
+
+
+def ssd_scan_train(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   B_: torch.Tensor, C: torch.Tensor, *,
+                   chunk: int = 256) -> torch.Tensor:
+    """The train forward: ``ssd_scan`` from a zero state -> y (B,S,H,hd)
+    f32, differentiable in x, dt, a, B and C.  The forward launches the
+    kernel once on a CUDA tensor; the backward recomputes the chunk through
+    ``ssd_scan_plain`` (``chunk`` is its chunk)."""
+    return _SSDTrain.apply(x, dt, a, B_, C, chunk)

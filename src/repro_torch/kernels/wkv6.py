@@ -28,6 +28,15 @@ a ragged last chunk.
 On a CPU tensor the wrapper runs the plain version (``wkv6_plain``, a
 transcription of the JAX model's ``models/ssm.py:_wkv_chunked`` with its
 chunk rule); on a CUDA tensor it launches the kernel or raises.
+
+Training goes through ``wkv6_train``, a ``torch.autograd.Function``: its
+forward is ``wkv6`` (the kernel on a CUDA tensor), and its backward reruns
+``wkv6_plain`` on the saved inputs under autograd and returns the gradient
+of that chunked form.  That is the reference's own backward: the JAX
+package has no backward Pallas kernel and trains through XLA's autodiff of
+``_wkv_chunked``.  It is the designed backward, not a fallback; a
+hand-written backward scan kernel is ROADMAP B7.  On a CPU tensor both
+directions run the plain version.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ssm_scan import _recompute_grads
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 MAX_HEAD_DIM = 128    # the kernels keep a chunk's (rows, hd) tiles in shared memory
@@ -101,8 +111,10 @@ def wkv6_plain(r, k, v, logw, u, s0=None, *, chunk: int = 64):
         # exp(cum[t] - w[t] - cum[s]) — one-step shift vs the state update
         cum_prev = cumc - wc.float()
         delta = cum_prev[:, :, None] - cumc[:, None, :, :]    # (B,t,s,H,hd)
-        decay = torch.where(tri_lt[None, :, :, None, None], torch.exp(delta),
-                            torch.zeros((), device=r.device))
+        # masked before the exp, as in ssm_scan_plain: equal values, and a
+        # finite gradient where delta > 0 overflows exp (ROADMAP queue C)
+        decay = torch.exp(torch.where(tri_lt[None, :, :, None, None], delta,
+                                      float("-inf")))
         att = torch.einsum("bthi,bshi,btshi->btsh", rf, kf, decay)
         y = torch.einsum("btsh,bshj->bthj", att, vf)
         # current-token bonus: y[t,j] += (sum_i r[t,i] u[i] k[t,i]) v[t,j]
@@ -183,3 +195,30 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"wkv6 launch failed: CUDA error {rc}")
     launches += 1
     return y, s_last
+
+
+class _WKV6Train(torch.autograd.Function):
+    """``wkv6`` from a zero state, y only, with the plain chunked form's
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(r, k, v, logw, u)
+        return wkv6(r, k, v, logw, u, chunk=chunk)[0]
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _recompute_grads(wkv6_plain, ctx.saved_tensors,
+                               ctx.needs_input_grad, dy,
+                               chunk=ctx.chunk) + (None,)
+
+
+def wkv6_train(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               logw: torch.Tensor, u: torch.Tensor, *,
+               chunk: int = 64) -> torch.Tensor:
+    """The train forward: ``wkv6`` from a zero state -> y (B,S,H,hd) f32,
+    differentiable in r, k, v, logw and u.  The forward launches the kernel
+    once on a CUDA tensor; the backward recomputes the chunk through
+    ``wkv6_plain`` (``chunk`` is its chunk)."""
+    return _WKV6Train.apply(r, k, v, logw, u, chunk)

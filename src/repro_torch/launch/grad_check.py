@@ -40,16 +40,32 @@ from repro_torch.runtime import steps
 LAYERED = ("wq", "wo", "wo_mlp")
 
 
+def _attention_dicts(tree):
+    """Every dict of ``tree`` that holds attention projections."""
+    if isinstance(tree, dict):
+        if "wq" in tree or "xwq" in tree:
+            yield tree
+        for v in tree.values():
+            yield from _attention_dicts(v)
+
+
 def contracted_attention_init_(cfg: ModelConfig, params) -> None:
     """Rescale wq/wk/wv/wo in place from the reference's std
-    1/sqrt(shape[-2]) to 1/sqrt(contracted width): D for wq/wk/wv, H*dh
-    for wo."""
-    contracted = {"wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
-                  "wo": cfg.num_heads * cfg.resolved_head_dim}
+    1/sqrt(shape[-2]) to 1/sqrt(contracted width): the input width for
+    wq/wk/wv (D, or the VLM cross block's vision width for its wk/wv),
+    H*dh for wo.  Every attention of the params is rescaled: the stacked
+    blocks', zamba2's shared block, and whisper's encoder, decoder and
+    cross attention (``xw*``); the widths are read from the leaves."""
     with torch.no_grad():
-        for blk in params["blocks"].values():
-            for name, width in contracted.items():
-                blk[name].mul_(math.sqrt(blk[name].shape[-2] / width))
+        for blk in _attention_dicts(params):
+            for pre in ("", "x"):
+                if pre + "wq" not in blk:
+                    continue
+                for name in ("wq", "wk", "wv"):
+                    w = blk[pre + name]            # (..., in, heads, dh)
+                    w.mul_(math.sqrt(w.shape[-2] / w.shape[-3]))
+                w = blk[pre + "wo"]                # (..., H, dh, D)
+                w.mul_(math.sqrt(1.0 / w.shape[-3]))
 
 
 def grad_norms(cfg: ModelConfig, par: ParallelConfig, params,
@@ -58,7 +74,8 @@ def grad_norms(cfg: ModelConfig, par: ParallelConfig, params,
     of one batch's grads, norms in f64 on the host."""
     loss, grads = steps._value_and_grad(cfg, steps.train_par(par), params,
                                         steps._batch_on(
-                                            batch, params["embed"].device))
+                                            cfg, batch,
+                                            params["embed"].device))
     leaves = {path: torch.linalg.vector_norm(_leaf(grads, path).double())
               .item() for path, _ in pr.leaves(tfm.lm_schema(cfg))}
     layers = {f"{key}/{name}": torch.linalg.vector_norm(

@@ -27,10 +27,13 @@ reads, and every kept entry computes.  Where no expert fills, the two
 agree.
 
 The shard_map / all_to_all expert-parallel paths of the reference are
-multi-device work (ROADMAP queue A, item 12).  Training this kind is not
-ported (ROADMAP queue B, item 8): ``moe_mlp`` returns the load-balance
-aux loss so the module can be held against the reference, and serving
-drops it.
+multi-device work (ROADMAP queue A, item 12).  In train mode the three
+products go through ``moe_gmm.gmm_train``, whose backward launches the same
+kernel twice more (dx, dw); the index writes and gathers of the dispatch
+are differentiable as they stand (the spare row takes the dropped entries'
+grads, and nothing reads it), and the block hands the load-balance aux
+loss to ``transformer``'s train forward, which adds it to the loss as the
+reference does.  Serving calls ``gmm`` and drops the aux loss.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.moe_gmm import gmm
+from repro_torch.kernels.moe_gmm import gmm, gmm_train
 from repro_torch.models.layers import compute_dtype, rms_norm
 from repro_torch.models.params import PSpec
 
@@ -63,9 +66,10 @@ def capacities(T: int, K: int, E: int, cf: float) -> tuple[int, int]:
 
 
 def _dispatch_compute_combine(x2d, top_idx, top_w, wg, wu, wo, *, E: int,
-                              cf: float, compute_dtype):
+                              cf: float, compute_dtype, train: bool = False):
     """x2d (T, D); top_idx/top_w (T, K); wg/wu (E, D, F), wo (E, F, D).
-    Returns (T, D) in ``compute_dtype``.
+    Returns (T, D) in ``compute_dtype``; ``train`` runs the products through
+    ``gmm_train`` (the kernel's gradient).
 
     Entry i = t*K + k is kept when i < cap (the exchange buffer) and fewer
     than cap_e earlier entries chose its expert.  Its bucket row is that
@@ -93,10 +97,11 @@ def _dispatch_compute_combine(x2d, top_idx, top_w, wg, wu, wo, *, E: int,
     bucket[row] = x2d.to(compute_dtype).repeat_interleave(K, dim=0)
     bucket = bucket[:spare].view(E, cap_e, D)
 
-    gate = gmm(bucket, wg.to(compute_dtype))
-    up = gmm(bucket, wu.to(compute_dtype))
+    mm = gmm_train if train else gmm
+    gate = mm(bucket, wg.to(compute_dtype))
+    up = mm(bucket, wu.to(compute_dtype))
     h = F.silu(gate.float()).to(compute_dtype) * up
-    y = gmm(h, wo.to(compute_dtype)).view(spare, D)
+    y = mm(h, wo.to(compute_dtype)).view(spare, D)
 
     # each token's K entries are rows t*K..t*K+K-1 of the flat order: a
     # gather and a sum over K in f32, as the reference's scatter-add (the
@@ -108,7 +113,7 @@ def _dispatch_compute_combine(x2d, top_idx, top_w, wg, wu, wo, *, E: int,
     return got.view(T, K, D).sum(1).to(compute_dtype)
 
 
-def _routed(cfg: ModelConfig, p, x):
+def _routed(cfg: ModelConfig, p, x, train: bool = False):
     """(routed MLP output (B,S,D), router probs (B,S,E) f32, top_idx)."""
     mcfg = cfg.moe
     E, K = mcfg.num_experts, mcfg.top_k
@@ -121,16 +126,17 @@ def _routed(cfg: ModelConfig, p, x):
     out = _dispatch_compute_combine(
         x.reshape(B * S, D), top_idx.reshape(B * S, K),
         top_w.reshape(B * S, K), p["moe_wg"], p["moe_wu"], p["moe_wo"],
-        E=E, cf=mcfg.capacity_factor, compute_dtype=cd)
+        E=E, cf=mcfg.capacity_factor, compute_dtype=cd, train=train)
     return out.reshape(B, S, D), probs, top_idx
 
 
-def moe_mlp(cfg: ModelConfig, p, x):
+def moe_mlp(cfg: ModelConfig, p, x, train: bool = False):
     """x (B,S,D) -> (B,S,D), plus the load-balance aux loss (f32 scalar):
     ``aux_weight * E * sum_e f_e * p_e`` (Shazeer et al.), f_e the share of
-    entries routed to e and p_e its mean router probability."""
+    entries routed to e and p_e its mean router probability.  ``train``
+    runs the expert products through ``gmm_train``."""
     E = cfg.moe.num_experts
-    out, probs, top_idx = _routed(cfg, p, x)
+    out, probs, top_idx = _routed(cfg, p, x, train)
     f = F.one_hot(top_idx, E).float().sum(2).mean(dim=(0, 1))
     pbar = probs.mean(dim=(0, 1))
     return out, cfg.moe.router_aux_weight * E * (f * pbar).sum()
@@ -146,13 +152,18 @@ def moe_block_schema(cfg: ModelConfig, G: int) -> Dict[str, PSpec]:
 
 def apply_moe_block(cfg: ModelConfig, p, x, *, mode, positions, cache, pos,
                     shared, extras=None):
-    """Attention sub-block, then the routed MLP.  -> (x, new_cache); the
-    aux loss is not computed (serving has no use for it)."""
+    """Attention sub-block, then the routed MLP.  -> (x, new_cache); in
+    train the second item is ``{"aux": the load-balance aux loss}``, which
+    serving never computes."""
     from repro_torch.models.transformer import attention_part
     x, new_cache = attention_part(cfg, p, x, window=None, mode=mode,
                                   positions=positions, cache=cache, pos=pos)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    out = _routed(cfg, p, h)[0]
+    if mode == "train":
+        out, aux = moe_mlp(cfg, p, h, train=True)
+        new_cache = {"aux": aux}
+    else:
+        out = _routed(cfg, p, h)[0]
     if cfg.post_norm:
         out = rms_norm(out, p["ln2_post"], cfg.norm_eps)
     return x + out, new_cache

@@ -9,9 +9,14 @@ the decode cache.  Decode is plain PyTorch, one recurrence step, as in the
 reference.
 
 Decode updates the given cache views in place (the JAX functions return
-new caches) and returns them.  Training these kinds is not ported: the
-JAX kernels have no backward, so it needs backward SSD and WKV6 kernels
-(ROADMAP queue B, item 7); ``transformer.forward`` raises for it.
+new caches) and returns them.  Train mode runs the scans through
+``ssm_scan.ssd_scan_train`` and ``wkv6.wkv6_train``: the kernels' forward
+from a zero state, and a backward that recomputes the chunk through the
+plain chunked form under autograd, which is the reference's own route (the
+JAX package has no backward scan kernel and trains through XLA's autodiff
+of ``_ssd_chunked`` and ``_wkv_chunked``).  Train mode returns no cache.
+zamba2's ``mamba_attn`` trains its shared attention weights, passed in as
+``shared`` by ``transformer``'s train forward.
 """
 from __future__ import annotations
 
@@ -21,8 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssm_scan import ssd_scan
-from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.kernels.ssm_scan import ssd_scan, ssd_scan_train
+from repro_torch.kernels.wkv6 import wkv6, wkv6_train
 from repro_torch.models.layers import compute_dtype, rms_norm
 from repro_torch.models.params import PSpec
 
@@ -123,10 +128,12 @@ def apply_mamba(cfg: ModelConfig, p, x, *, mode, positions, cache, pos,
         xs_c, conv_cache = _causal_conv(xs, p["conv_w"].to(cd))
         xs_c = _silu_f32(xs_c, cd)
         xh = xs_c.reshape(*xs_c.shape[:2], H, hd)
-        y, h_last = ssd_scan(xh, dt, a, Bm, Cm, chunk=cfg.ssm.chunk)
-        y = y.to(xh.dtype)
-        if mode == "prefill":
+        if mode == "train":
+            y = ssd_scan_train(xh, dt, a, Bm, Cm, chunk=cfg.ssm.chunk)
+        else:
+            y, h_last = ssd_scan(xh, dt, a, Bm, Cm, chunk=cfg.ssm.chunk)
             new_cache = {"conv": conv_cache, "state": h_last}
+        y = y.to(xh.dtype)
     y = y + p["D_skip"].to(cd)[None, None, :, None] * xh
     y = y.reshape(*y.shape[:2], d_in)
     y = rms_norm(y, p["ln_y"], cfg.norm_eps)
@@ -269,10 +276,11 @@ def apply_rwkv(cfg: ModelConfig, p, x, *, mode, positions, cache, pos,
         cache["shift1"].copy_(h)
         cache["state"].copy_(st)
         new_cache = cache
+    elif mode == "train":
+        y = wkv6_train(rh, kh, vh, wh, uh, chunk=cfg.rwkv.chunk)
     else:
         y, s_last = wkv6(rh, kh, vh, wh, uh, chunk=cfg.rwkv.chunk)
-        if mode == "prefill":
-            new_cache = {"shift1": h[:, -1:], "state": s_last}
+        new_cache = {"shift1": h[:, -1:], "state": s_last}
     y = y.reshape(B, S, D).to(cd)
     y = rms_norm(y, p["ln_x"], cfg.norm_eps)
     y = y * _silu_f32(g, cd)

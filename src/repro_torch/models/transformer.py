@@ -25,10 +25,13 @@ stacked across groups.  Decode writes the step's k/v and recurrent state
 into the cache tensors in place (the JAX functions return new caches);
 callers that need the old cache clone it.
 
-Train runs the dense kinds and ``cross`` only (the recurrent kinds need
-backward scan kernels, ROADMAP queue B item 7; MoE needs the backward
-grouped products and the aux loss, item 8), keeps the autograd graph and
-no caches.
+Train runs every kind, keeps the autograd graph and no caches: the second
+item a kind returns in train is ``{}``, or ``{"aux": f32 scalar}`` for the
+MoE kind's load-balance loss, which ``loss_fn`` and ``rl_loss_fn`` add to
+the loss as the reference does (``nll + aux``).  MoE trains through the
+grouped-matmul kernel's gradient, the recurrent kinds through the scan
+kernels' forward with the plain chunked form's gradient
+(``ssm_scan.ssd_scan_train``, ``wkv6.wkv6_train``).
 With ``par.remat`` each layer group runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
 body), so backward keeps one group's input per group and recomputes the
@@ -55,7 +58,6 @@ from repro_torch.models.params import PSpec
 #          "apply": (cfg, p, x, *, mode, positions, cache, pos, shared,
 #                    extras) -> (x, new_cache)}
 KINDS: Dict[str, Dict[str, Callable]] = {}
-TRAIN_KINDS = ("attn", "global", "local", "cross")
 
 
 def register_kind(name: str, schema, cache, apply) -> None:
@@ -68,23 +70,6 @@ def _kind(kind: str) -> Dict[str, Callable]:
             f"block kind {kind!r} does not exist; the port runs "
             f"{sorted(KINDS)}, as the JAX package does")
     return KINDS[kind]
-
-
-def _check_train(cfg: ModelConfig) -> None:
-    for kind in cfg.block_pattern:
-        _kind(kind)
-    if "moe" in cfg.block_pattern:
-        raise NotImplementedError(
-            "training the block kind 'moe' is not ported yet: its backward "
-            "is two more grouped products through the gmm kernel "
-            "(dx = dy w^T, dw = x^T dy) plus the aux loss (ROADMAP queue B, "
-            "item 8); the port serves it")
-    other = sorted({k for k in cfg.block_pattern if k not in TRAIN_KINDS})
-    if other:
-        raise NotImplementedError(
-            f"training the block kinds {other} is not ported yet: it needs "
-            f"backward SSD/WKV6 scan kernels, which the JAX package never "
-            f"had (ROADMAP queue B, item 7); the port serves them")
 
 
 def _attn_mlp_schema(cfg: ModelConfig, G: int) -> Dict[str, PSpec]:
@@ -233,7 +218,10 @@ def _stack(trees: list):
 
 
 def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
-                   tokens: torch.Tensor, extras=None) -> torch.Tensor:
+                   tokens: torch.Tensor, extras=None):
+    """-> (final hidden states, the blocks' aux loss summed in f32)."""
+    for kind in cfg.block_pattern:
+        _kind(kind)
     x = embed_tokens(cfg, params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     # one unbind per stacked leaf: backward stacks its per-group grads in
@@ -242,22 +230,27 @@ def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
     groups = {key: {name: leaf.unbind(0) for name, leaf in grp.items()}
               for key, grp in params["blocks"].items()}
 
-    def body(x, gp):
+    shared = params.get("shared_attn")
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+
+    def body(x, aux, gp):
         for i, kind in enumerate(cfg.block_pattern):
-            x, _ = KINDS[kind]["apply"](
+            x, out = KINDS[kind]["apply"](
                 cfg, gp[f"{i}_{kind}"], x, mode="train", positions=positions,
-                cache=None, pos=None, shared=None, extras=extras)
-        return x
+                cache=None, pos=None, shared=shared, extras=extras)
+            if "aux" in out:
+                aux = aux + out["aux"]
+        return x, aux
 
     for gi in range(cfg.num_groups):
         gp = {key: {name: sl[gi] for name, sl in grp.items()}
               for key, grp in groups.items()}
         if par.remat:
-            x = checkpoint(body, x, gp, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(body, x, aux, gp, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x = body(x, gp)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+            x, aux = body(x, aux, gp)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
@@ -275,9 +268,8 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"mode {mode!r}: one of prefill, decode, train")
     if mode == "train":
-        _check_train(cfg)
         return _train_forward(cfg, par or ParallelConfig(), params,
-                              tokens, extras), None
+                              tokens, extras)[0], None
     kinds = [_kind(kind) for kind in cfg.block_pattern]
     x = embed_tokens(cfg, params["embed"], tokens)
     if mode == "decode":
@@ -314,18 +306,20 @@ def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
     """Mean token NLL of ``batch`` ({"tokens", "labels"}: (B,S) int, and
-    the VLM's "extras")."""
-    x, _ = forward(cfg, params, batch["tokens"], mode="train", par=par,
-                   extras=batch.get("extras"))
+    the VLM's "extras") plus the MoE blocks' aux loss."""
+    x, aux = _train_forward(cfg, par, params, batch["tokens"],
+                            batch.get("extras"))
     head = lm_head(cfg, params).to(compute_dtype(cfg))
     S = x.shape[1]
     # the reference's rule: the sharded head needs the vocab on the model
     # axis, which pure-FSDP gives to the batch
     if cfg.vocab_size % 16 == 0 and S % 16 == 0 and not par.pure_fsdp:
-        return losses.sharded_cross_entropy(
+        nll = losses.sharded_cross_entropy(
             x, batch["labels"], head, softcap=cfg.final_logit_softcap)
-    return losses.chunked_cross_entropy(
-        x, batch["labels"], head, softcap=cfg.final_logit_softcap)
+    else:
+        nll = losses.chunked_cross_entropy(
+            x, batch["labels"], head, softcap=cfg.final_logit_softcap)
+    return nll + aux
 
 
 def rl_loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
@@ -336,17 +330,18 @@ def rl_loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
     surrogate sum_t A * -log pi(label_t) / max(sum(mask), 1) is
     cross entropy weighted by mask * advantage, so it runs through
     ``losses.weighted_cross_entropy`` and its xent kernel; prompt and pad
-    positions weigh 0 and get no gradient.
+    positions weigh 0 and get no gradient.  The MoE blocks' aux loss is
+    added, as in ``loss_fn``.
     """
-    x, _ = forward(cfg, params, batch["tokens"], mode="train", par=par,
-                   extras=batch.get("extras"))
+    x, aux = _train_forward(cfg, par, params, batch["tokens"],
+                            batch.get("extras"))
     head = lm_head(cfg, params).to(compute_dtype(cfg))
     mask = batch["mask"].float()
     w = mask * batch["advantages"].float()[:, None]
     denom = mask.sum().clamp_min(1.0)
     return losses.weighted_cross_entropy(
         x, batch["labels"], head, w, denom=denom,
-        softcap=cfg.final_logit_softcap)
+        softcap=cfg.final_logit_softcap) + aux
 
 
 # the MoE, recurrent and cross kinds (module imports after the definitions

@@ -7,7 +7,11 @@ into advantage-weighted LM batches, and runs chunks of optimizer steps
 through ``runtime.steps.rl_train_chunk`` — the supervised ``train_chunk``
 (AdamW in place, metrics stacked (K,) on the device, one host sync a
 chunk) with the policy-gradient loss.  On the card its loss runs the xent
-kernels and its update the AdamW kernel.
+kernels and its update the AdamW kernel.  It trains every decoder-only
+family on token rollouts (MoE and the recurrent kinds through their
+kernels' train paths); whisper has no policy-gradient loss, as in the
+reference, and the VLM's rollouts carry no image embeddings, so
+``rl_train_chunk`` raises for both.
 
 Elasticity mirrors the elastic trainer's segment contract:
 
@@ -45,7 +49,6 @@ from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
 from repro_torch.device import resolve_device
 from repro_torch.elastic.trainer import chunk_schedule, meta_tree, snap_cadence
 from repro_torch.models import params as pr
-from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
 from repro_torch.rl.replay import RolloutQueue, Trajectory
 from repro_torch.rl.weights import PolicyStore
@@ -134,7 +137,7 @@ class RLLearner:
         self._failed_once = False
         self._crashed = False
         self._queue_at_start: Optional[dict] = None
-        self._schema = tfm.lm_schema(spec.cfg)
+        self._schema = steps_mod._model_module(spec.cfg).lm_schema(spec.cfg)
         self._opt_schema = adamw.opt_state_schema(self._schema, spec.ocfg)
 
     def _abstract(self):

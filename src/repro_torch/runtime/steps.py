@@ -1,7 +1,11 @@
 """Train, serving step functions and the KV cache layouts, in PyTorch.
 
 Mirrors the JAX package's ``runtime/steps.py`` without meshes or
-shardings.  Training:
+shardings.  Training, for every family the port serves, through the family's
+model module (``_model_module``: its ``lm_schema`` and ``loss_fn``, as the
+reference's ``_train_pieces`` picks them), on batches that carry the
+family's ``extras`` (whisper's frames, the VLM's image embeddings) whenever
+``extras_specs`` gives any:
 
   * ``init_opt_state`` — zero AdamW state for a config's params;
   * ``train_step`` — one optimizer step on a (B, S) batch, folding
@@ -9,8 +13,9 @@ shardings.  Training:
     reference's scan), then ``optim.adamw.apply_updates`` in place;
   * ``train_chunk`` — K steps on a (K, B, S) chunk with the metrics
     stacked on the device, so the host syncs once per chunk;
-  * ``rl_train_chunk`` — the same with the RL learner's loss
-    (``transformer.rl_loss_fn``) and batch (``rl_batch_specs``).
+  * ``rl_train_chunk`` — the same with the RL learner's loss (the model
+    module's ``rl_loss_fn``; whisper's ``encdec`` has none, as in the
+    reference) and batch (``rl_batch_specs``).
 
 Serving, for every family the port serves (``_model_module``: the
 encoder-decoder ``models.encdec`` for "audio", ``models.transformer``
@@ -263,32 +268,28 @@ def train_par(par: ParallelConfig) -> ParallelConfig:
     return par
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse the families the train steps cannot run yet.
-
-    The steps train the decoder-only LM (``transformer.loss_fn``) on token
-    batches.  Whisper needs ``encdec.loss_fn`` and its frames, the VLM its
-    image embeddings: both losses take them as ``batch["extras"]``, which
-    the steps do not carry, so they would train another model or fail deep
-    in the cross block."""
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family ({cfg.name}) through the "
-            f"train steps is not ported yet: they carry no extras and do not "
-            f"dispatch to its loss (ROADMAP queue A, item A9); the port "
-            f"serves it")
-
-
 def init_opt_state(cfg: ModelConfig, ocfg: OptimizerConfig, device="cuda"):
     """All-zeros AdamW state {"m", "v", "count"} for ``cfg``'s params."""
-    check_trainable(cfg)
-    return _zeros(adamw.opt_state_schema(tfm.lm_schema(cfg), ocfg),
+    return _zeros(adamw.opt_state_schema(_model_module(cfg).lm_schema(cfg),
+                                         ocfg),
                   "float32", resolve_device(device))
 
 
+def _loss_of(cfg: ModelConfig, attr: str):
+    """The family's loss function ``attr`` (``loss_fn`` or ``rl_loss_fn``),
+    raising as the reference does where its module has none."""
+    loss = getattr(_model_module(cfg), attr, None)
+    if loss is None:
+        raise ValueError(
+            f"model family {cfg.family!r} does not define {attr!r}")
+    return loss
+
+
 def _value_and_grad(cfg: ModelConfig, par: ParallelConfig, params, batch,
-                    loss=tfm.loss_fn):
-    """(loss, grads like params) for one (micro)batch."""
+                    loss=None):
+    """(loss, grads like params) for one (micro)batch; ``loss`` defaults
+    to the family's ``loss_fn``."""
+    loss = loss or _loss_of(cfg, "loss_fn")
     req = _map(lambda t: t.detach().requires_grad_(), params)
     with torch.enable_grad():
         value = loss(cfg, par, req, batch)
@@ -314,30 +315,42 @@ def rl_batch_specs(B: int, S: int):
 RL_KEYS = tuple(rl_batch_specs(1, 1))
 
 
-def _batch_on(batch, dev: torch.device, keys=TRAIN_KEYS):
-    return {k: torch.as_tensor(batch[k]).to(dev) for k in keys}
+def _batch_on(cfg: ModelConfig, batch, dev: torch.device, keys=TRAIN_KEYS):
+    """``batch``'s ``keys`` on ``dev``, and its nested "extras" dict where
+    the family has stubs (``extras_specs``), which must then be there."""
+    want = extras_specs(cfg, 1)
+    if want is not None:
+        if not (isinstance(batch.get("extras"), dict)
+                and set(want) <= set(batch["extras"])):
+            raise ValueError(
+                f"the {cfg.family!r} family ({cfg.name}) trains on "
+                f"batch['extras'] with {sorted(want)} (steps.extras_specs)")
+        keys = tuple(keys) + ("extras",)
+    return {k: _map(lambda t: torch.as_tensor(t).to(dev), batch[k])
+            for k in keys}
 
 
 def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
-               params, opt_state, batch, *, device="cuda", loss=tfm.loss_fn,
+               params, opt_state, batch, *, device="cuda", loss=None,
                keys=TRAIN_KEYS):
     """One optimizer step -> (params, opt_state, metrics), params and
     moments updated in place.
 
     ``batch`` holds (B, S) int "tokens" and "labels" (numpy or tensors),
-    and whatever else ``loss`` reads, named in ``keys`` (the RL step:
+    the family's "extras" ({name: (B, ...)}, ``extras_specs``) where it
+    has any, and whatever else ``loss`` (default: the family's
+    ``loss_fn``) reads, named in ``keys`` (the RL step:
     ``rl_train_chunk``).  The step always consumes the whole batch:
     ``ocfg.accum_steps`` microbatches of B / accum rows each, their losses
     and grads summed in f32 and divided by accum, so the trajectory does
     not depend on accum.  ``metrics`` holds f32 device tensors "loss",
     "grad_norm" and "lr".
     """
-    check_trainable(cfg)
     dev = resolve_device(device)
+    batch = _batch_on(cfg, batch, dev, keys)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params are on {params['embed'].device}, the step "
                          f"on {dev}")
-    batch = _batch_on(batch, dev, keys)
     B = batch["tokens"].shape[0]
     accum = max(ocfg.accum_steps, 1)
     if B % accum:
@@ -351,22 +364,23 @@ def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
         grads = _map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                            device=dev), params)
         for i in range(accum):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            micro = _map(lambda v: v[i * mb:(i + 1) * mb], batch)
             l, g = _value_and_grad(cfg, par, params, micro, loss)
             value = value + l
             _map(lambda acc, new: acc.add_(new), grads, g)
         value = value / accum
         _map(lambda acc: acc.div_(accum), grads)
     params, opt_state, stats = adamw.apply_updates(
-        tfm.lm_schema(cfg), params, grads, opt_state, ocfg)
+        _model_module(cfg).lm_schema(cfg), params, grads, opt_state, ocfg)
     return params, opt_state, {"loss": value.to(torch.float32), **stats}
 
 
 def train_chunk(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
-                params, opt_state, batches, *, device="cuda", loss=tfm.loss_fn,
+                params, opt_state, batches, *, device="cuda", loss=None,
                 keys=TRAIN_KEYS):
     """K = ``batches["tokens"].shape[0]`` optimizer steps on a (K, B, S)
-    chunk -> (params, opt_state, metrics stacked (K,) on the device).
+    chunk (extras stacked (K, B, ...) alike) -> (params, opt_state,
+    metrics stacked (K,) on the device).
 
     The chunk moves to the device in one copy per leaf, and nothing here
     reads a device value back: the caller syncs once per chunk.  Each step
@@ -374,12 +388,12 @@ def train_chunk(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
     trajectory equals K per-step calls.
     """
     dev = resolve_device(device)
-    batches = _batch_on(batches, dev, keys)
+    batches = _batch_on(cfg, batches, dev, keys)
     ms = []
     for j in range(batches["tokens"].shape[0]):
         params, opt_state, m = train_step(
             cfg, par, ocfg, params, opt_state,
-            {k: v[j] for k, v in batches.items()}, device=dev, loss=loss,
+            _map(lambda v: v[j], batches), device=dev, loss=loss,
             keys=keys)
         ms.append(m)
     return params, opt_state, {k: torch.stack([m[k] for m in ms])
@@ -390,7 +404,8 @@ def rl_train_chunk(cfg: ModelConfig, par: ParallelConfig,
                    ocfg: OptimizerConfig, params, opt_state, batches, *,
                    device="cuda"):
     """The RL learner's chunk: ``train_chunk`` with the advantage-weighted
-    policy-gradient loss (``transformer.rl_loss_fn``) over batches of
-    ``rl_batch_specs``' keys, stacked (K, ...)."""
+    policy-gradient loss (the family's ``rl_loss_fn``) over batches of
+    ``rl_batch_specs``' keys (and the family's extras), stacked (K, ...)."""
     return train_chunk(cfg, par, ocfg, params, opt_state, batches,
-                       device=device, loss=tfm.rl_loss_fn, keys=RL_KEYS)
+                       device=device, loss=_loss_of(cfg, "rl_loss_fn"),
+                       keys=RL_KEYS)

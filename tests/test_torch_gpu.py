@@ -36,7 +36,12 @@ CONNECT: the FFN's forward and flood fill on the card within 1e-4 of the
 output's scale of the CPU's (f32 with TF32 off), ``connect_label`` equal
 exactly.  The tenant backend: a full-width phi4 ServeJob through
 ``Session(tenant=)`` on a fabric computing on the card gives a direct
-engine's tokens.
+engine's tokens.  The train Functions: gmm's forward, dx and dw (three
+launches) against autograd of the plain einsum, 1e-5 / 2^-7 of the scale
+as the kernel; one zamba2 and one rwkv6 train step's grads (the scan
+kernel forward twice a layer with remat, the plain recompute backward)
+against the CPU's, 1e-5 on the loss and 1e-4 of each leaf's norm (f32,
+the same sums in another order).
 """
 import numpy as np
 import pytest
@@ -519,6 +524,93 @@ def test_gmm_ragged_d_and_f_inside_aligned_rows(C, dtype):
     want = moe_gmm.gmm_plain(x, w)
     scale = max(1.0, want.float().abs().max().item())
     assert (got.float() - want.float()).abs().max().item() <= 2 ** -7 * scale
+
+
+# ---------------------------------------------- train Functions (B8, A9)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_train_backward_matches_plain_autograd(dtype):
+    """A ragged bucket (E 3, C 37, D 72, F 40): the Function's forward and
+    its dx and dw, three kernel launches, against autograd of the plain
+    einsum on the card (1e-5 of the scale in f32, 2^-7 in bf16: one
+    rounding of an f32 sum)."""
+    _card()
+    from repro_torch.kernels.ref import gmm_ref
+    rng = np.random.RandomState(3)
+    dt_ = getattr(torch, dtype)
+    x, w, dy = (torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                                device="cuda").to(dt_)
+                for s in [(3, 37, 72), (3, 72, 40), (3, 37, 40)])
+    xk, wk = (t.clone().requires_grad_() for t in (x, w))
+    before = moe_gmm.launches
+    got = moe_gmm.gmm_train(xk, wk)
+    got.backward(dy)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 3
+    xp, wp = (t.clone().requires_grad_() for t in (x, w))
+    want = gmm_ref(xp, wp)
+    want.backward(dy)
+    for a, b in ((got, want), (xk.grad, xp.grad), (wk.grad, wp.grad)):
+        scale = max(1.0, b.float().abs().max().item())
+        tol = (1e-5 if dtype == "float32" else 2 ** -7) * scale
+        assert a.dtype == dt_
+        assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
+def test_scan_train_step_grads_match_plain(arch):
+    """One train step's grads of a two-layer smoke model in f32 on the card
+    (the scan kernel forward, the plain recompute backward) against the
+    same step on the CPU (the plain versions both ways), on
+    ``profile_train.train_setup``'s weights (the contracted attention
+    init, as ``chip_smoke.py`` checks them): the loss within 1e-5
+    relative, every leaf within 1e-4 of its norm; the scan kernel
+    launches twice a layer (the forward and its remat recompute).  Under
+    the reference init zamba2's embedding grad moved by 1.3e-4 of its
+    norm between card and CPU."""
+    _card()
+    from repro_torch.launch.profile_train import train_setup
+    from repro_torch.runtime import steps
+    cfg, par, _, params, _, chunk = train_setup(
+        arch, layers=2, pattern=(("mamba", "mamba_attn")
+                                 if arch == "zamba2-2.7b" else None),
+        seq=64, batch=2, seed=1, device="cpu", smoke=True, dtype="float32")
+    par = steps.train_par(par)
+    batch = {k: torch.as_tensor(v[0]) for k, v in chunk(0, 1).items()}
+    kernel = ssm_scan if arch == "zamba2-2.7b" else wkv6
+    want_l, want_g = steps._value_and_grad(cfg, par, params, batch)
+    before = kernel.launches
+    got_l, got_g = steps._value_and_grad(
+        cfg, par, _cuda_tree(params), {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2 * cfg.num_layers
+    assert abs(got_l.item() - want_l.item()) <= 1e-5 * abs(want_l.item())
+    for path, w in _named(want_g):
+        g = _leaf(got_g, path).cpu()
+        err = ((g - w).norm() / w.norm()).item()
+        assert err <= 1e-4, (path, err)
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _leaf(tree, path):
+    for k in path.strip("/").split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _cuda_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _cuda_tree(v) for k, v in tree.items()}
+    return tree.cuda()
 
 
 # ------------------------------------------------- training runtime (A5)

@@ -522,15 +522,21 @@ def test_paged_equals_slotted_at_the_configs_capacity_factor():
     assert out[True] == out[False]
 
 
-def test_training_moe_raises():
+def test_training_moe_runs():
+    """The train forward keeps no cache, and a train step through the
+    gmm Function's plain path gives finite metrics and moves the expert
+    weights (tests/test_torch_train_families.py holds the values)."""
     cfg = treg.get_smoke(ARCH)
     params = tpr.init_params(ttfm.lm_schema(cfg), torch.Generator(),
                              cfg.param_dtype, "cpu")
     toks = torch.ones((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B, item 8"):
-        ttfm.forward(cfg, params, toks, mode="train")
+    x, caches = ttfm.forward(cfg, params, toks, mode="train")
+    assert caches is None and x.shape == (1, 8, cfg.d_model)
     ocfg = OptimizerConfig()
-    with pytest.raises(NotImplementedError, match="grouped products"):
-        tsteps.train_step(cfg, treg.get_parallel(ARCH), ocfg, params,
-                          tsteps.init_opt_state(cfg, ocfg, "cpu"),
-                          {"tokens": toks, "labels": toks}, device="cpu")
+    before = params["blocks"]["0_moe"]["moe_wg"].clone()
+    params, _, m = tsteps.train_step(
+        cfg, treg.get_parallel(ARCH), ocfg, params,
+        tsteps.init_opt_state(cfg, ocfg, "cpu"),
+        {"tokens": toks, "labels": toks}, device="cpu")
+    assert all(torch.isfinite(v).all() for v in m.values())
+    assert not torch.equal(params["blocks"]["0_moe"]["moe_wg"], before)

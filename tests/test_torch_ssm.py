@@ -646,18 +646,26 @@ def test_state_caches_are_slotted_and_never_paged(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_training_these_kinds_raises(arch):
+def test_training_these_kinds_runs(arch):
+    """The train forward keeps no cache, and a train step through the scan
+    Functions' plain paths gives finite metrics (zamba2's shared
+    attention weights included among the leaves it moves;
+    tests/test_torch_train_families.py holds the values)."""
     cfg = treg.get_smoke(arch)
     params = tpr.init_params(ttfm.lm_schema(cfg), torch.Generator(),
                              cfg.param_dtype, "cpu")
     toks = torch.ones((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B, item 7"):
-        ttfm.forward(cfg, params, toks, mode="train")
+    x, caches = ttfm.forward(cfg, params, toks, mode="train")
+    assert caches is None and x.shape == (1, 8, cfg.d_model)
     ocfg = OptimizerConfig()
-    with pytest.raises(NotImplementedError, match="backward SSD/WKV6"):
-        tsteps.train_step(cfg, treg.get_parallel(arch), ocfg, params,
-                          tsteps.init_opt_state(cfg, ocfg, "cpu"),
-                          {"tokens": toks, "labels": toks}, device="cpu")
+    before = {k: v.clone() for k, v in params.get("shared_attn", {}).items()}
+    params, _, m = tsteps.train_step(
+        cfg, treg.get_parallel(arch), ocfg, params,
+        tsteps.init_opt_state(cfg, ocfg, "cpu"),
+        {"tokens": toks, "labels": toks}, device="cpu")
+    assert all(torch.isfinite(v).all() for v in m.values())
+    assert all(not torch.equal(params["shared_attn"][k], v)
+               for k, v in before.items() if k.startswith("w"))
 
 
 def test_unported_kinds_still_raise():

@@ -324,18 +324,28 @@ def test_cli_trains_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-90b"])
-def test_train_steps_and_cli_refuse_families_needing_extras(arch):
+def test_train_steps_carry_extras_and_the_cli_refuses(arch):
     """Whisper's encoder and the VLM's image embeddings reach their losses
-    only through ``batch["extras"]``, which the train steps do not carry:
-    the steps and the CLI raise rather than train a decoder-only LM."""
+    through ``batch["extras"]``, which the train steps carry: a step on a
+    batch with them gives finite metrics.  The CLI's trainer feeds
+    ``TokenPipeline`` batches, which have none, and refuses the family
+    (tests/test_torch_elastic.py pins it beside the JAX trainer)."""
     from repro_torch.launch import train
     cfg, ocfg = treg.get_smoke(arch), OptimizerConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item A9"):
-        tsteps.init_opt_state(cfg, ocfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="carry no extras"):
-        tsteps.train_step(cfg, treg.get_parallel(arch), ocfg, {}, {},
-                          TokenPipeline(cfg.vocab_size, 16, 2).batch(0),
-                          device="cpu")
+    if cfg.family == "audio":
+        cfg = cfg.replace(encoder_frames=16)
+    T = tsteps.token_len(cfg, ShapeConfig("t", 16, 2, "train"))
+    batch = TokenPipeline(cfg.vocab_size, T, 2).batch(0)
+    rng = np.random.RandomState(0)
+    batch["extras"] = {k: rng.standard_normal(tuple(v.shape)).astype(
+        np.float32) for k, v in tsteps.extras_specs(cfg, 2).items()}
+    params = tpr.init_params(tsteps._model_module(cfg).lm_schema(cfg),
+                             torch.Generator().manual_seed(0),
+                             cfg.param_dtype, "cpu")
+    _, _, m = tsteps.train_step(cfg, treg.get_parallel(arch), ocfg, params,
+                                tsteps.init_opt_state(cfg, ocfg, "cpu"),
+                                batch, device="cpu")
+    assert all(torch.isfinite(v).all() for v in m.values())
     with pytest.raises(RuntimeError, match=f"{cfg.family}' family"):
         train.main(["--arch", arch, "--smoke", "--device", "cpu",
                     "--steps", "2", "--seq", "16", "--batch", "2"])
