@@ -110,6 +110,23 @@ Phases (any failure raises and the script exits non-zero):
                2 a layer a step, xent once a 512-token loss chunk, AdamW
                once a leaf); tokens/s, ms a step and peak memory printed;
                nothing written to disk;
+  8c. kimi   — kimi-k2-1t-a32b: flash at its dh 112 prefill (B=1, H=64,
+               KV=8, 512 tokens) in bf16, f16 and f32, Sq 96 against Sk
+               520 and B=4, against the plain version, timed warm and
+               cold beside SDPA and the bound; ``quantize`` and
+               ``dequantize`` card vs CPU bit for bit at its leaf shapes;
+               serving at full width cut to 1 of 61 layers (18.2 B params,
+               36.4 GB) with phase 6's mix (paged tokens equal slotted,
+               flash once a prefill layer, gmm 3 a layer a step), each gmm
+               bucket shape it ran (E 384, C 17 and 1) held against the
+               plain version and timed; the smoke config's loss and grads
+               card vs CPU and one int8 + factored update card vs CPU (q
+               flips counted); then 2 layers of 64 experts (7.04 B params)
+               under its own int8 + factored moments, 6 bf16 steps at lr
+               3e-5: finite, falling losses, gmm 144 launches, no xent
+               (the sharded loss) and no AdamW launch (the plain update);
+               peak memory beside the state's arithmetic (35.5 GB; 84.5
+               GB with f32 moments); nothing written to disk;
   9. elastic — phi4-mini-3.8b in bf16 at full width with depth cut to 4
                layers (1.017 B params, a 10.2 GB checkpoint) trains 8 steps
                of 2 x 1024 tokens through ``ElasticTrainer`` on a one-card
@@ -213,7 +230,7 @@ The phases that write checkpoints (elastic, rl, session) print the bytes
 they wrote and left on disk, and connect, fabric and tenant the bytes
 their runs wrote.  Then it prints a ``{"kernels": [...]}`` line, a
 ``{"serve": {...}}`` line with one entry per arch, a ``{"train": {...}}``
-line, an ``{"elastic": {...}}`` line, a ``{"router": ..., "static":
+line, a ``{"kimi": {...}}`` line, an ``{"elastic": {...}}`` line, a ``{"router": ..., "static":
 ...}`` line, an ``{"rl": {...}}`` line, one ``{"session": {...}}`` line a
 workload (apply -> Running and wall seconds, tok/s beside the direct
 engine's, ms a step, events, peak GB, the card), a ``{"connect": {...}}``,
@@ -223,6 +240,7 @@ true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -294,6 +312,24 @@ SESSION_STEPS, SESSION_K, SESSION_CANCEL_STEPS, SESSION_CANCEL_AT = 4, 2, 40, 2
 # loss of a random-init model, and 4 steps do not bring it back
 SESSION_LR = 3e-5
 SESSION_BRANCHES = 2
+# kimi-k2-1t-a32b: flash at its prefill (dh 112, 64 heads on 8 KV heads);
+# served at full width cut to 1 of its 61 layers (18.2 B params, 36.4 GB in
+# bf16; 2 layers, 70.4 GB, leave no room to work); trained at 2 layers and
+# 64 of its 384 experts (7.04 B params) under its own int8 + factored
+# moments, 6 steps as three train_chunk calls of 2 on 2 x 1024 tokens
+KIMI = "kimi-k2-1t-a32b"
+KIMI_ATTN = (1, 64, 8, PROMPT, PROMPT, 112)
+KIMI_SERVE_LAYERS = 1
+KIMI_TRAIN_LAYERS, KIMI_TRAIN_EXPERTS = 2, 64
+# kimi trains at SESSION_LR: at phase_train's 3e-4 (and at 1e-4) its loss
+# rose from 13.78 to 35.0 and was still above the first after 6 steps,
+# under bf16/full moments alike, while granite under int8 + factored
+# tracked its f32 moments within 0.08 a step (launch/recipe_sweep.py,
+# PERF.md §6): a rate for a cut random-init 7168-wide MoE, not a fault of
+# the recipe
+KIMI_LR = SESSION_LR
+KIMI_UPDATE_RTOL = 1e-6   # s, vr, vc card vs CPU: sums in another order
+KIMI_FLIP_SHARE = 1e-4    # int8 q card vs CPU: +-1 flips, under 1 in 10^4
 
 
 def log(msg: str) -> None:
@@ -1531,11 +1567,12 @@ def _count_per_call(engine, counters):
     return per
 
 
-def phase_serve(smi: str, arch: str = ARCH, after=None):
-    """Full-width phi4, granite-moe or gemma2 in bf16 serves 8 requests
-    through the paged pool with the prefix cache; flash runs on every layer
-    of every full prefill and granite's gmm 3 times a layer in every full
-    prefill and decode step; then paged equals slotted on a short run.
+def phase_serve(smi: str, arch: str = ARCH, after=None, layers: int = 0):
+    """Full-width phi4, granite-moe, gemma2 or kimi-k2 (depth cut to
+    ``layers`` where given) in bf16 serves 8 requests through the paged
+    pool with the prefix cache; flash runs on every layer of every full
+    prefill and the MoE's gmm 3 times a layer in every full prefill and
+    decode step; then paged equals slotted on a short run.
     ``after(cfg, params)`` runs on the served weights before they are
     freed."""
     from repro_torch.configs import registry
@@ -1549,6 +1586,8 @@ def phase_serve(smi: str, arch: str = ARCH, after=None):
 
     torch.cuda.empty_cache()
     cfg = registry.get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
     params = pr.init_params(tfm.lm_schema(cfg),
                             torch.Generator(device="cuda").manual_seed(0),
@@ -1617,7 +1656,8 @@ def phase_serve(smi: str, arch: str = ARCH, after=None):
         if launches[name] != total or launches[name] < 1:
             raise AssertionError(f"{name} launches {launches[name]} != "
                                  f"{total} counted by call")
-    serve = {"arch": arch, "cache": "paged", "requests": len(results),
+    serve = {"arch": arch, "layers": cfg.num_layers, "cache": "paged",
+             "requests": len(results),
              "tokens": int(sm[GAUGES.TOKENS]["total"]),
              "tok_s": sm[GAUGES.TOK_S]["last"],
              "decode_tok_s": sm[GAUGES.DECODE_TOK_S]["last"],
@@ -1993,7 +2033,7 @@ FAMILY_STEPS, FAMILY_K = 6, 2
 # as tests/test_torch_train_families.py holds them against JAX (deeper,
 # f32 rounding alone moves their grads by more than 1e-4 of a leaf)
 SMOKE_CUTS = {ZAMBA: (2, ("mamba", "mamba_attn")), VLM: (2, ("attn", "cross")),
-              GRANITE: (2, None)}
+              GRANITE: (2, None), KIMI: (KIMI_TRAIN_LAYERS, None)}
 
 
 def _train_counters():
@@ -2175,6 +2215,346 @@ def phase_train_families(smi: str):
         gc.collect()
         torch.cuda.empty_cache()
     return rows, launches
+
+
+def _kimi_flash(smi: str) -> dict:
+    """Flash at kimi's head dim 112 against its plain version: its prefill
+    (B=1, H=64, KV=8, 512 tokens) in bf16, f16 and f32 (the CUDA-core
+    kernel), a ragged Sq 96 against Sk 520, and B=4; the bf16 prefill timed
+    warm and cold (rotating copies of q, k and v past L2) beside the plain
+    version, SDPA and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    B, H, KV, Sq, Sk, dh = KIMI_ATTN
+    cases = [KIMI_ATTN + (bf, 2e-2), KIMI_ATTN + (f16, 2e-2),
+             KIMI_ATTN + (f32, 2e-5), (B, H, KV, 96, 520, dh, bf, 2e-2),
+             (4, H, KV, Sq, Sk, dh, bf, 2e-2)]
+    errs = {}
+    for (b, h, kv, sq, sk, d, dtype, tol) in cases:
+        q = torch.randn(b, h, sq, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(b, kv, sk, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(b, kv, sk, d, generator=gen, device="cuda").to(dtype)
+        got = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        want = fa.attention_plain(q, k, v, causal=True)
+        err, row_err = _flash_errs(got, want)
+        held = err if dtype == f32 else row_err
+        shape = f"B={b} H={h} KV={kv} Sq={sq} Sk={sk} dh={d} {str(dtype)[6:]}"
+        log(f"[kimi] flash_attention {shape} causal: max_abs_err={err:.3g}, "
+            f"row-scaled {row_err:.3g} (tolerance {tol} "
+            f"{'absolute' if dtype == f32 else 'of each row scale'})")
+        if not held <= tol:
+            raise AssertionError(f"flash at dh 112 disagrees with its plain "
+                                 f"version at {shape}: {held} > {tol}")
+        errs[shape] = err
+        if len(errs) == 1:
+            main = (q, k, v, err, shape)
+        del got, want
+    q, k, v, err, shape = main
+    ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    copies = [(q, k, v)] + [tuple(torch.randn_like(t) for t in (q, k, v))
+                            for _ in range(math.ceil(COLD_BYTES / nbytes))]
+    ms_cold = _time_cold_ms(
+        lambda a, b, c: fa.flash_attention(a, b, c, causal=True), copies)
+    plain_ms = _time_ms(lambda: fa.attention_plain(q, k, v, causal=True))
+    library_ms = _time_ms(_sdpa(q, k, v, True, None))
+    bound_ms, bound_by = _attention_bound(*KIMI_ATTN, True, bf)
+    log(f"[kimi] flash timed at {shape} causal: kernel {ms:.4f} ms warm, "
+        f"{ms_cold:.4f} ms cold ({len(copies)} copies), plain {plain_ms:.4f} "
+        f"ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
+        f"{nbytes / 1e6:.2f} MB); {smi}")
+    del copies, main, q, k, v
+    torch.cuda.empty_cache()
+    return {"shape": shape, "max_abs_err": err, "ms": ms, "ms_cold": ms_cold,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "edge_max_abs_err": errs}
+
+
+def _kimi_quant() -> dict:
+    """``quantize`` / ``dequantize`` on the card against the CPU, bit for
+    bit, at kimi's leaf shapes: an expert slice (64, 7168, 2048) of the
+    train cut, an attention slice (D, H, dh) whose last axis is not a 128
+    multiple (one block a row), the router and norm slices and the tied
+    embedding (163,840, 7168); values of a moment's scale."""
+    from repro_torch.optim import quant
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    shapes = [(KIMI_TRAIN_EXPERTS, 7168, 2048), (7168, 64, 112),
+              (7168, KIMI_TRAIN_EXPERTS), (7168,), (163_840, 7168)]
+    out = {}
+    for shape in shapes:
+        x = 1e-3 * torch.randn(shape, generator=gen, device="cuda")
+        t0 = time.perf_counter()
+        card = quant.quantize(x)
+        back = quant.dequantize(card)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        xc = x.cpu()
+        del x
+        cpu = quant.quantize(xc)
+        same = (torch.equal(card["q"].cpu(), cpu["q"])
+                and torch.equal(card["s"].cpu().view(torch.int32),
+                                cpu["s"].view(torch.int32))
+                and torch.equal(back.cpu().view(torch.int32),
+                                quant.dequantize(cpu).view(torch.int32)))
+        log(f"[kimi] quantize/dequantize {shape}: card vs cpu "
+            f"{'bit for bit' if same else 'DIFFER'} (card {card_s:.3f} s, "
+            f"{len(card['s'].reshape(-1))} scales)")
+        if not same:
+            raise AssertionError(f"quantize on the card differs from the CPU "
+                                 f"at {shape}")
+        out[str(shape)] = same
+        del card, back, xc, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def _kimi_update_check() -> dict:
+    """One int8 + factored update on kimi's smoke config (2 layers: the
+    expert leaves factored) card vs CPU from the same params, state and
+    grads: int8 q equal but for +-1 flips, counted (under
+    KIMI_FLIP_SHARE); s, vr and vc within KIMI_UPDATE_RTOL of each leaf's
+    largest value (the factored means are sums in another order); params
+    within 1e-6 but for 1 in 200, and all within lr / 20 (a q flip moves
+    the next update by up to about lr / 127)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.models import params as pr
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    cfg = registry.get_smoke(KIMI).replace(num_layers=KIMI_TRAIN_LAYERS)
+    own = registry.get_optimizer(KIMI)
+    ocfg = OptimizerConfig(warmup_steps=1, moment_dtype=own.moment_dtype,
+                           second_moment=own.second_moment)
+    schema = tfm.lm_schema(cfg)
+    gen = torch.Generator().manual_seed(26)
+    p0 = pr.init_params(schema, gen, "float32", "cpu")
+    grads = [steps._map(lambda t: 0.01 * torch.randn(t.shape, generator=gen),
+                        p0) for _ in range(2)]
+    out = {}
+    def copy(tree, dev):        # the update works in place on both
+        return steps._map(lambda t: t.to(dev, copy=True), tree)
+    for dev in ("cpu", "cuda"):
+        p = copy(p0, dev)
+        st = steps.init_opt_state(cfg, ocfg, dev)
+        for g in grads:
+            p, st, _ = adamw.apply_updates(schema, p, copy(g, dev), st, ocfg)
+        out[dev] = {"p": p, "m": st["m"], "v": st["v"]}
+    flips = total = far = n = 0
+    worst = 0.0
+    kinds = set()
+    for (path, want), (_, got) in zip(_named(out["cpu"]), _named(out["cuda"])):
+        got = got.cpu()
+        kinds.add(path.rsplit("/", 1)[-1])
+        diff = (got.float() - want.float()).abs()
+        if path.endswith("/q"):
+            if diff.max().item() > 1:
+                raise AssertionError(f"kimi update {path}: q off by more "
+                                     f"than 1")
+            flips += int((diff > 0).sum())
+            total += diff.numel()
+        elif path.startswith("/p/"):
+            # a q flip moves the next update by up to about lr / 127
+            if diff.max().item() > ocfg.lr / 20:
+                raise AssertionError(f"kimi update {path}: a param moved "
+                                     f"more than lr / 20")
+            far += int((diff > 1e-6).sum())
+            n += diff.numel()
+        else:
+            rel = (diff.max() / want.abs().max().clamp_min(1e-30)).item()
+            worst = max(worst, rel)
+            if rel > KIMI_UPDATE_RTOL:
+                raise AssertionError(f"kimi update {path} card vs cpu "
+                                     f"{rel:.3g} of its scale > "
+                                     f"{KIMI_UPDATE_RTOL}")
+    log(f"[kimi] int8 + factored update, smoke config x2 steps, card vs cpu: "
+        f"{flips} of {total} q values one step apart (tolerance share "
+        f"{KIMI_FLIP_SHARE}); s/vr/vc worst {worst:.3g} of the leaf's scale "
+        f"(tolerance {KIMI_UPDATE_RTOL}); {far} of {n} params more than "
+        f"1e-6 apart (tolerance share 5e-3); leaf kinds {sorted(kinds)}")
+    if not {"q", "s", "vr", "vc"} <= kinds:
+        raise AssertionError(f"the smoke state lacks a recipe leaf: {kinds}")
+    if flips > KIMI_FLIP_SHARE * total or far > 5e-3 * n:
+        raise AssertionError(f"kimi update: {flips} q flips of {total}, "
+                             f"{far} params of {n} apart")
+    return {"q_flips": flips, "q_values": total, "worst_rel": worst,
+            "params_apart": far, "params": n}
+
+
+def _kimi_gmm(shapes, smi: str) -> dict:
+    """The grouped matmul at the bucket shapes the kimi serve run gave it
+    (E 384; the prefill's and the decode's capacities; gate/up and out),
+    on new random bf16 tensors (the served weights are freed): each held
+    against its plain version once, and timed as ``_gmm_timed`` times
+    granite's."""
+    from repro_torch.kernels import moe_gmm
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    rows = {}
+    for (E, C, D), (_, _, F) in sorted(shapes, key=lambda s: -s[0][1]):
+        x = torch.randn(E, C, D, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn(E, D, F, generator=gen, device="cuda").to(torch.bfloat16)
+        got = moe_gmm.gmm(x, w)
+        torch.cuda.synchronize()
+        want = moe_gmm.gmm_plain(x, w)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = GMM_RTOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+        label = (f"kimi {'prefill' if C > 1 else 'decode'} "
+                 f"{'gate/up' if D == 7168 else 'out'} (E={E} C={C} D={D} "
+                 f"F={F})")
+        log(f"[kimi] gmm {label}: max_abs_err={err:.3g} (tolerance {tol:.3g})")
+        if not err <= tol:
+            raise AssertionError(f"gmm disagrees with its plain version at "
+                                 f"{label}")
+        del got, want
+        torch.cuda.empty_cache()
+        rows[label] = dict(_gmm_timed(label, x, w, err, gen), card=smi)
+        del x, w
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _state_bytes(schema, opt_schema) -> dict:
+    """Bytes of bf16 params, bf16 grads and the optimizer state (by its
+    schema's dtypes), and of f32 moments instead."""
+    from repro_torch.models import params as pr
+    n = pr.param_count(schema)
+    state = pr.param_bytes({"m": opt_schema["m"], "v": opt_schema["v"]},
+                           "float32")
+    return {"params_b": n / 1e9, "params_gb": 2 * n / 1e9,
+            "grads_gb": 2 * n / 1e9, "opt_state_gb": state / 1e9,
+            "total_gb": (4 * n + state) / 1e9,
+            "f32_moments_total_gb": 12 * n / 1e9}
+
+
+def phase_kimi(smi: str):
+    """kimi-k2-1t-a32b on the card: flash at dh 112 (``_kimi_flash``), the
+    quantization bit for bit (``_kimi_quant``); serving at full width cut
+    to KIMI_SERVE_LAYERS layer through ``phase_serve`` (paged, prefix
+    cache; paged tokens equal slotted, flash once a prefill layer, gmm 3
+    times a layer a step) with every gmm bucket shape it ran recorded and
+    then held against the plain version (``_kimi_gmm``); the smoke config's
+    loss and grads card vs CPU (``_train_smoke_check``) and one int8 +
+    factored update card vs CPU (``_kimi_update_check``); then training at
+    full width cut to KIMI_TRAIN_LAYERS layers and KIMI_TRAIN_EXPERTS
+    experts under kimi's own recipe, bf16, 6 steps as three train_chunk
+    calls of 2 on 2 x 1024 tokens at KIMI_LR with the contracted init:
+    finite, falling losses, gmm 12 times a layer a step, and no xent
+    or AdamW launch (the sharded loss is plain math, as in the reference;
+    the int8 state takes the plain update).  Peak memory is printed beside
+    the state's arithmetic, and f32 moments' bytes for the same cut.
+    Nothing is written to disk; everything is freed before the next phase."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.profile_train import train_setup
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import params as pr
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    flash = _kimi_flash(smi)
+    quant = _kimi_quant()
+
+    # serving, with every gmm shape recorded
+    seen = set()
+    plain_gmm = moe_mod.gmm
+
+    def recording(x, w):
+        seen.add((tuple(x.shape), tuple(w.shape)))
+        return plain_gmm(x, w)
+    moe_mod.gmm = recording
+    try:
+        serve, ran, _ = phase_serve(smi, KIMI, layers=KIMI_SERVE_LAYERS)
+    finally:
+        moe_mod.gmm = plain_gmm
+    full = registry.get_config(KIMI)
+    log(f"[kimi] serve at {KIMI_SERVE_LAYERS} of {full.num_layers} layers: "
+        f"{serve['tok_s']:.1f} tok/s, p50 TTFT {serve['p50_ttft_s']:.4f} s, "
+        f"peak {serve['peak_mem_gb']:.2f} GB (arithmetic: 18.2 B params, "
+        f"36.4 GB in bf16); gmm bucket shapes {sorted(seen)}; {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gmm = _kimi_gmm(seen, smi)
+
+    # training: the smoke checks, then the full-width cut
+    _train_smoke_check(KIMI)
+    update = _kimi_update_check()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, par, ocfg, params, opt, chunk = train_setup(
+        KIMI, layers=KIMI_TRAIN_LAYERS, experts=KIMI_TRAIN_EXPERTS,
+        seq=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    ocfg = dataclasses.replace(ocfg, lr=KIMI_LR)
+    schema = steps._model_module(cfg).lm_schema(cfg)
+    opt_schema = adamw.opt_state_schema(schema, ocfg)
+    arith = _state_bytes(schema, opt_schema)
+    # AdamW's kernel takes the leaves whose m and v are both f32 tensors
+    flat_m, flat_v = adamw._flat(opt_schema["m"]), adamw._flat(opt_schema["v"])
+    fused = sum(isinstance(m, pr.PSpec) and isinstance(flat_v[k], pr.PSpec)
+                and m.dtype == flat_v[k].dtype == "float32"
+                for k, m in flat_m.items())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _read_counts(zero=True)
+    losses, norms, chunk_s = [], [], []
+    for start in range(0, FAMILY_STEPS, FAMILY_K):
+        batches = chunk(start, FAMILY_K)
+        t0 = time.perf_counter()
+        params, opt, ms = steps.train_chunk(cfg, par, ocfg, params, opt,
+                                            batches)
+        loss, norm = ms["loss"].cpu(), ms["grad_norm"].cpu()   # one sync
+        chunk_s.append(time.perf_counter() - t0)
+        losses.extend(loss.tolist())
+        norms.extend(norm.tolist())
+    ran_train = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    T = batches["tokens"].shape[-1]
+    want = _family_launches(cfg, par, fused, FAMILY_STEPS, T)
+    step_ms = [1e3 * t / FAMILY_K for t in chunk_s]
+    tokens = TRAIN_BATCH * T
+    log(f"[kimi] train ({cfg.num_layers} of {full.num_layers} layers, "
+        f"{cfg.moe.num_experts} of {full.moe.num_experts} experts, top-"
+        f"{cfg.moe.top_k}, {arith['params_b']:.3f} B params, bf16, moments "
+        f"{ocfg.moment_dtype} + {ocfg.second_moment}): losses "
+        f"{[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(x, 4) for x in norms]}; ms a step by chunk {step_ms}; "
+        f"{tokens * FAMILY_K / chunk_s[-1]:.0f} tokens/s (last chunk); "
+        f"{held_gb:.2f} GB held before the steps, peak {peak_gb:.2f} GB "
+        f"against the arithmetic {arith['total_gb']:.2f} GB (params "
+        f"{arith['params_gb']:.2f} + grads {arith['grads_gb']:.2f} + state "
+        f"{arith['opt_state_gb']:.2f}); f32 moments would need "
+        f"{arith['f32_moments_total_gb']:.2f} GB for the same cut; set-up "
+        f"{setup_s:.1f} s; launches {ran_train} (want {want}); {smi}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError("kimi: a loss or grad norm is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"kimi: loss did not fall: {losses}")
+    if ran_train != want:
+        raise AssertionError(f"kimi train launches {ran_train} != {want}")
+    del params, opt, chunk, ms, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"serve": serve, "train": {
+        "layers": cfg.num_layers, "layers_full": full.num_layers,
+        "experts": cfg.moe.num_experts, "experts_full": full.moe.num_experts,
+        "params_b": arith["params_b"], "dtype": "bfloat16",
+        "moments": f"{ocfg.moment_dtype}/{ocfg.second_moment}",
+        "steps": FAMILY_STEPS, "batch": TRAIN_BATCH, "tokens_per_step": tokens,
+        "lr": ocfg.lr,
+        "init": "contracted attention", "losses": losses, "grad_norms": norms,
+        "tokens_per_s": tokens * FAMILY_K / chunk_s[-1],
+        "p50_step_ms": statistics.median(step_ms), "step_ms_by_chunk": step_ms,
+        "held_gb": held_gb, "peak_mem_gb": peak_gb, "arithmetic": arith,
+        "launches": ran_train, "card": smi},
+        "update_card_vs_cpu": update, "quant_bit_for_bit": quant,
+        "gmm_shapes": sorted(seen), "phase_s": time.perf_counter() - t_start,
+        "card": smi}
+    return row, flash, gmm, ran, ran_train
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -3926,6 +4306,12 @@ def main() -> int:
         f"{VLM} serve ({VLM_LAYERS} layers)": ran_vlm["flash_attention"]}
     train, launches = phase_train(smi)
     families, family_launches = phase_train_families(smi)
+    kimi, kimi_flash, kimi_gmm, ran_kimi, ran_kimi_train = phase_kimi(smi)
+    flash["kimi_dh112"] = kimi_flash
+    gmm["kimi_serve"] = kimi_gmm
+    flash["launches_by_path"][
+        f"{KIMI} serve ({KIMI_SERVE_LAYERS} layer)"] = ran_kimi[
+            "flash_attention"]
     ssd["launches_by_path"] = {
         f"{ZAMBA} serve": ran_zamba["ssd_scan"],
         f"{ZAMBA} train ({FAMILY_STEPS} steps)":
@@ -3934,10 +4320,14 @@ def main() -> int:
         f"{RWKV} serve": ran_rwkv["wkv6"],
         f"{RWKV} train ({FAMILY_STEPS} steps)":
             family_launches[RWKV]["wkv6"]}
+    kimi_train = (f"{KIMI} train ({KIMI_TRAIN_LAYERS} layers, "
+                  f"{KIMI_TRAIN_EXPERTS} experts, {FAMILY_STEPS} steps)")
     gmm["launches_by_path"] = {
         f"{GRANITE} serve": ran_granite["moe_gmm"],
         f"{GRANITE} train ({FAMILY_STEPS} steps)":
-            family_launches[GRANITE]["moe_gmm"]}
+            family_launches[GRANITE]["moe_gmm"],
+        f"{KIMI} serve ({KIMI_SERVE_LAYERS} layer)": ran_kimi["moe_gmm"],
+        kimi_train: ran_kimi_train["moe_gmm"]}
     elastic, elastic_launches = phase_elastic(smi)
     log(f"[disk] written so far {elastic['disk_written_gb']:.2f} GB")
     router, ran_router = phase_serve_router(smi, phi4_run)
@@ -3992,6 +4382,7 @@ def main() -> int:
         row["launches_by_path"].update({
             f"{arch} train ({FAMILY_STEPS} steps)": ran[row["name"]]
             for arch, ran in family_launches.items()})
+        row["launches_by_path"][kimi_train] = ran_kimi_train[row["name"]]
     kernels = [flash, xent_fwd, xent_bwd, adamw, ssd, wkv, gmm]
     for row in kernels:
         row["card"] = smi
@@ -4002,6 +4393,7 @@ def main() -> int:
                                 VLM: serve_vlm}}))
     print(json.dumps({"train": train}))
     print(json.dumps({"train_families": families}))
+    print(json.dumps({"kimi": kimi}))
     print(json.dumps({"elastic": elastic}))
     print(json.dumps(router))
     print(json.dumps({"rl": rl}))

@@ -1,12 +1,12 @@
 """``--arch <id>`` registry of the architectures the port runs.
 
-Nine of the JAX registry's ten: every one but kimi-k2-1t-a32b, which waits
-on flash at head dim 112 and the quantized moments (ROADMAP A3).  phi4,
+All ten of the JAX registry's, and each serves and trains: phi4,
 codeqwen1.5-7b, deepseek-7b and gemma2-9b (dense attention; gemma2 with
-its sliding window and softcaps), whisper-small (the encoder-decoder,
-``models.encdec``) and llama-3.2-vision-90b (gated cross attention,
-``models.vlm``) serve and train; zamba2, rwkv6 and granite-moe serve
-(their training raises ``NotImplementedError``).  ``get_optimizer`` and
+its sliding window and softcaps), zamba2 (Mamba2 with shared attention),
+rwkv6, granite-moe and kimi-k2-1t-a32b (top-k MoE; kimi at head dim 112,
+with its int8 + factored optimizer state), whisper-small (the
+encoder-decoder, ``models.encdec``) and llama-3.2-vision-90b (gated cross
+attention, ``models.vlm``).  ``get_optimizer`` and
 ``get_parallel`` return an arch's ``OPTIMIZER`` and ``PARALLEL`` (or the
 defaults), as in the JAX registry.
 """
@@ -21,7 +21,7 @@ from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
 ARCHS: Tuple[str, ...] = ("phi4-mini-3.8b", "codeqwen1.5-7b", "deepseek-7b",
                           "gemma2-9b", "zamba2-2.7b", "whisper-small",
                           "rwkv6-1.6b", "granite-moe-1b-a400m",
-                          "llama-3.2-vision-90b")
+                          "kimi-k2-1t-a32b", "llama-3.2-vision-90b")
 
 _MODULES = {"phi4-mini-3.8b": "phi4_mini_3_8b",
             "codeqwen1.5-7b": "codeqwen1_5_7b",
@@ -31,6 +31,7 @@ _MODULES = {"phi4-mini-3.8b": "phi4_mini_3_8b",
             "whisper-small": "whisper_small",
             "rwkv6-1.6b": "rwkv6_1_6b",
             "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+            "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
             "llama-3.2-vision-90b": "llama_3_2_vision_90b"}
 
 

@@ -31,7 +31,8 @@
 // its diagonal and, under a window, wholly left of its band are skipped:
 // their probabilities are exactly 0.  That skip is what makes a window
 // cheap: a q tile reads about w / 64 + 2 k tiles, not all of them.
-// Head dims 16, 32, 64, 80, 128 and 256 (gemma2) are instantiated.
+// Head dims 16, 32, 64, 80 (zamba2), 112 (kimi-k2), 128 and 256 (gemma2)
+// are instantiated.
 //
 // Bound on an H100 at phi4-mini prefill shapes (B=1, H=24, KV=8, S=512,
 // dh=128, bf16): q, k, v and o are 8.4 MB and the causal work 1.6 GFLOP,
@@ -51,7 +52,11 @@
 // max and one reduction of its sum at the end; P is rounded to q's type in
 // registers (as the JAX model rounds its probabilities to v's dtype before
 // P V) and fed straight back as the A operand of P V, whose V fragments
-// come through ldmatrix.trans.  dh 80 is five k16 steps.  Q and two K/V
+// come through ldmatrix.trans.  dh 80 is five k16 steps, dh 112 seven
+// (seven n16 pairs of P V): 14 16-byte chunks a row, 7 a thread for a
+// 64-row tile; the padded row is 120 elements (240 bytes, 60 words), so the
+// eight rows an ldmatrix reads start on words 0, 28, 24, ..., 4 mod 32 and
+// hit all 32 banks once; Q and two K/V stages take 77 KB.  Q and two K/V
 // stages take 87 KB of shared memory at dh 128 (two blocks an SM).  The
 // grid walks the q tiles from the last, so the causal tiles with the most
 // k tiles start first, one an SM; the blocks past the first SM-count take
@@ -552,6 +557,7 @@ cudaError_t launch_mma_dh(const Args& a, int dh, cudaStream_t stream) {
     case 32: return launch_mma<T, 32>(a, stream);
     case 64: return launch_mma<T, 64>(a, stream);
     case 80: return launch_mma<T, 80>(a, stream);   // zamba2's shared attention
+    case 112: return launch_mma<T, 112>(a, stream);  // kimi-k2
     case 128: return launch_mma<T, 128>(a, stream);
     case 256: return launch_mma<T, 256>(a, stream);  // gemma2
     default: return cudaErrorInvalidValue;
@@ -579,6 +585,7 @@ cudaError_t launch_dh(const Args& a, int B, int dh, cudaStream_t stream) {
     case 32: return launch<T, 32>(a, B, stream);
     case 64: return launch<T, 64>(a, B, stream);
     case 80: return launch<T, 80>(a, B, stream);    // zamba2's shared attention
+    case 112: return launch<T, 112>(a, B, stream);  // kimi-k2
     case 128: return launch<T, 128>(a, B, stream);
     case 256: return launch<T, 256>(a, B, stream);    // 209 KB of staging
     default: return cudaErrorInvalidValue;

@@ -12,7 +12,7 @@ computes what the JAX model's attention computes (``models/attention.py``
 on the causal mask (gemma2's local layers: key j visible to query i iff
 ``i + d - w < j <= i + d``, d = Sk - Sq), non-causal attention with
 Sq != Sk (whisper's encoder and cross attention, the VLM's cross layers)
-and head dim 256 (gemma2).
+and head dims 112 (kimi-k2) and 256 (gemma2).
 
 What bounds it on an H100: at phi4-mini prefill shapes (B=1, H=24, KV=8,
 S=512, dh=128, bf16) the inputs and output are 8.4 MB against 1.6 GFLOP of
@@ -51,7 +51,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # 80: zamba2; 256: gemma2
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)   # 80: zamba2; 112: kimi; 256: gemma2
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 launches = 0          # kernel launches in this process (chip_smoke reads it)

@@ -5,11 +5,15 @@
     python -m repro_torch.launch.profile_train --arch gemma2-9b --layers 14
     python -m repro_torch.launch.profile_train --arch llama-3.2-vision-90b \
         --layers 2 --pattern attn,cross
+    python -m repro_torch.launch.profile_train --arch kimi-k2-1t-a32b \
+        --layers 2 --experts 64
 
 Builds full-width training of ``--arch`` (default ``phi4-mini-3.8b``; bf16
-params, f32 moments, random weights from ``SEED`` as ``chip_smoke.py``
-draws them, remat on), its depth cut to ``--layers`` where given (with the
-block pattern ``--pattern`` where the config's does not divide it), takes
+params, the arch's own moments (f32; kimi's int8 + factored), random
+weights from ``SEED`` as ``chip_smoke.py`` draws them, remat on), its depth
+cut to ``--layers`` where given (with the block pattern ``--pattern`` where
+the config's does not divide it) and an MoE's experts to ``--experts``
+(kimi's 384 at two layers are 56 B params: 64 fit one card), takes
 one untimed step (kernel build, cuBLAS set-up), then runs ``STEPS``
 optimizer steps of ``BATCH`` x ``SEQ`` tokens (whisper: its decoder
 length, with ``SEQ`` frames), each under ``torch.profiler``.  For each
@@ -29,6 +33,7 @@ into the cross block), and the family's extras drawn from the seed.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Optional, Sequence
@@ -52,9 +57,18 @@ GROUPS = {"xent_ms": ("xent_fwd", "xent_bwd"), "adamw_ms": ("adamw",),
           "matmul_ms": ("gemm", "nvjet", "cutlass", "sm90_xmma")}
 
 
-def cut_config(cfg, layers: int = 0, pattern: Optional[Sequence[str]] = None):
+def cut_config(cfg, layers: int = 0, pattern: Optional[Sequence[str]] = None,
+               experts: int = 0):
     """``cfg`` at full width with ``layers`` layers (all when 0), in groups
-    of ``pattern`` (the config's own by default, which must divide it)."""
+    of ``pattern`` (the config's own by default, which must divide it), and
+    an MoE config cut to ``experts`` experts (all when 0; top-k and the
+    capacity factor kept)."""
+    if experts:
+        if cfg.moe is None or not cfg.moe.top_k <= experts <= \
+                cfg.moe.num_experts:
+            raise ValueError(f"{cfg.name}: cannot cut to {experts} experts")
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  num_experts=experts))
     if pattern:
         unknown = set(pattern) - set(cfg.block_pattern)
         if unknown:
@@ -67,23 +81,27 @@ def cut_config(cfg, layers: int = 0, pattern: Optional[Sequence[str]] = None):
     return cfg.replace(num_layers=layers)
 
 
-def train_setup(arch: str, *, layers: int = 0, pattern=None, seq: int = SEQ,
-                batch: int = BATCH, seed: int = SEED, device="cuda",
-                smoke: bool = False, dtype: str = "bfloat16"):
+def train_setup(arch: str, *, layers: int = 0, pattern=None, experts: int = 0,
+                seq: int = SEQ, batch: int = BATCH, seed: int = SEED,
+                device="cuda", smoke: bool = False, dtype: str = "bfloat16"):
     """Full-width (with ``smoke``, the smoke config's) training state for
-    ``arch`` on ``device``: -> (cfg, par, ocfg, params (in ``dtype``, the
-    config's compute dtype too), opt (f32 moments), chunk), where
+    ``arch`` on ``device``, cut by ``cut_config``: -> (cfg, par, ocfg,
+    params (in ``dtype``, the config's compute dtype too), opt (the arch's
+    own moment recipe: f32 moments, or kimi's int8 + factored), chunk),
+    where
     ``chunk(start, K)`` gives steps start..start+K-1 stacked (K, B, ...)
     for ``steps.train_chunk``: TokenPipeline tokens of the family's train
     length and, where it has them, its extras, random normal from the
     seed."""
     dev = torch.device(device)
     cfg = cut_config((registry.get_smoke if smoke else registry.get_config)(
-        arch), layers, pattern).replace(param_dtype=dtype,
-                                        compute_dtype=dtype)
+        arch), layers, pattern, experts).replace(param_dtype=dtype,
+                                                 compute_dtype=dtype)
     cfg = steps.resolve_cfg(cfg, ShapeConfig("train", seq, batch, "train"))
     par = registry.get_parallel(arch)
-    ocfg = OptimizerConfig(warmup_steps=2)
+    own = registry.get_optimizer(arch)
+    ocfg = OptimizerConfig(warmup_steps=2, moment_dtype=own.moment_dtype,
+                           second_moment=own.second_moment)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = pr.init_params(steps._model_module(cfg).lm_schema(cfg), gen,
                             "float32", dev)
@@ -116,12 +134,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--arch", default=ARCH, choices=list(registry.ARCHS))
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0: all)")
+    ap.add_argument("--experts", type=int, default=0,
+                    help="cut an MoE config to this many experts (0: all)")
     ap.add_argument("--pattern", default="",
                     help="comma-separated block pattern for --layers, "
                          "e.g. attn,cross")
     args = ap.parse_args(argv)
     cfg, par, ocfg, params, opt, chunk = train_setup(
-        args.arch, layers=args.layers,
+        args.arch, layers=args.layers, experts=args.experts,
         pattern=[k for k in args.pattern.split(",") if k])
     params, opt, _ = steps.train_chunk(cfg, par, ocfg, params, opt,
                                        chunk(0, 1))
@@ -140,6 +160,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
         row = {"phase": f"train step {i}", "arch": args.arch,
                "layers": cfg.num_layers, "loss": loss,
+               "experts": cfg.moe.num_experts if cfg.moe else None,
+               "moments": f"{ocfg.moment_dtype}/{ocfg.second_moment}",
                "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
                "device_idle_share": 1.0 - busy_us / wall_us,
                "kernels": len([e for e in prof.events() if e.device_type

@@ -1,12 +1,33 @@
-"""AdamW over a parameter tree, in place, through the fused kernel.
+"""AdamW over a parameter tree, in place, with the memory recipes.
 
-A port of the JAX package's ``optim/adamw.py`` for the float32/full state
-recipe: the optimizer state is schema-described like the params
-(``opt_state_schema``), gradients are clipped by their f32-accumulated
-global norm, and every leaf goes through the port's fused AdamW
-(``repro_torch.kernels.adamw_update``: the CUDA kernel on the card, its
-plain version on the CPU).  ``apply_updates`` updates params, ``m`` and
-``v`` in place and returns the same tensors.
+A port of the JAX package's ``optim/adamw.py``: the optimizer state is
+schema-described like the params (``opt_state_schema``), gradients are
+clipped by their f32-accumulated global norm, and ``apply_updates`` updates
+params and moments in place and returns the same tensors.  The recipes:
+
+  moment_dtype:  float32 | bfloat16 | int8 (blockwise, ``optim.quant``:
+                 a moment is ``{"q": int8, "s": f32 scales}``)
+  second_moment: full | factored (Adafactor's row and column means
+                 ``{"vr", "vc"}`` in f32, for a leaf whose per-layer slice
+                 has at least 2 dims and which holds at least 2**16
+                 elements; other leaves keep a ``moment_dtype`` moment)
+
+A leaf whose ``m`` and ``v`` are both f32 tensors goes through the fused
+AdamW (``repro_torch.kernels.adamw_update``: the CUDA kernel on the card,
+its plain version on the CPU), as the reference's fused rule routes them.
+Every quantized, bf16 or factored leaf takes the reference's plain leaf
+math (``_update_block``: ``g**2 + 1e-30`` under the factored means, ``vr``
+normalised by its mean), in PyTorch: the reference computes it in XLA,
+outside any Pallas kernel.  A leaf stacked over G > 1 layers is walked one
+layer slice at a time, as the reference's ``lax.scan`` walks it.  Each
+slice is then walked in blocks of at most ``BLOCK_ELEMS`` elements, so the
+f32 temps of the update stay at a few times 256 MB whatever the leaf
+(kimi's one expert slice is 0.94 B elements, its tied embedding 1.17 B):
+whole matrices of the leading axes at a time, or, for one matrix larger
+than a block, row blocks.  That is exact but for one sum: quant blocks run
+along the last axis and the factored means are per matrix, so only a
+factored matrix split into row blocks sums its column means block by block
+(``_factored_moments``), in another order than one ``mean``.
 
 Weight decay follows the reference's documented rule, "only on leaves with
 ndim >= 2", as its unfused path (the one its CPU runs take) decides it: a
@@ -14,12 +35,10 @@ leaf stacked over layers (leading axis "layers", G > 1) is judged by its
 per-layer slice, so the stacked norm scales (G, D) get no decay.  The
 reference's fused TPU path judges the whole (G, D) leaf and decays them
 (ROADMAP queue C).
-
-Not ported yet: ``moment_dtype`` bfloat16/int8 (``optim/quant.py``) and
-``second_moment="factored"``; they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -27,39 +46,205 @@ import torch
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.kernels.adamw_update import adamw_update
 from repro_torch.models.params import PSpec, leaves, tree_map_schema
+from repro_torch.optim import quant
 from repro_torch.optim.schedule import learning_rate
 
+BLOCK_ELEMS = 1 << 26     # elements a block of the plain update walks
+
+MOMENT_DTYPES = ("float32", "bfloat16", "int8")
+SECOND_MOMENTS = ("full", "factored")
+
+
+# ---------------------------------------------------------------------------
+# state schema
+# ---------------------------------------------------------------------------
 
 def _check_recipe(ocfg: OptimizerConfig) -> None:
-    if ocfg.moment_dtype != "float32":
-        raise NotImplementedError(
-            f"moment_dtype={ocfg.moment_dtype!r}: quantized moments "
-            f"(optim/quant.py) are not ported yet (ROADMAP queue A, item 3)")
-    if ocfg.second_moment != "full":
-        raise NotImplementedError(
-            f"second_moment={ocfg.second_moment!r}: the factored second "
-            f"moment is not ported yet (ROADMAP queue A, item 3)")
+    if ocfg.moment_dtype not in MOMENT_DTYPES:
+        raise ValueError(f"moment_dtype={ocfg.moment_dtype!r}: one of "
+                         f"{MOMENT_DTYPES}")
+    if ocfg.second_moment not in SECOND_MOMENTS:
+        raise ValueError(f"second_moment={ocfg.second_moment!r}: one of "
+                         f"{SECOND_MOMENTS}")
+
+
+def _moment_schema(p: PSpec, ocfg: OptimizerConfig):
+    if ocfg.moment_dtype == "int8":
+        _, s_shape = quant.quantized_shapes(p.shape)
+        s_axes = p.axes[:-1] + (None,) if p.shape else p.axes
+        return {"q": PSpec(p.shape, p.axes, "zeros", dtype="int8"),
+                "s": PSpec(s_shape, s_axes[:len(s_shape)], "zeros",
+                           dtype="float32")}
+    return PSpec(p.shape, p.axes, "zeros", dtype=ocfg.moment_dtype)
+
+
+def _second_moment_schema(p: PSpec, ocfg: OptimizerConfig):
+    # Factor the last two dims only when the per-layer slice is >= 2-D (a
+    # stacked (G, D) norm scale is effectively 1-D) and the whole leaf
+    # holds at least 2**16 elements, as the reference decides.
+    layered = bool(p.axes) and p.axes[0] == "layers"
+    eff_ndim = len(p.shape) - (1 if layered else 0)
+    if (ocfg.second_moment == "factored" and eff_ndim >= 2
+            and math.prod(p.shape) >= (1 << 16)):
+        return {"vr": PSpec(p.shape[:-1], p.axes[:-1], "zeros",
+                            dtype="float32"),
+                "vc": PSpec(p.shape[:-2] + (p.shape[-1],),
+                            p.axes[:-2] + (p.axes[-1],), "zeros",
+                            dtype="float32")}
+    return _moment_schema(p, ocfg)
 
 
 def opt_state_schema(param_schema, ocfg: OptimizerConfig) -> Dict[str, Any]:
-    """{"m": f32 tree like the params, "v": the same, "count": int32 ()}."""
+    """{"m": a moment a leaf, "v": a second moment a leaf, "count": int32
+    ()}, the reference's schema: f32 or bf16 PSpecs, {"q", "s"} dicts
+    under int8, {"vr", "vc"} dicts where the second moment is factored."""
     _check_recipe(ocfg)
-
-    def moment(_path, p: PSpec) -> PSpec:
-        return PSpec(p.shape, p.axes, "zeros", dtype="float32")
-
-    return {"m": tree_map_schema(moment, param_schema),
-            "v": tree_map_schema(moment, param_schema),
+    return {"m": tree_map_schema(lambda _p, p: _moment_schema(p, ocfg),
+                                 param_schema),
+            "v": tree_map_schema(lambda _p, p: _second_moment_schema(p, ocfg),
+                                 param_schema),
             "count": PSpec((), (), "zeros", dtype="int32")}
 
 
 def decays(spec: PSpec) -> bool:
     """Weight decay on this leaf?  ndim >= 2 of the per-layer slice for a
     leaf stacked over G > 1 layers, of the whole leaf otherwise."""
-    layered = (bool(spec.axes) and spec.axes[0] == "layers"
-               and len(spec.shape) >= 2 and spec.shape[0] > 1)
-    return len(spec.shape) - int(layered) >= 2
+    return len(spec.shape) - int(_layered(spec)) >= 2
 
+
+def _layered(spec: PSpec) -> bool:
+    return (bool(spec.axes) and spec.axes[0] == "layers"
+            and len(spec.shape) >= 2 and spec.shape[0] > 1)
+
+
+# ---------------------------------------------------------------------------
+# the plain leaf math, in place, block by block
+# ---------------------------------------------------------------------------
+
+def _is_quant(m) -> bool:
+    return isinstance(m, dict) and "q" in m
+
+
+def _is_factored(v) -> bool:
+    return isinstance(v, dict) and "vr" in v
+
+
+def _load(m) -> torch.Tensor:
+    return quant.dequantize(m) if _is_quant(m) else m.to(torch.float32)
+
+
+def _store(val: torch.Tensor, like) -> None:
+    if _is_quant(like):
+        qs = quant.quantize(val)
+        like["q"].copy_(qs["q"])
+        like["s"].copy_(qs["s"])
+    else:
+        like.copy_(val)
+
+
+def _as3(t: torch.Tensor, last: int) -> torch.Tensor:
+    """A view of a leaf slice as (E, R, last): E the product of the axes
+    before the last two, R the second-to-last (1 for a 0-d or 1-D
+    slice)."""
+    R = t.shape[-2] if t.dim() >= 2 else 1
+    return t.view(-1, R, last)
+
+
+def _moment3(m, shape):
+    """``m`` (a tensor or {"q", "s"}) viewed as ``_as3`` of ``shape``."""
+    C = shape[-1] if shape else 1
+    if _is_quant(m):
+        nb = quant.quantized_shapes(shape)[1][-1] if shape else 1
+        return {"q": _as3(m["q"], C), "s": _as3(m["s"], nb)}
+    return _as3(m, C)
+
+
+def _sub(m, es, rs):
+    if isinstance(m, dict):
+        return {k: v[es, rs] for k, v in m.items()}
+    return m[es, rs]
+
+
+def _blocks(E: int, R: int, C: int):
+    """(matrix slice, row slice) blocks of an (E, R, C) view, each at most
+    ``BLOCK_ELEMS`` elements (or one row): whole matrices while one fits,
+    else row blocks of one matrix."""
+    if R * C <= BLOCK_ELEMS:
+        eb = max(1, BLOCK_ELEMS // (R * C))
+        for e0 in range(0, E, eb):
+            yield slice(e0, e0 + eb), slice(None)
+        return
+    rows = max(1, BLOCK_ELEMS // C)
+    for e in range(E):
+        for r0 in range(0, R, rows):
+            yield slice(e, e + 1), slice(r0, r0 + rows)
+
+
+def _factored_moments(g3, vr, vc, b2: float):
+    """The new factored second moment of an (E, R, C) grad, into ``vr``
+    (E, R) and ``vc`` (E, C) in place: ``b2 v + (1 - b2) mean(g**2 +
+    1e-30)`` over the last axis and over the rows.  Returns ``r = vr /
+    mean(vr)`` per matrix, (E, R)."""
+    R = g3.shape[1]
+    csum = None
+    for es, rs in _blocks(*g3.shape):
+        g2 = torch.square(g3[es, rs].to(torch.float32)) + 1e-30
+        vr[es, rs] = b2 * vr[es, rs] + (1.0 - b2) * torch.mean(g2, dim=-1)
+        if rs == slice(None):
+            vc[es] = b2 * vc[es] + (1.0 - b2) * torch.mean(g2, dim=-2)
+            continue
+        part = torch.sum(g2, dim=-2)
+        csum = part if rs.start == 0 else csum + part
+        if rs.stop >= R:
+            vc[es] = b2 * vc[es] + (1.0 - b2) * (csum / R)
+    return vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=1e-30)
+
+
+def _update_block(p, g, m, v, v_hat, lr, bc1, bc2, ocfg: OptimizerConfig,
+                  wd: float) -> None:
+    """The reference's ``_update_leaf`` on one block, written back in
+    place: ``v_hat`` is the factored estimate, or None to update ``v``."""
+    g = g.to(torch.float32)
+    m_new = ocfg.b1 * _load(m) + (1.0 - ocfg.b1) * g
+    if v_hat is None:
+        v_hat = ocfg.b2 * _load(v) + (1.0 - ocfg.b2) * torch.square(g)
+        _store(v_hat, v)
+    update = (m_new / bc1) / (torch.sqrt(v_hat / bc2) + ocfg.eps)
+    if wd:
+        update = update + wd * p.to(torch.float32)
+    p.copy_((p.to(torch.float32) - lr * update).to(p.dtype))
+    _store(m_new, m)
+
+
+def _update_slice(p, g, m, v, lr, bc1, bc2, ocfg: OptimizerConfig,
+                  wd: float) -> None:
+    """One leaf slice (a layer's, or a whole unstacked leaf), in place."""
+    shape = tuple(p.shape)
+    C = shape[-1] if shape else 1
+    p3, g3 = _as3(p, C), _as3(g, C)
+    m3 = _moment3(m, shape)
+    r3 = vc3 = v3 = None
+    if _is_factored(v):
+        vr3 = v["vr"].view(p3.shape[0], p3.shape[1])
+        vc3 = v["vc"].view(p3.shape[0], C)
+        r3 = _factored_moments(g3, vr3, vc3, ocfg.b2)
+    else:
+        v3 = _moment3(v, shape)
+    for es, rs in _blocks(*p3.shape):
+        v_hat = None if r3 is None else \
+            r3[es, rs][..., None] * vc3[es][:, None, :]
+        _update_block(p3[es, rs], g3[es, rs], _sub(m3, es, rs),
+                      None if v3 is None else _sub(v3, es, rs), v_hat,
+                      lr, bc1, bc2, ocfg, wd)
+
+
+def _layer(m, i: int):
+    return {k: t[i] for k, t in m.items()} if isinstance(m, dict) else m[i]
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
 
 def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
     """sqrt(sum of squares) over the leaves, accumulated in f32 without an
@@ -80,12 +265,19 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
 
 
 def _flat(tree, path=""):
-    if isinstance(tree, dict):
+    """{path: leaf} of a params-like tree; a moment dict ({"q", "s"} or
+    {"vr", "vc"}) counts as one leaf."""
+    if isinstance(tree, dict) and not (_is_quant(tree) or _is_factored(tree)):
         out = {}
         for k, v in tree.items():
             out.update(_flat(v, f"{path}/{k}" if path else k))
         return out
     return {path: tree}
+
+
+def _fused(m, v) -> bool:
+    return (isinstance(m, torch.Tensor) and isinstance(v, torch.Tensor)
+            and m.dtype == torch.float32 and v.dtype == torch.float32)
 
 
 def apply_updates(param_schema, params, grads, state, ocfg: OptimizerConfig):
@@ -111,8 +303,15 @@ def apply_updates(param_schema, params, grads, state, ocfg: OptimizerConfig):
     scalars = torch.stack([lr, bc1, bc2]).to(torch.float32).contiguous()
     for path, spec in leaves(param_schema):
         wd = ocfg.weight_decay if decays(spec) else 0.0
-        adamw_update(flat_p[path], flat_g[path], flat_m[path], flat_v[path],
-                     scalars, b1=ocfg.b1, b2=ocfg.b2, eps=ocfg.eps,
-                     weight_decay=wd)
+        p, g, m, v = flat_p[path], flat_g[path], flat_m[path], flat_v[path]
+        if _fused(m, v):
+            adamw_update(p, g, m, v, scalars, b1=ocfg.b1, b2=ocfg.b2,
+                         eps=ocfg.eps, weight_decay=wd)
+        elif _layered(spec):
+            for i in range(spec.shape[0]):
+                _update_slice(p[i], g[i], _layer(m, i), _layer(v, i),
+                              lr, bc1, bc2, ocfg, wd)
+        else:
+            _update_slice(p, g, m, v, lr, bc1, bc2, ocfg, wd)
     new_state = {"m": state["m"], "v": state["v"], "count": count}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -98,8 +98,12 @@ def test_config_copies_match_reference(arch):
 
 
 def test_registry_optimizer_defaults_like_jax():
+    """Every arch takes the default recipe but kimi-k2, whose own is int8
+    + factored moments, as in the JAX registry."""
     for arch in treg.ARCHS:
-        assert treg.get_optimizer(arch) == OptimizerConfig(), arch
+        want = OptimizerConfig(moment_dtype="int8", second_moment="factored") \
+            if arch == "kimi-k2-1t-a32b" else OptimizerConfig()
+        assert treg.get_optimizer(arch) == want, arch
         assert dataclasses.asdict(treg.get_optimizer(arch)) == \
             dataclasses.asdict(jreg.get_optimizer(arch)), arch
 

@@ -41,7 +41,13 @@ launches) against autograd of the plain einsum, 1e-5 / 2^-7 of the scale
 as the kernel; one zamba2 and one rwkv6 train step's grads (the scan
 kernel forward twice a layer with remat, the plain recompute backward)
 against the CPU's, 1e-5 on the loss and 1e-4 of each leaf's norm (f32,
-the same sums in another order).
+the same sums in another order).  The optimizer recipes: ``quantize`` and
+``dequantize`` on the card bit for bit against the CPU at kimi's leaf
+shapes (the same f32 steps), and three unclipped updates under each
+recipe on the card against the CPU's: the f32 state within 1e-6 of each
+leaf's largest value (the factored means summed in another order), bf16
+moments also within two bf16 steps of it, int8 ``q`` equal but for +-1
+flips (under 1 in 10,000), params within 1e-5 but for at most 1 in 200.
 """
 import numpy as np
 import pytest
@@ -122,6 +128,8 @@ def test_flash_tensor_core_path_every_head_dim(B, H, KV, Sq, Sk, causal, dh,
     (1, 12, 12, 384, 576, 64, False, None, None),  # whisper cross
     (1, 8, 2, 130, 200, 128, False, None, 30.0),   # cross, ragged, capped
     (2, 4, 2, 65, 65, 256, True, 1, None),         # a window of one key
+    (1, 16, 2, 96, 520, 112, True, None, None),    # kimi's dh, ragged, Sq < Sk
+    (1, 8, 1, 130, 130, 112, False, None, None),   # kimi's dh, non-causal
 ])
 def test_flash_window_softcap_and_cross_match_plain(B, H, KV, Sq, Sk, dh,
                                                     causal, window, cap,
@@ -816,3 +824,95 @@ def test_tenant_session_serves_full_width_phi4_as_a_direct_engine(tmp_path):
     assert [len(results[i]) for i in range(4)] == [16, 3, 16, 3]
     assert prefills >= 1 and launched == 32 * prefills
     assert sched.metrics.series("lease_device_s/tenant-chat").total > 0
+
+
+# ------------------------------------------------ optimizer recipes (A3)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 7168), (64, 7168, 2048 // 16),
+                                   (7168, 64, 112), (163_840 // 64, 7168),
+                                   (300,), ()])
+def test_quantize_on_the_card_is_the_cpu_bit_for_bit(shape):
+    """kimi's leaf shapes (an expert slice cut along F to stay small, the
+    attention slice (D, H, dh) whose last axis is not a 128 multiple, the
+    embedding cut along V), a 1-D and a 0-d tensor."""
+    _card()
+    from repro_torch.optim import quant
+    x = torch.as_tensor(np.random.RandomState(len(shape)).standard_normal(
+        shape).astype(np.float32) * 0.01)
+    cpu = quant.quantize(x)
+    card = quant.quantize(x.cuda())
+    assert torch.equal(card["q"].cpu(), cpu["q"])
+    assert torch.equal(card["s"].cpu().view(torch.int32),
+                       cpu["s"].view(torch.int32))
+    back = quant.dequantize(card)
+    assert torch.equal(back.cpu().view(torch.int32),
+                       quant.dequantize(cpu).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recipe", [dict(moment_dtype="bfloat16"),
+                                    dict(moment_dtype="int8"),
+                                    dict(second_moment="factored"),
+                                    dict(moment_dtype="int8",
+                                         second_moment="factored")])
+def test_recipe_updates_on_the_card_match_the_cpu(recipe):
+    _card()
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.models.params import PSpec
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    schema = {"experts": PSpec((2, 8, 256, 384), ("layers", "expert",
+                                                  "fsdp", None)),
+              "wq": PSpec((2, 256, 8, 112), ("layers", "fsdp", None, None)),
+              "norm": PSpec((2, 256), ("layers", None)),
+              "embed": PSpec((1000, 256), ("vocab", "fsdp"))}
+    # no clip: the CPU's f32 norm of a 1.6 M-element leaf lies 2.3e-5 from
+    # float64, the card's closer, and the clip scale would carry that
+    # into every moment; the update's own arithmetic is what is held here
+    ocfg = OptimizerConfig(lr=1e-2, warmup_steps=1, grad_clip=0.0, **recipe)
+    rng = np.random.RandomState(0)
+    p0 = {k: torch.as_tensor(rng.standard_normal(v.shape).astype(
+        np.float32)) for k, v in schema.items()}
+    grads = [{k: torch.as_tensor(rng.standard_normal(v.shape).astype(
+        np.float32)) for k, v in schema.items()} for _ in range(3)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev, copy=True) for k, v in p0.items()}
+        st = steps._zeros(adamw.opt_state_schema(schema, ocfg), "float32",
+                          dev)
+        for g in grads:
+            p, st, _ = adamw.apply_updates(
+                schema, p, {k: v.to(dev, copy=True) for k, v in g.items()},
+                st, ocfg)
+        out[dev] = (p, st)
+    flips = total = far = n = 0
+    for (key, want), (_, got) in zip(_leaves({"p": out["cpu"][0],
+                                              "m": out["cpu"][1]["m"],
+                                              "v": out["cpu"][1]["v"]}),
+                                     _leaves({"p": out["cuda"][0],
+                                              "m": out["cuda"][1]["m"],
+                                              "v": out["cuda"][1]["v"]})):
+        got, want = got.cpu().float(), want.float()
+        diff = (got - want).abs()
+        if key.endswith("/q"):
+            assert diff.max().item() <= 1, key
+            flips += int((diff > 0).sum())
+            total += diff.numel()
+        elif key.startswith("p/"):
+            far += int((diff > 1e-5).sum())
+            n += diff.numel()
+        else:
+            bound = 1e-6 * want.abs().max().item()
+            if recipe.get("moment_dtype") == "bfloat16":
+                bound += 2 ** -6 * want.abs().max().item()
+            assert diff.max().item() <= bound, key
+    assert flips <= 1e-4 * max(total, 1), (flips, total)
+    assert far <= 5e-3 * n, (far, n)
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _leaves(tree[k], f"{path}/{k}" if path else k)]
+    return [(path, tree)]

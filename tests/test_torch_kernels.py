@@ -49,6 +49,7 @@ def _f32(x):
     (1, 2, 2, 128, 64),       # KV == H: exactly the Pallas kernel's case
     (2, 4, 2, 256, 32),       # GQA, groups of 2
     (1, 6, 2, 128, 128),      # phi4's head dim, groups of 3
+    (1, 8, 1, 128, 112),      # kimi-k2's head dim, groups of 8
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
@@ -71,6 +72,7 @@ def test_matches_pallas_interpret(B, H, KV, S, dh, dtype, causal):
     (2, 4, 2, 100, 100, 16, False),
     (1, 4, 2, 48, 130, 32, True),     # Sq < Sk: bottom-right causal mask
     (1, 2, 2, 1, 77, 128, True),      # one query row against a history
+    (1, 8, 1, 96, 130, 112, True),    # kimi-k2's head dim, ragged, Sq < Sk
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_matches_oracle_edge_shapes(B, H, KV, Sq, Sk, dh, causal, dtype):
