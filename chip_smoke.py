@@ -321,13 +321,14 @@ KIMI = "kimi-k2-1t-a32b"
 KIMI_ATTN = (1, 64, 8, PROMPT, PROMPT, 112)
 KIMI_SERVE_LAYERS = 1
 KIMI_TRAIN_LAYERS, KIMI_TRAIN_EXPERTS = 2, 64
-# kimi trains at SESSION_LR: at phase_train's 3e-4 (and at 1e-4) its loss
-# rose from 13.78 to 35.0 and was still above the first after 6 steps,
-# under bf16/full moments alike, while granite under int8 + factored
-# tracked its f32 moments within 0.08 a step (launch/recipe_sweep.py,
-# PERF.md §6): a rate for a cut random-init 7168-wide MoE, not a fault of
-# the recipe
+# kimi's 64-expert cut trains at SESSION_LR: at phase_train's 3e-4 its
+# loss jumps at step 2 under f32 moments through AdamW's kernel too, as
+# under its own recipe (_kimi_lr_witness, at KIMI_WITNESS_EXPERTS experts
+# where f32 moments fit the card: 13.47 -> 27.95 under the kernel, 28.47
+# under the recipe, on an H100 80GB HBM3 at 700 W)
 KIMI_LR = SESSION_LR
+KIMI_WITNESS_EXPERTS = 16
+KIMI_WITNESS_RTOL = 1e-3  # step-2 loss, the plain update vs the kernel's
 KIMI_UPDATE_RTOL = 1e-6   # s, vr, vc card vs CPU: sums in another order
 KIMI_FLIP_SHARE = 1e-4    # int8 q card vs CPU: +-1 flips, under 1 in 10^4
 
@@ -2416,6 +2417,94 @@ def _kimi_gmm(shapes, smi: str) -> dict:
     return rows
 
 
+def _fused_leaves(opt_schema) -> int:
+    """Leaves whose m and v are both f32 tensors: AdamW's kernel takes
+    them, the plain update the rest."""
+    from repro_torch.models import params as pr
+    from repro_torch.optim import adamw
+    flat_m, flat_v = adamw._flat(opt_schema["m"]), adamw._flat(opt_schema["v"])
+    return sum(isinstance(m, pr.PSpec) and isinstance(flat_v[k], pr.PSpec)
+               and m.dtype == flat_v[k].dtype == "float32"
+               for k, m in flat_m.items())
+
+
+def _kimi_lr_witness(smi: str) -> dict:
+    """kimi at full width cut to KIMI_TRAIN_LAYERS layers and
+    KIMI_WITNESS_EXPERTS experts (f32 moments fit the card here), trained
+    FAMILY_STEPS steps at phase_train's lr (3e-4) from one init and one
+    batch stream, three ways: f32/full moments through AdamW's kernel, the
+    same f32 moments through the plain update (``adamw._fused`` refused),
+    and kimi's own int8 + factored recipe.  Checks: finite losses, the
+    launches the code implies (AdamW's only in the first run), and the
+    plain update's step-2 loss within KIMI_WITNESS_RTOL of the kernel's:
+    one f32 update apart but for rounding.  Returns the three loss
+    curves, so a jump at step 2 under the kernel too reads as the rate's,
+    not the plain update's."""
+    from repro_torch.launch.profile_train import train_setup
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    runs = {}
+    for name, recipe, fused in (("float32/full, kernel", "float32", True),
+                                ("float32/full, plain", "float32", False),
+                                ("int8/factored", "int8", False)):
+        cfg, par, ocfg, params, opt, chunk = train_setup(
+            KIMI, layers=KIMI_TRAIN_LAYERS, experts=KIMI_WITNESS_EXPERTS,
+            seq=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+        if recipe == "float32":
+            del opt
+            ocfg = dataclasses.replace(ocfg, moment_dtype="float32",
+                                       second_moment="full")
+            opt = steps.init_opt_state(cfg, ocfg, "cuda")
+        schema = steps._model_module(cfg).lm_schema(cfg)
+        n_fused = _fused_leaves(adamw.opt_state_schema(schema, ocfg))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _read_counts(zero=True)
+        kernel_rule = adamw._fused
+        if not fused:
+            adamw._fused = lambda m, v: False
+        losses, norms, t0 = [], [], time.perf_counter()
+        try:
+            for start in range(0, FAMILY_STEPS, FAMILY_K):
+                batches = chunk(start, FAMILY_K)
+                params, opt, ms = steps.train_chunk(cfg, par, ocfg, params,
+                                                    opt, batches)
+                losses.extend(ms["loss"].cpu().tolist())
+                norms.extend(ms["grad_norm"].cpu().tolist())
+        finally:
+            adamw._fused = kernel_rule
+        ran = _read_counts()
+        want = _family_launches(cfg, par, n_fused if fused else 0,
+                                FAMILY_STEPS, batches["tokens"].shape[-1])
+        runs[name] = {"losses": losses, "grad_norms": norms,
+                      "s_per_step": (time.perf_counter() - t0) / FAMILY_STEPS,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "launches": ran}
+        log(f"[kimi] lr witness ({cfg.num_layers} layers, "
+            f"{cfg.moe.num_experts} experts, lr {ocfg.lr}, {name}): losses "
+            f"{[round(x, 4) for x in losses]}; grad norms "
+            f"{[round(x, 4) for x in norms]}; "
+            f"{runs[name]['s_per_step']:.3f} s a step; peak "
+            f"{runs[name]['peak_mem_gb']:.2f} GB; launches {ran} (want "
+            f"{want}); {smi}")
+        del params, opt, chunk, ms, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"kimi lr witness {name}: not finite")
+        if ran != want:
+            raise AssertionError(f"kimi lr witness {name}: launches {ran} "
+                                 f"!= {want}")
+    kernel = runs["float32/full, kernel"]["losses"]
+    plain = runs["float32/full, plain"]["losses"]
+    if abs(plain[1] - kernel[1]) > KIMI_WITNESS_RTOL * abs(kernel[1]):
+        raise AssertionError(f"kimi lr witness: the plain update's step-2 "
+                             f"loss {plain[1]} is not the kernel's "
+                             f"{kernel[1]}")
+    return {"layers": KIMI_TRAIN_LAYERS, "experts": KIMI_WITNESS_EXPERTS,
+            "lr": ocfg.lr, "runs": runs, "card": smi}
+
+
 def _state_bytes(schema, opt_schema) -> dict:
     """Bytes of bf16 params, bf16 grads and the optimizer state (by its
     schema's dtypes), and of f32 moments instead."""
@@ -2437,8 +2526,10 @@ def phase_kimi(smi: str):
     times a layer a step) with every gmm bucket shape it ran recorded and
     then held against the plain version (``_kimi_gmm``); the smoke config's
     loss and grads card vs CPU (``_train_smoke_check``) and one int8 +
-    factored update card vs CPU (``_kimi_update_check``); then training at
-    full width cut to KIMI_TRAIN_LAYERS layers and KIMI_TRAIN_EXPERTS
+    factored update card vs CPU (``_kimi_update_check``); the lr witness
+    (``_kimi_lr_witness``: f32 moments through AdamW's kernel and through
+    the plain update, and the recipe, at 3e-4); then training at full
+    width cut to KIMI_TRAIN_LAYERS layers and KIMI_TRAIN_EXPERTS
     experts under kimi's own recipe, bf16, 6 steps as three train_chunk
     calls of 2 on 2 x 1024 tokens at KIMI_LR with the contracted init:
     finite, falling losses, gmm 12 times a layer a step, and no xent
@@ -2449,7 +2540,6 @@ def phase_kimi(smi: str):
     from repro_torch.configs import registry
     from repro_torch.launch.profile_train import train_setup
     from repro_torch.models import moe as moe_mod
-    from repro_torch.models import params as pr
     from repro_torch.optim import adamw
     from repro_torch.runtime import steps
     gc.collect()
@@ -2482,6 +2572,7 @@ def phase_kimi(smi: str):
     # training: the smoke checks, then the full-width cut
     _train_smoke_check(KIMI)
     update = _kimi_update_check()
+    witness = _kimi_lr_witness(smi)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg, par, ocfg, params, opt, chunk = train_setup(
@@ -2491,11 +2582,7 @@ def phase_kimi(smi: str):
     schema = steps._model_module(cfg).lm_schema(cfg)
     opt_schema = adamw.opt_state_schema(schema, ocfg)
     arith = _state_bytes(schema, opt_schema)
-    # AdamW's kernel takes the leaves whose m and v are both f32 tensors
-    flat_m, flat_v = adamw._flat(opt_schema["m"]), adamw._flat(opt_schema["v"])
-    fused = sum(isinstance(m, pr.PSpec) and isinstance(flat_v[k], pr.PSpec)
-                and m.dtype == flat_v[k].dtype == "float32"
-                for k, m in flat_m.items())
+    fused = _fused_leaves(opt_schema)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     held_gb = torch.cuda.memory_allocated() / 1e9
@@ -2551,7 +2638,8 @@ def phase_kimi(smi: str):
         "p50_step_ms": statistics.median(step_ms), "step_ms_by_chunk": step_ms,
         "held_gb": held_gb, "peak_mem_gb": peak_gb, "arithmetic": arith,
         "launches": ran_train, "card": smi},
-        "update_card_vs_cpu": update, "quant_bit_for_bit": quant,
+        "update_card_vs_cpu": update, "lr_witness": witness,
+        "quant_bit_for_bit": quant,
         "gmm_shapes": sorted(seen), "phase_s": time.perf_counter() - t_start,
         "card": smi}
     return row, flash, gmm, ran, ran_train
@@ -4322,12 +4410,17 @@ def main() -> int:
             family_launches[RWKV]["wkv6"]}
     kimi_train = (f"{KIMI} train ({KIMI_TRAIN_LAYERS} layers, "
                   f"{KIMI_TRAIN_EXPERTS} experts, {FAMILY_STEPS} steps)")
+    kimi_witness = (f"{KIMI} train, f32 moments ({KIMI_TRAIN_LAYERS} layers, "
+                    f"{KIMI_WITNESS_EXPERTS} experts, {FAMILY_STEPS} steps)")
+    ran_kimi_witness = kimi["lr_witness"]["runs"]["float32/full, kernel"][
+        "launches"]
     gmm["launches_by_path"] = {
         f"{GRANITE} serve": ran_granite["moe_gmm"],
         f"{GRANITE} train ({FAMILY_STEPS} steps)":
             family_launches[GRANITE]["moe_gmm"],
         f"{KIMI} serve ({KIMI_SERVE_LAYERS} layer)": ran_kimi["moe_gmm"],
-        kimi_train: ran_kimi_train["moe_gmm"]}
+        kimi_train: ran_kimi_train["moe_gmm"],
+        kimi_witness: ran_kimi_witness["moe_gmm"]}
     elastic, elastic_launches = phase_elastic(smi)
     log(f"[disk] written so far {elastic['disk_written_gb']:.2f} GB")
     router, ran_router = phase_serve_router(smi, phi4_run)
@@ -4383,6 +4476,7 @@ def main() -> int:
             f"{arch} train ({FAMILY_STEPS} steps)": ran[row["name"]]
             for arch, ran in family_launches.items()})
         row["launches_by_path"][kimi_train] = ran_kimi_train[row["name"]]
+        row["launches_by_path"][kimi_witness] = ran_kimi_witness[row["name"]]
     kernels = [flash, xent_fwd, xent_bwd, adamw, ssd, wkv, gmm]
     for row in kernels:
         row["card"] = smi

@@ -20,14 +20,15 @@ math (``_update_block``: ``g**2 + 1e-30`` under the factored means, ``vr``
 normalised by its mean), in PyTorch: the reference computes it in XLA,
 outside any Pallas kernel.  A leaf stacked over G > 1 layers is walked one
 layer slice at a time, as the reference's ``lax.scan`` walks it.  Each
-slice is then walked in blocks of at most ``BLOCK_ELEMS`` elements, so the
-f32 temps of the update stay at a few times 256 MB whatever the leaf
-(kimi's one expert slice is 0.94 B elements, its tied embedding 1.17 B):
-whole matrices of the leading axes at a time, or, for one matrix larger
-than a block, row blocks.  That is exact but for one sum: quant blocks run
-along the last axis and the factored means are per matrix, so only a
-factored matrix split into row blocks sums its column means block by block
-(``_factored_moments``), in another order than one ``mean``.
+slice is then walked in blocks of whole matrices of its leading axes, as
+many as ``BLOCK_ELEMS`` holds and at least one, so an expert slice's f32
+temps stay near 256 MB (kimi's is 64 matrices of 7168 x 2048, 0.94 B
+elements: four a block).  That is exact: quant blocks run along the last
+axis and the factored means are per matrix.  A matrix larger than a block
+goes whole: kimi's tied (163,840, 7168) embedding makes f32 temps of 4.7
+GB, and its training cut (2 layers, 64 experts) peaked at 68.43 GB on an
+H100 80GB HBM3 at 700 W all the same (``chip_smoke.py``'s kimi phase
+prints the peak; row blocks of that matrix held it to 40.25 GB).
 
 Weight decay follows the reference's documented rule, "only on leaves with
 ndim >= 2", as its unfused path (the one its CPU runs take) decides it: a
@@ -159,25 +160,18 @@ def _moment3(m, shape):
     return _as3(m, C)
 
 
-def _sub(m, es, rs):
+def _sub(m, es):
     if isinstance(m, dict):
-        return {k: v[es, rs] for k, v in m.items()}
-    return m[es, rs]
+        return {k: v[es] for k, v in m.items()}
+    return m[es]
 
 
 def _blocks(E: int, R: int, C: int):
-    """(matrix slice, row slice) blocks of an (E, R, C) view, each at most
-    ``BLOCK_ELEMS`` elements (or one row): whole matrices while one fits,
-    else row blocks of one matrix."""
-    if R * C <= BLOCK_ELEMS:
-        eb = max(1, BLOCK_ELEMS // (R * C))
-        for e0 in range(0, E, eb):
-            yield slice(e0, e0 + eb), slice(None)
-        return
-    rows = max(1, BLOCK_ELEMS // C)
-    for e in range(E):
-        for r0 in range(0, R, rows):
-            yield slice(e, e + 1), slice(r0, r0 + rows)
+    """Blocks of whole matrices of an (E, R, C) view: as many as
+    ``BLOCK_ELEMS`` elements hold, and at least one."""
+    eb = max(1, BLOCK_ELEMS // (R * C))
+    for e0 in range(0, E, eb):
+        yield slice(e0, e0 + eb)
 
 
 def _factored_moments(g3, vr, vc, b2: float):
@@ -185,18 +179,10 @@ def _factored_moments(g3, vr, vc, b2: float):
     (E, R) and ``vc`` (E, C) in place: ``b2 v + (1 - b2) mean(g**2 +
     1e-30)`` over the last axis and over the rows.  Returns ``r = vr /
     mean(vr)`` per matrix, (E, R)."""
-    R = g3.shape[1]
-    csum = None
-    for es, rs in _blocks(*g3.shape):
-        g2 = torch.square(g3[es, rs].to(torch.float32)) + 1e-30
-        vr[es, rs] = b2 * vr[es, rs] + (1.0 - b2) * torch.mean(g2, dim=-1)
-        if rs == slice(None):
-            vc[es] = b2 * vc[es] + (1.0 - b2) * torch.mean(g2, dim=-2)
-            continue
-        part = torch.sum(g2, dim=-2)
-        csum = part if rs.start == 0 else csum + part
-        if rs.stop >= R:
-            vc[es] = b2 * vc[es] + (1.0 - b2) * (csum / R)
+    for es in _blocks(*g3.shape):
+        g2 = torch.square(g3[es].to(torch.float32)) + 1e-30
+        vr[es] = b2 * vr[es] + (1.0 - b2) * torch.mean(g2, dim=-1)
+        vc[es] = b2 * vc[es] + (1.0 - b2) * torch.mean(g2, dim=-2)
     return vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=1e-30)
 
 
@@ -230,11 +216,10 @@ def _update_slice(p, g, m, v, lr, bc1, bc2, ocfg: OptimizerConfig,
         r3 = _factored_moments(g3, vr3, vc3, ocfg.b2)
     else:
         v3 = _moment3(v, shape)
-    for es, rs in _blocks(*p3.shape):
-        v_hat = None if r3 is None else \
-            r3[es, rs][..., None] * vc3[es][:, None, :]
-        _update_block(p3[es, rs], g3[es, rs], _sub(m3, es, rs),
-                      None if v3 is None else _sub(v3, es, rs), v_hat,
+    for es in _blocks(*p3.shape):
+        v_hat = None if r3 is None else r3[es][..., None] * vc3[es][:, None, :]
+        _update_block(p3[es], g3[es], _sub(m3, es),
+                      None if v3 is None else _sub(v3, es), v_hat,
                       lr, bc1, bc2, ocfg, wd)
 
 
