@@ -125,9 +125,27 @@ Phases (any failure raises and the script exits non-zero):
                under its own int8 + factored moments, 6 bf16 steps at lr
                3e-5: finite, falling losses, gmm 144 launches, no xent
                (the sharded loss) and no AdamW launch (the plain update);
-               peak memory beside the state's arithmetic (35.5 GB; 84.5
-               GB with f32 moments); nothing written to disk;
-  9. elastic — phi4-mini-3.8b in bf16 at full width with depth cut to 4
+               peak memory beside the dry run's count of the state
+               (35.5 GB; 84.5 GB with f32 moments); nothing written to
+               disk;
+  8d. dryrun — the dry run (``repro_torch.launch.dryrun``, meta tensors,
+               no kernel): the pass over all 32 cells of
+               ``registry.cells()`` on the 16 x 16 mesh, records written to
+               a temporary directory and removed, one line with the cell
+               count, failures (none allowed), the largest
+               per_device_bytes and the counted/analytic FLOP ratios'
+               range; the pass's argument bytes at one card against the
+               growth of ``torch.cuda.memory_allocated()`` when the port
+               allocates the same arguments, within 1 %: phi4's train
+               state (bf16 params, f32 moments, one 2 x 1024 batch),
+               kimi's train cut (2 layers x 64 experts, int8 + factored)
+               and kimi's 1-layer serving params and slotted cache (4 x
+               576); phase 8's p50 ms a step beside the step FLOPs of
+               ``roofline.flops.accounting`` at 2 x 1024 on one chip: the
+               achieved TFLOP/s and the model-FLOPs share of 989 TFLOP/s,
+               with the card's name and power limit (information, not a
+               limit); a ``{"dryrun": ...}`` line;
+ 9. elastic — phi4-mini-3.8b in bf16 at full width with depth cut to 4
                layers (1.017 B params, a 10.2 GB checkpoint) trains 8 steps
                of 2 x 1024 tokens through ``ElasticTrainer`` on a one-card
                ``Cluster``, in chunks of 2, checkpointing every 4 steps into
@@ -230,7 +248,8 @@ The phases that write checkpoints (elastic, rl, session) print the bytes
 they wrote and left on disk, and connect, fabric and tenant the bytes
 their runs wrote.  Then it prints a ``{"kernels": [...]}`` line, a
 ``{"serve": {...}}`` line with one entry per arch, a ``{"train": {...}}``
-line, a ``{"kimi": {...}}`` line, an ``{"elastic": {...}}`` line, a ``{"router": ..., "static":
+line, a ``{"kimi": {...}}`` line, a ``{"dryrun": {...}}`` line, an
+``{"elastic": {...}}`` line, a ``{"router": ..., "static":
 ...}`` line, an ``{"rl": {...}}`` line, one ``{"session": {...}}`` line a
 workload (apply -> Running and wall seconds, tok/s beside the direct
 engine's, ms a step, events, peak GB, the card), a ``{"connect": {...}}``,
@@ -2505,17 +2524,31 @@ def _kimi_lr_witness(smi: str) -> dict:
             "lr": ocfg.lr, "runs": runs, "card": smi}
 
 
-def _state_bytes(schema, opt_schema) -> dict:
-    """Bytes of bf16 params, bf16 grads and the optimizer state (by its
-    schema's dtypes), and of f32 moments instead."""
+def _state_bytes(cfg, par, ocfg) -> dict:
+    """The dry run's count (``launch.dryrun`` on one card) of a train
+    step's params, their grads (as many bytes) and optimizer state, and of
+    the same with f32 moments."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import single_device_mesh
     from repro_torch.models import params as pr
-    n = pr.param_count(schema)
-    state = pr.param_bytes({"m": opt_schema["m"], "v": opt_schema["v"]},
-                           "float32")
-    return {"params_b": n / 1e9, "params_gb": 2 * n / 1e9,
-            "grads_gb": 2 * n / 1e9, "opt_state_gb": state / 1e9,
-            "total_gb": (4 * n + state) / 1e9,
-            "f32_moments_total_gb": 12 * n / 1e9}
+    from repro_torch.runtime import steps
+    mesh = single_device_mesh()
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+
+    def groups(oc):
+        return dryrun.io_bytes(dryrun.step_io(cfg, par, oc, mesh, shape),
+                               mesh)["bytes"]
+    own = groups(ocfg)
+    f32 = groups(dataclasses.replace(ocfg, moment_dtype="float32",
+                                     second_moment="full"))
+    n = pr.param_count(steps._model_module(cfg).lm_schema(cfg))
+    return {"params_b": n / 1e9, "params_gb": own["params"] / 1e9,
+            "grads_gb": own["params"] / 1e9,
+            "opt_state_gb": own["opt_state"] / 1e9,
+            "total_gb": (2 * own["params"] + own["opt_state"]) / 1e9,
+            "f32_moments_total_gb": (2 * f32["params"]
+                                     + f32["opt_state"]) / 1e9}
 
 
 def phase_kimi(smi: str):
@@ -2535,7 +2568,8 @@ def phase_kimi(smi: str):
     finite, falling losses, gmm 12 times a layer a step, and no xent
     or AdamW launch (the sharded loss is plain math, as in the reference;
     the int8 state takes the plain update).  Peak memory is printed beside
-    the state's arithmetic, and f32 moments' bytes for the same cut.
+    the dry run's count of the state (``_state_bytes``), and f32 moments'
+    bytes for the same cut.
     Nothing is written to disk; everything is freed before the next phase."""
     from repro_torch.configs import registry
     from repro_torch.launch.profile_train import train_setup
@@ -2581,7 +2615,7 @@ def phase_kimi(smi: str):
     ocfg = dataclasses.replace(ocfg, lr=KIMI_LR)
     schema = steps._model_module(cfg).lm_schema(cfg)
     opt_schema = adamw.opt_state_schema(schema, ocfg)
-    arith = _state_bytes(schema, opt_schema)
+    arith = _state_bytes(cfg, par, ocfg)
     fused = _fused_leaves(opt_schema)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -2612,7 +2646,7 @@ def phase_kimi(smi: str):
         f"{[round(x, 4) for x in norms]}; ms a step by chunk {step_ms}; "
         f"{tokens * FAMILY_K / chunk_s[-1]:.0f} tokens/s (last chunk); "
         f"{held_gb:.2f} GB held before the steps, peak {peak_gb:.2f} GB "
-        f"against the arithmetic {arith['total_gb']:.2f} GB (params "
+        f"against the dry run's count {arith['total_gb']:.2f} GB (params "
         f"{arith['params_gb']:.2f} + grads {arith['grads_gb']:.2f} + state "
         f"{arith['opt_state_gb']:.2f}); f32 moments would need "
         f"{arith['f32_moments_total_gb']:.2f} GB for the same cut; set-up "
@@ -2643,6 +2677,163 @@ def phase_kimi(smi: str):
         "gmm_shapes": sorted(seen), "phase_s": time.perf_counter() - t_start,
         "card": smi}
     return row, flash, gmm, ran, ran_train
+
+
+DRYRUN_BYTES_RTOL = 0.01   # the pass's argument bytes vs allocated growth
+
+
+def _dryrun_sweep() -> dict:
+    """The meta pass over ``registry.cells()`` on the single-pod mesh, one
+    record a cell written to a temporary directory that is then removed."""
+    import tempfile
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh()
+    recs, failures = [], []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dryrun-") as root:
+        for arch, shape, _ in registry.cells():
+            tag = f"{arch}__{shape.name}__{mesh.tag}"
+            try:
+                rec = dryrun.run_cell(arch, shape.name, mesh=mesh,
+                                      verbose=False)
+                (Path(root) / f"{tag}.json").write_text(json.dumps(rec))
+                recs.append(rec)
+            except Exception as e:      # a failure here is a bug in the port
+                failures.append(f"{tag}: {e!r}")
+        written = sum(f.stat().st_size for f in Path(root).iterdir())
+    seconds = time.perf_counter() - t0
+    ratios = [r["counted_over_analytic"] for r in recs]
+    biggest = max(recs, key=lambda r: r["per_device_bytes"])
+    out = {"cells": len(registry.cells()), "records": len(recs),
+           "failures": failures, "mesh": mesh.tag,
+           "max_per_device_bytes": biggest["per_device_bytes"],
+           "max_per_device_cell": f"{biggest['arch']} x {biggest['shape']}",
+           "min_counted_over_analytic": min(ratios),
+           "max_counted_over_analytic": max(ratios),
+           "bytes_written": written, "seconds": seconds}
+    log(f"[dryrun] {out['records']} of {out['cells']} cells on {mesh.tag}, "
+        f"{len(failures)} failures; largest per_device_bytes "
+        f"{out['max_per_device_bytes'] / 2**30:.3f} GiB "
+        f"({out['max_per_device_cell']}); counted/analytic "
+        f"{out['min_counted_over_analytic']:.4f}-"
+        f"{out['max_counted_over_analytic']:.4f}; {seconds:.1f} s, "
+        f"{written} bytes written and removed")
+    if failures or len(recs) != out["cells"]:
+        raise AssertionError(f"dry run failures: {failures}")
+    return out
+
+
+def _dryrun_hold(name, shape, allocate, smi) -> dict:
+    """The pass's argument bytes at one card against the allocated growth
+    when the port allocates the same arguments: ``allocate()`` returns
+    (the tensors, cfg, par, ocfg) and the pass counts that cfg's step."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import single_device_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    held, cfg, par, ocfg = allocate()
+    gc.collect()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    del held
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = single_device_mesh()
+    want = dryrun.io_bytes(dryrun.step_io(cfg, par, ocfg, mesh, shape), mesh)
+    rel = abs(grown - want["argument_bytes"]) / want["argument_bytes"]
+    row = {"case": name, "shape": [shape.global_batch, shape.seq_len,
+                                   shape.kind],
+           "recipe": f"{ocfg.moment_dtype}/{ocfg.second_moment}",
+           "argument_bytes": want["argument_bytes"], "bytes": want["bytes"],
+           "allocated_growth": grown, "rel_gap": rel, "card": smi}
+    log(f"[dryrun] {name}: the pass's argument bytes "
+        f"{want['argument_bytes'] / 1e9:.4f} GB ({want['bytes']}) vs "
+        f"allocated growth {grown / 1e9:.4f} GB: gap {rel:.2e} "
+        f"(tolerance {DRYRUN_BYTES_RTOL}); {smi}")
+    if not rel <= DRYRUN_BYTES_RTOL:
+        raise AssertionError(f"dry run bytes for {name}: {row}")
+    return row
+
+
+def phase_dryrun(smi: str, train: dict):
+    """The dry run (``launch.dryrun``): the meta pass over every cell on
+    the single-pod mesh (``_dryrun_sweep``); its argument bytes at one
+    card held against what the port allocates (``_dryrun_hold``): phi4's
+    train state as phase_train holds it (bf16 params, f32 moments, one
+    batch), kimi's train cut (2 layers x 64 experts, int8 + factored; both
+    from ``profile_train.train_setup``) and kimi's 1-layer serving params
+    and slotted cache; then phase_train's measured ms a step beside the
+    step FLOPs ``roofline.flops.accounting`` gives at its shape on one
+    chip: the achieved TFLOP/s and the model-FLOPs share of 989 TFLOP/s
+    (information, not a limit)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.profile_train import train_setup
+    from repro_torch.models import params as pr
+    from repro_torch.roofline import flops as flops_mod
+    from repro_torch.runtime import steps
+    t_start = time.perf_counter()
+    sweep = _dryrun_sweep()
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+
+    def train_state(arch, layers, experts):
+        def allocate():
+            cfg, par, ocfg, params, opt, chunk = train_setup(
+                arch, layers=layers, experts=experts, seq=TRAIN_SEQ,
+                batch=TRAIN_BATCH, seed=0)
+            one = chunk(0, 1)
+            batch = {k: torch.as_tensor(one[k][0]).to("cuda")
+                     for k in ("tokens", "labels")}
+            return (params, opt, batch), cfg, par, ocfg
+        return allocate
+
+    holds = [
+        _dryrun_hold(f"{ARCH} train", shape, train_state(ARCH, 0, 0), smi),
+        _dryrun_hold(f"{KIMI} train ({KIMI_TRAIN_LAYERS} layers, "
+                     f"{KIMI_TRAIN_EXPERTS} experts)", shape,
+                     train_state(KIMI, KIMI_TRAIN_LAYERS, KIMI_TRAIN_EXPERTS),
+                     smi)]
+
+    def allocate_serve():
+        cfg = registry.get_config(KIMI).replace(num_layers=KIMI_SERVE_LAYERS)
+        params = pr.init_params(
+            steps._model_module(cfg).lm_schema(cfg),
+            torch.Generator(device="cuda").manual_seed(0), cfg.param_dtype,
+            "cuda")
+        cache = steps.init_cache(cfg, SLOTS, PROMPT + GEN, "cuda")
+        token = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
+        pos = torch.zeros((), dtype=torch.int32, device="cuda")
+        return ((params, cache, token, pos), cfg,
+                registry.get_parallel(KIMI), registry.get_optimizer(KIMI))
+    holds.append(_dryrun_hold(
+        f"{KIMI} serve ({KIMI_SERVE_LAYERS} layer, {SLOTS} slots of "
+        f"{PROMPT + GEN})", ShapeConfig("serve", PROMPT + GEN, SLOTS,
+                                        "decode"), allocate_serve, smi))
+
+    # phi4's achieved rate in phase_train, against the analytic step FLOPs
+    acc = flops_mod.accounting(registry.get_config(ARCH), shape, 1,
+                               registry.get_optimizer(ARCH))
+    step_s = train["p50_step_ms"] / 1e3
+    achieved = acc.step_flops_global / step_s
+    share = acc.model_flops / step_s / PEAK_FLOPS[torch.bfloat16]
+    rate = {"arch": ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "p50_step_ms": train["p50_step_ms"],
+            "step_flops": acc.step_flops_global,
+            "model_flops": acc.model_flops,
+            "achieved_tflops": achieved / 1e12,
+            "model_flops_share": share, "card": smi}
+    log(f"[dryrun] {ARCH} train at {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"{train['p50_step_ms']:.1f} ms a step (phase_train's p50), "
+        f"{acc.step_flops_global:.4e} step FLOPs (roofline.flops, 1 chip) "
+        f"-> {achieved / 1e12:.1f} TFLOP/s; model FLOPs "
+        f"{acc.model_flops:.4e} -> {100 * share:.2f} % of 989 TFLOP/s; "
+        f"{smi}")
+    return {"sweep": sweep, "bytes": holds, "phi4_rate": rate,
+            "phase_s": time.perf_counter() - t_start, "card": smi}
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -4395,6 +4586,7 @@ def main() -> int:
     train, launches = phase_train(smi)
     families, family_launches = phase_train_families(smi)
     kimi, kimi_flash, kimi_gmm, ran_kimi, ran_kimi_train = phase_kimi(smi)
+    dry = phase_dryrun(smi, train)
     flash["kimi_dh112"] = kimi_flash
     gmm["kimi_serve"] = kimi_gmm
     flash["launches_by_path"][
@@ -4488,6 +4680,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"train_families": families}))
     print(json.dumps({"kimi": kimi}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"elastic": elastic}))
     print(json.dumps(router))
     print(json.dumps({"rl": rl}))

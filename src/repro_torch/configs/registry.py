@@ -8,15 +8,17 @@ with its int8 + factored optimizer state), whisper-small (the
 encoder-decoder, ``models.encdec``) and llama-3.2-vision-90b (gated cross
 attention, ``models.vlm``).  ``get_optimizer`` and
 ``get_parallel`` return an arch's ``OPTIMIZER`` and ``PARALLEL`` (or the
-defaults), as in the JAX registry.
+defaults), and ``cells`` lists the dry run's (arch, shape) cells, as in
+the JAX registry.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Tuple
 
-from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
-                                      ParallelConfig, smoke_config)
+from repro_torch.configs.base import (LONG_CONTEXT_ARCHS, SHAPES, ModelConfig,
+                                      OptimizerConfig, ParallelConfig,
+                                      smoke_config)
 
 ARCHS: Tuple[str, ...] = ("phi4-mini-3.8b", "codeqwen1.5-7b", "deepseek-7b",
                           "gemma2-9b", "zamba2-2.7b", "whisper-small",
@@ -55,3 +57,17 @@ def get_parallel(arch: str) -> ParallelConfig:
 
 def get_smoke(arch: str) -> ModelConfig:
     return smoke_config(get_config(arch))
+
+
+def cells(include_skipped: bool = False):
+    """Every (arch, shape, skipped) dry-run cell, honoring the long_500k
+    rule: only the sub-quadratic archs (``LONG_CONTEXT_ARCHS``) lower it."""
+    out = []
+    for arch in ARCHS:
+        for shape in SHAPES.values():
+            skipped = (shape.name == "long_500k"
+                       and arch not in LONG_CONTEXT_ARCHS)
+            if skipped and not include_skipped:
+                continue
+            out.append((arch, shape, skipped))
+    return out

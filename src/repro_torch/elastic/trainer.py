@@ -245,15 +245,6 @@ def chunk_schedule(start: int, steps: int, device_steps: int):
     return out
 
 
-def meta_tree(schema, dtype: str):
-    """``meta`` tensors of the schema's shapes and dtypes: what restore
-    casts to, with no memory behind them."""
-    return pr.tree_map_schema(
-        lambda _path, p: torch.empty(p.shape,
-                                     dtype=pr.torch_dtype(p.dtype or dtype),
-                                     device="meta"), schema)
-
-
 class ElasticTrainer:
     """Supervised elastic training on a Cluster.  See module docstring."""
 
@@ -309,8 +300,9 @@ class ElasticTrainer:
 
     # ------------------------------------------------------------- segments
     def _abstract(self):
-        return {"params": meta_tree(self.schema, self.cfg.param_dtype),
-                "opt": meta_tree(self.opt_schema, "float32")}
+        return {"params": pr.abstract_params(self.schema,
+                                             self.cfg.param_dtype),
+                "opt": pr.abstract_params(self.opt_schema, "float32")}
 
     def _train_segment(self, ctx, plan, bplan: BatchPlan,
                        graceful: threading.Event) -> _SegmentResult:

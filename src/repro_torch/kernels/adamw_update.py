@@ -15,8 +15,9 @@ Unlike the Pallas kernel, which returns new arrays, this one updates
 (``scalars``), so the host never waits on the device for them.
 
 On a CPU tensor the wrapper runs ``adamw_update_plain`` (the oracle) and
-copies its result into ``p``, ``m`` and ``v``; on a CUDA tensor it
-launches the kernel or raises.
+copies its result into ``p``, ``m`` and ``v`` (a ``meta`` tensor takes it
+too, for shapes: ``build.takes_plain``); on a CUDA tensor it launches the
+kernel or raises.
 """
 from __future__ import annotations
 
@@ -53,8 +54,7 @@ def _check(p, g, m, v, scalars) -> None:
     if len(devs) != 1:
         raise ValueError(f"p, g, m, v and scalars must be on one device, "
                          f"not {sorted(map(str, devs))}")
-    if p.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"adamw_update runs on cuda or cpu, not {p.device}")
+    build.takes_plain("adamw_update", p)
     if not all(t.is_contiguous() for t in (p, g, m, v, scalars)):
         raise ValueError("p, g, m, v and scalars must be contiguous")
 
@@ -70,7 +70,7 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     global launches
     _check(p, g, m, v, scalars)
     hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
-    if p.device.type == "cpu":
+    if build.takes_plain("adamw_update", p):
         new_p, new_m, new_v = adamw_update_plain(p, g, m, v, scalars, **hyper)
         p.copy_(new_p)
         m.copy_(new_m)

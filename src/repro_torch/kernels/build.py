@@ -115,6 +115,22 @@ def nvcc() -> str:
                        "from source on a machine with the CUDA toolkit")
 
 
+def takes_plain(name: str, t) -> bool:
+    """Whether a wrapper runs its kernel's plain version on ``t``'s device.
+
+    A CPU tensor computes it; a ``meta`` tensor (the dry run,
+    ``launch.dryrun``) infers its output shapes through it and computes
+    nothing.  On CUDA the wrapper launches its kernel (False); any other
+    device raises ``ValueError``."""
+    kind = t.device.type
+    if kind in ("cpu", "meta"):
+        return True
+    if kind != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu (meta for shapes), "
+                         f"not {t.device}")
+    return False
+
+
 def require_aligned16(name: str, t) -> None:
     """Raise ``ValueError`` unless every row of ``t`` starts on 16 bytes:
     its data pointer and the stride of each axis but the last (of size

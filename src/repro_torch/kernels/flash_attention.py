@@ -39,8 +39,9 @@ Differences from the Pallas kernel, on purpose:
   * Under a window the kernel skips the k tiles left of every row's band,
     so a q tile reads about w / 64 + 2 k tiles whatever Sk is.
 
-On a CPU tensor the wrapper runs the plain version (``attention_plain``);
-on a CUDA tensor it launches the kernel or raises.
+On a CPU tensor the wrapper runs the plain version (``attention_plain``;
+a ``meta`` tensor too, for shapes: ``build.takes_plain``); on a CUDA
+tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -129,11 +130,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     _check(q, k, v)
     _check_features(window, softcap)
-    if q.device.type == "cpu":
+    if build.takes_plain("flash_attention", q):
         return attention_plain(q, k, v, causal=causal, scale=scale,
                                window=window, softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     B, H, Sq, dh = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:

@@ -25,7 +25,8 @@ the last axis), so one group's slice of the stacked weights goes in
 without a copy.
 
 On a CPU tensor the wrapper runs the plain version (``gmm_plain``, the
-oracle ``ref.gmm_ref``); on a CUDA tensor it launches the kernel or raises.
+oracle ``ref.gmm_ref``; a ``meta`` tensor too, for shapes:
+``build.takes_plain``); on a CUDA tensor it launches the kernel or raises.
 
 Training goes through ``gmm_train``, a ``torch.autograd.Function`` whose
 backward is two more launches of the same kernel: ``dx = dy @ w^T`` and
@@ -77,10 +78,8 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """
     global launches
     _check(x, w)
-    if x.device.type == "cpu":
+    if build.takes_plain("gmm", x):
         return gmm_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"gmm runs on cuda or cpu, not {x.device}")
     if w.device != x.device:
         raise ValueError("x and w must be on one device")
     if x.dtype != w.dtype or x.dtype not in _DTYPE_CODE:

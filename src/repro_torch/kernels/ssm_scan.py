@@ -27,7 +27,8 @@ chunked form is exact for any chunk, up to rounding.
 
 On a CPU tensor the wrapper runs the plain version (``ssd_scan_plain``, a
 transcription of the JAX model's ``models/ssm.py:_ssd_chunked`` with its
-chunk rule); on a CUDA tensor it launches the kernel or raises.
+chunk rule; a ``meta`` tensor too, for shapes: ``build.takes_plain``); on
+a CUDA tensor it launches the kernel or raises.
 
 Training goes through ``ssd_scan_train``, a ``torch.autograd.Function``:
 its forward is ``ssd_scan`` (the kernel on a CUDA tensor), and its backward
@@ -149,10 +150,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """
     global launches
     _check(x, dt, a, B_, C, h0)
-    if x.device.type == "cpu":
+    if build.takes_plain("ssd_scan", x):
         return ssd_scan_plain(x, dt, a, B_, C, h0, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
     Bsz, S, H, hd = x.shape
     N = B_.shape[-1]
     if not (x.dtype == B_.dtype == C.dtype) or x.dtype not in _DTYPE_CODE:

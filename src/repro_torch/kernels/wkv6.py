@@ -27,7 +27,8 @@ a ragged last chunk.
 
 On a CPU tensor the wrapper runs the plain version (``wkv6_plain``, a
 transcription of the JAX model's ``models/ssm.py:_wkv_chunked`` with its
-chunk rule); on a CUDA tensor it launches the kernel or raises.
+chunk rule; a ``meta`` tensor too, for shapes: ``build.takes_plain``); on
+a CUDA tensor it launches the kernel or raises.
 
 Training goes through ``wkv6_train``, a ``torch.autograd.Function``: its
 forward is ``wkv6`` (the kernel on a CUDA tensor), and its backward reruns
@@ -143,10 +144,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     global launches
     _check(r, k, v, logw, u, s0)
-    if r.device.type == "cpu":
+    if build.takes_plain("wkv6", r):
         return wkv6_plain(r, k, v, logw, u, s0, chunk=chunk)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
     B, S, H, hd = r.shape
     if not (r.dtype == k.dtype == v.dtype) or r.dtype not in _DTYPE_CODE:
         raise TypeError(f"r/k/v dtypes {r.dtype}/{k.dtype}/{v.dtype}: the "

@@ -12,7 +12,8 @@ the logits are read once forward and read and written once backward).
 ``softmax_xent`` is a ``torch.autograd.Function`` that saves ``(logits,
 labels, lse)`` like ``_xent_core_fwd``.  On a CPU tensor its forward and
 backward run ``xent_fwd_plain`` / ``xent_bwd_plain``, plain PyTorch
-transcriptions of the two kernel bodies; on a CUDA tensor they launch the
+transcriptions of the two kernel bodies (a ``meta`` tensor takes them too,
+for shapes: ``build.takes_plain``); on a CUDA tensor they launch the
 kernels or raise.  A label outside [0, V) has gold 0, as in the Pallas
 kernel.
 """
@@ -76,9 +77,7 @@ def _check(logits: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"softcap must be positive, got {softcap}")
     if logits.device != labels.device:
         raise ValueError("logits and labels must be on one device")
-    if logits.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"softmax_xent runs on cuda or cpu, not "
-                         f"{logits.device}")
+    build.takes_plain("softmax_xent", logits)
 
 
 def _cuda_args(logits: torch.Tensor, labels: torch.Tensor):
@@ -97,7 +96,7 @@ def xent_fwd(logits: torch.Tensor, labels: torch.Tensor,
     """logits (R, V), labels (R,) int32 -> (nll, lse), both (R,) f32."""
     global fwd_launches
     _check(logits, labels, softcap)
-    if logits.device.type == "cpu":
+    if build.takes_plain("softmax_xent", logits):
         return xent_fwd_plain(logits, labels, softcap)
     code, row_stride = _cuda_args(logits, labels)
     R, V = logits.shape
@@ -123,7 +122,7 @@ def xent_bwd(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
     _check(logits, labels, softcap)
     if lse.shape != labels.shape or dy.shape != labels.shape:
         raise ValueError("lse and dy must be (R,)")
-    if logits.device.type == "cpu":
+    if build.takes_plain("softmax_xent", logits):
         return xent_bwd_plain(logits, labels, lse, dy, softcap)
     code, row_stride = _cuda_args(logits, labels)
     for name, t in (("lse", lse), ("dy", dy)):

@@ -184,9 +184,11 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     if mode == "decode":
         p = torch.as_tensor(pos, device=tokens.device)
         # the reference's dynamic_slice clamps a scalar position into the
-        # table; a slot past it (the engine never has one) reads the last row
-        pvec = params["pos_dec"][p.clamp(0, last)].to(cd)
-        x = x + (pvec[:, None] if p.dim() == 1 else pvec[None, None])
+        # table; a slot past it (the engine never has one) reads the last
+        # row.  A tensor index, so a 0-d pos is not read back to the host.
+        idx = p.clamp(0, last).reshape(-1).long()
+        pvec = params["pos_dec"].index_select(0, idx).to(cd)    # (B or 1, D)
+        x = x + pvec[:, None]
         enc_out = None
     else:
         if extras is None or "frames" not in extras:

@@ -76,6 +76,21 @@ def init_params(schema, generator: torch.Generator, dtype: str, device):
     return tree_map_schema(lambda path, _p: out[path], schema)
 
 
+def abstract_params(schema, dtype: str):
+    """``meta`` tensors of the schema's shapes and dtypes (``dtype`` where a
+    leaf names none): shapes and bytes with no memory behind them, the
+    counterpart of the reference's ``ShapeDtypeStruct`` tree."""
+    return tree_map_schema(
+        lambda _path, p: torch.empty(p.shape,
+                                     dtype=torch_dtype(p.dtype or dtype),
+                                     device="meta"), schema)
+
+
+def axes_tree(schema):
+    """The logical axes of each leaf, in the schema's structure."""
+    return tree_map_schema(lambda _path, p: p.axes, schema)
+
+
 def param_count(schema) -> int:
     return int(sum(math.prod(p.shape) for _, p in leaves(schema)))
 

@@ -139,10 +139,17 @@ def insert_kv(cache, k, v, pos) -> None:
     """
     kc, vc = cache["k"], cache["v"]
     S = kc.shape[1]
-    if not torch.is_tensor(pos) or pos.dim() == 0:
+    if not torch.is_tensor(pos):
         at = min(max(int(pos), 0), S - 1)
         kc[:, at] = k[:, 0]
         vc[:, at] = v[:, 0]
+        return
+    if pos.dim() == 0:
+        # a tensor index: no read of pos back to the host
+        at = pos.clamp(0, S - 1).reshape(1).to(device=kc.device,
+                                                dtype=torch.long)
+        kc.index_copy_(1, at, k.to(kc.dtype))
+        vc.index_copy_(1, at, v.to(vc.dtype))
         return
     rows = torch.arange(kc.shape[0], device=kc.device)
     at = pos.clamp(0, S - 1)

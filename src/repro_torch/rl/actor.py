@@ -28,7 +28,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.core.queue import WorkQueue
-from repro_torch.elastic.trainer import meta_tree
+from repro_torch.models import params as pr
 from repro_torch.models import transformer as tfm
 from repro_torch.rl.replay import RolloutQueue, Trajectory
 from repro_torch.rl.weights import PolicyStore
@@ -62,8 +62,8 @@ class RolloutActor:
         self.syncs = 0                  # observed weight-version bumps
         self.completed = 0
         self._stop = threading.Event()
-        self._abstract = meta_tree(tfm.lm_schema(engine.cfg),
-                                   engine.cfg.param_dtype)
+        self._abstract = pr.abstract_params(tfm.lm_schema(engine.cfg),
+                                            engine.cfg.param_dtype)
 
     # ------------------------------------------------------------ weight sync
     def maybe_sync(self) -> bool:

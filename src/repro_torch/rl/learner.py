@@ -47,7 +47,7 @@ from repro_torch.checkpoint.checkpoint import Checkpointer
 from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
                                       ParallelConfig)
 from repro_torch.device import resolve_device
-from repro_torch.elastic.trainer import chunk_schedule, meta_tree, snap_cadence
+from repro_torch.elastic.trainer import chunk_schedule, snap_cadence
 from repro_torch.models import params as pr
 from repro_torch.optim import adamw
 from repro_torch.rl.replay import RolloutQueue, Trajectory
@@ -141,8 +141,9 @@ class RLLearner:
         self._opt_schema = adamw.opt_state_schema(self._schema, spec.ocfg)
 
     def _abstract(self):
-        return {"params": meta_tree(self._schema, self.spec.cfg.param_dtype),
-                "opt": meta_tree(self._opt_schema, "float32")}
+        return {"params": pr.abstract_params(self._schema,
+                                             self.spec.cfg.param_dtype),
+                "opt": pr.abstract_params(self._opt_schema, "float32")}
 
     def _init_state(self):
         if self._init is not None:

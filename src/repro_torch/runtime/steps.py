@@ -87,6 +87,27 @@ def extras_specs(cfg: ModelConfig, B: int):
     return None
 
 
+# the logical axes of each stub, as the reference's ``extras_specs`` gives
+EXTRAS_AXES = {"image_embeds": ("batch", None, None),
+               "frames": ("batch", "seq", None)}
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """(``meta`` tensors, logical axes) of one global training batch: int32
+    "tokens" and "labels" (B, ``token_len``) and the family's "extras"
+    where ``extras_specs`` gives any, as the reference's ``batch_specs``
+    (``cfg`` resolved by ``resolve_cfg``)."""
+    B, S = shape.global_batch, token_len(cfg, shape)
+    tokens = {k: torch.empty((B, S), dtype=torch.int32, device="meta")
+              for k in ("tokens", "labels")}
+    axes = {k: ("batch", "seq") for k in tokens}
+    extras = extras_specs(cfg, B)
+    if extras is not None:
+        tokens["extras"] = extras
+        axes["extras"] = {k: EXTRAS_AXES[k] for k in extras}
+    return tokens, axes
+
+
 def zero_extras(cfg: ModelConfig, B: int, device):
     """``extras_specs`` as bf16 zeros on ``device`` (or None): the stubs
     the serving engines and the static batcher feed to prefill."""
@@ -260,10 +281,13 @@ def paged_decode_step(cfg: ModelConfig, params, pool, tables: torch.Tensor,
 # train
 # ---------------------------------------------------------------------------
 
-def train_par(par: ParallelConfig) -> ParallelConfig:
+def train_par(par: ParallelConfig, *, global_batch: int = 1,
+              chips: int = 1) -> ParallelConfig:
     """The reference's pure-FSDP switch for train steps: on when asked for
-    and the batch divides the devices, which one device always does."""
-    if par.pure_fsdp_train and not par.pure_fsdp:
+    and the global batch divides the mesh's chips, which one device always
+    does (the dry run passes a production mesh's)."""
+    if par.pure_fsdp_train and not par.pure_fsdp \
+            and global_batch % chips == 0:
         return dataclasses.replace(par, pure_fsdp=True)
     return par
 

@@ -111,10 +111,13 @@ def test_wrapper_rejects_bad_inputs():
         t = torch.zeros(4, 2).t()
         tk.adamw_update(t, t, torch.zeros(2, 4), torch.zeros(2, 4), sc,
                         b1=0.9, b2=0.95, eps=1e-8)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        mz = torch.zeros(4, device="meta")
-        tk.adamw_update(mz, mz, mz, mz, sc.to("meta"), b1=0.9, b2=0.95,
-                        eps=1e-8)
+    # meta takes the plain version (shapes only); any device but cpu,
+    # cuda and meta raises: a fake xpu tensor stands in for one
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(), pytest.raises(ValueError, match="cuda or cpu"):
+        xz = torch.zeros(4, device="xpu")
+        tk.adamw_update(xz, xz, xz, xz, torch.zeros(3, device="xpu"),
+                        b1=0.9, b2=0.95, eps=1e-8)
 
 
 @pytest.mark.parametrize("schedule", ["cosine", "linear", "constant"])

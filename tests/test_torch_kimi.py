@@ -60,7 +60,6 @@ from repro_torch.configs.base import OptimizerConfig             # noqa: E402
 from repro_torch.core.orchestrator import Cluster               # noqa: E402
 from repro_torch.core.queue import WorkQueue as TQueue          # noqa: E402
 from repro_torch.data.objectstore import ObjectStore            # noqa: E402
-from repro_torch.elastic.trainer import meta_tree               # noqa: E402
 from repro_torch.models import params as tpr                    # noqa: E402
 from repro_torch.models import transformer as ttfm              # noqa: E402
 from repro_torch.optim import adamw as tadamw                   # noqa: E402
@@ -357,8 +356,8 @@ def test_a_jax_checkpoint_of_the_quantized_state_restores_bit_for_bit(
     tree = {"params": jp, "opt": jo}
     JCkpt(JStore(str(tmp_path / "jax")), keep=None).save(1, tree)
     schema = ttfm.lm_schema(tcfg)
-    abstract = {"params": meta_tree(schema, "float32"),
-                "opt": meta_tree(tadamw.opt_state_schema(
+    abstract = {"params": tpr.abstract_params(schema, "float32"),
+                "opt": tpr.abstract_params(tadamw.opt_state_schema(
                     schema, OptimizerConfig(**RECIPE)), "float32")}
     got = Checkpointer(ObjectStore(str(tmp_path / "jax")), keep=None).restore(
         1, abstract, "cpu")
@@ -421,7 +420,7 @@ def test_rl_chunk_trains_under_the_recipe():
         tcfg, treg.get_parallel(ARCH), ocfg, _port(_jax_params()), opt,
         batches, device="cpu")
     assert np.isfinite(ms["loss"].numpy()).all() and int(opt["count"]) == K
-    want = meta_tree(tadamw.opt_state_schema(ttfm.lm_schema(tcfg), ocfg),
-                     "float32")
+    want = tpr.abstract_params(
+        tadamw.opt_state_schema(ttfm.lm_schema(tcfg), ocfg), "float32")
     assert [(t.dtype, t.shape) for t in tsteps.tree_leaves(opt)] == \
         [(t.dtype, t.shape) for t in tsteps.tree_leaves(want)]

@@ -118,9 +118,12 @@ def test_backward_keeps_the_logits_dtype():
 
 
 def test_wrapper_rejects_other_devices_and_bad_shapes():
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        xent.xent_fwd(torch.zeros(2, 3, device="meta"),
-                      torch.zeros(2, dtype=torch.int32, device="meta"))
+    # meta takes the plain version (shapes only); any device but cpu,
+    # cuda and meta raises: a fake xpu tensor stands in for one
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(), pytest.raises(ValueError, match="cuda or cpu"):
+        xent.xent_fwd(torch.zeros(2, 3, device="xpu"),
+                      torch.zeros(2, dtype=torch.int32, device="xpu"))
     with pytest.raises(ValueError, match=r"\(R, V\)"):
         xent.softmax_xent(torch.zeros(2, 3), torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError, match="softcap"):
