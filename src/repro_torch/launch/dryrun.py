@@ -138,10 +138,16 @@ def step_io(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
                   {"token": token, "cache": cache}, ("cache",))
 
 
+def _is_axes(x) -> bool:
+    """Whether ``x`` is one leaf's logical axes (a tuple of names or None)."""
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None)))
+                                        for a in x)
+
+
 def leaves(tree, axes, path: str = ""):
     """(path, tensor, axes) of every leaf of a (tree, axes tree) pair, in
     sorted-key order (JAX's)."""
-    if sh.is_axes(axes):
+    if _is_axes(axes):
         yield path, tree, axes
         return
     for k in sorted(axes):

@@ -16,8 +16,7 @@ import math
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
-# the fleet layouts (launch/train derives its elastic base_shape from the
-# first; the dry run builds both)
+# the fleet layouts the dry run counts bytes on
 PRODUCTION_MESH_SHAPE = (16, 16)
 PRODUCTION_MESH_SHAPE_MULTI_POD = (2, 16, 16)
 

@@ -32,21 +32,19 @@ from repro_torch.core.metrics import Registry
 from repro_torch.core.orchestrator import Cluster
 from repro_torch.device import resolve_device
 from repro_torch.launch import cli
-from repro_torch.launch.mesh import PRODUCTION_MESH_SHAPE
 
 
 def train_job(arch: str, *, steps: int, seq: int, batch: int, smoke: bool,
               ckpt_dir: str = "", ckpt_every: int = 0, fail_at: int = -1,
-              log_every: int = 10, production_mesh: bool = False,
-              seed: int = 0, device_steps: int = 1) -> TrainJob:
-    """The TrainJob resource the flag surface declares, the JAX CLI's:
-    a (1, 1) mesh of one data slot, or with ``production_mesh`` the
-    production layout's base shape and no cap on the data axis."""
+              log_every: int = 10, seed: int = 0,
+              device_steps: int = 1) -> TrainJob:
+    """The TrainJob resource the flag surface declares: the JAX CLI's, on a
+    (1, 1) mesh of one data slot.  A production-layout job (base_shape
+    (16, 16), no cap on the data axis) is declared by a manifest; it needs
+    256 devices, so it places on no one-device cluster."""
     return TrainJob(
         name=f"train-{arch}", steps=steps, arch=arch, smoke=smoke,
-        seq_len=seq, global_batch=batch,
-        base_shape=PRODUCTION_MESH_SHAPE if production_mesh else (1, 1),
-        max_data=None if production_mesh else 1,
+        seq_len=seq, global_batch=batch, base_shape=(1, 1), max_data=1,
         ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, keep=2,
         log_every=log_every, fail_at=fail_at, seed=seed,
         device_steps=device_steps)

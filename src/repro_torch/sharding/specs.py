@@ -11,9 +11,10 @@ entry for entry; a spec is a tuple with one entry a dimension, each None,
 a mesh axis name or a tuple of names, as ``jax.sharding.PartitionSpec``
 holds them.  On one card nothing is partitioned: the dry run
 (``launch.dryrun``) reads these specs to count each tensor's bytes per
-device of a production mesh (``shard_shape``).  There is no counterpart of
-the reference's ``constrain``: on one device it is a no-op, and the
-port's models never call it.
+device of a production mesh (``shard_shape``), one leaf at a time, so the
+reference's tree helpers (``shardings_for_schema``, ``shardings_like``)
+have no counterpart.  Nor has its ``constrain``: on one device it is a
+no-op, and the port's models never call it.
 """
 from __future__ import annotations
 
@@ -21,7 +22,6 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.launch.mesh import Mesh
-from repro_torch.models.params import tree_map_schema
 
 Axis = Union[str, Tuple[str, ...], None]
 Spec = Tuple[Axis, ...]
@@ -137,25 +137,3 @@ def shard_shape(shape: Sequence[int], spec: Spec, mesh: Mesh
         out.append(dim // n)
     return tuple(out)
 
-
-def specs_for_schema(schema, mesh: Mesh, rules: Dict[str, Axis]):
-    """A spec tree mirroring a param schema (the reference's
-    ``shardings_for_schema``)."""
-    return tree_map_schema(
-        lambda _p, p: spec_for(p.shape, p.axes, mesh, rules), schema)
-
-
-def is_axes(x) -> bool:
-    """Whether ``x`` is one leaf's logical axes (a tuple of names or None)."""
-    return isinstance(x, tuple) and all(isinstance(a, (str, type(None)))
-                                        for a in x)
-
-
-def specs_like(tree, tree_of_axes, mesh: Mesh, rules: Dict[str, Axis]):
-    """A spec tree for a (tensors, axes) pair of trees (the reference's
-    ``shardings_like``): ``tree`` holds tensors (``meta`` ones do) or
-    anything with a ``shape``, ``tree_of_axes`` one axes tuple a leaf."""
-    if is_axes(tree_of_axes):
-        return spec_for(tuple(tree.shape), tree_of_axes, mesh, rules)
-    return {k: specs_like(tree[k], tree_of_axes[k], mesh, rules)
-            for k in tree_of_axes}

@@ -20,7 +20,8 @@ Also: each kernel wrapper takes its plain version on a ``meta`` tensor
 and still raises on any device but cpu, cuda and meta; a decode step
 with a 0-d tensor position equals one with an int (no host read); the
 CLI writes one record and skips it as cached; ``train_job`` declares the
-reference's TrainJob with and without ``production_mesh``.
+reference CLI's TrainJob, and the reference's production-layout manifest
+loads unchanged.
 """
 import json
 import os
@@ -301,15 +302,24 @@ def test_cli_writes_one_record_and_skips_it_as_cached(tmp_path, capsys):
     assert sorted(p.name for p in tmp_path.iterdir()) == files
 
 
-@pytest.mark.parametrize("production_mesh", [False, True])
-def test_train_job_matches_the_reference(production_mesh):
+@pytest.mark.parametrize("declared_by", ["flags", "manifest"])
+def test_train_job_matches_the_reference(declared_by, tmp_path):
+    """The flags declare the reference CLI's TrainJob; the manifest of the
+    reference's production-layout job loads in the port unchanged."""
     from repro.launch.train import train_job as j_train_job
+    from repro_torch.api.resources import load_manifest
     from repro_torch.launch.train import train_job
     kw = dict(steps=4, seq=16, batch=2, smoke=True, ckpt_every=2,
-              fail_at=3, seed=1, device_steps=2,
-              production_mesh=production_mesh)
-    got, want = train_job("phi4-mini-3.8b", **kw), \
-        j_train_job("phi4-mini-3.8b", **kw)
+              fail_at=3, seed=1, device_steps=2)
+    if declared_by == "flags":
+        got, want = train_job("phi4-mini-3.8b", **kw), \
+            j_train_job("phi4-mini-3.8b", **kw)
+        layout = ((1, 1), 1)
+    else:
+        want = j_train_job("phi4-mini-3.8b", production_mesh=True, **kw)
+        path = tmp_path / "train.json"
+        path.write_text(json.dumps(want.to_manifest()))
+        got = load_manifest(str(path))
+        layout = ((16, 16), None)
     assert got.to_manifest() == want.to_manifest()
-    assert (got.base_shape, got.max_data) == (
-        ((16, 16), None) if production_mesh else ((1, 1), 1))
+    assert (tuple(got.base_shape), got.max_data) == layout

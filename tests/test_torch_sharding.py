@@ -93,15 +93,18 @@ def test_non_divisible_falls_back_to_replication():
 
 
 def test_shardings_for_schema_tree():
+    """The dry run's walk over a schema's meta tree gives each leaf its
+    spec (the reference's ``shardings_for_schema`` tree, leaf by leaf)."""
+    from repro_torch.launch import dryrun
     schema = {"w": PSpec((8, 4), ("fsdp", "tp_ff")),
               "b": {"x": PSpec((6,), (None,))}}
-    tree = sh.specs_for_schema(schema, MESH, RULES)
-    assert tree["w"] == ("data", "model")
-    assert tree["b"]["x"] == (None,)
     metas = tpr.abstract_params(schema, "float32")
-    axes = tpr.axes_tree(schema)
-    assert sh.specs_like(metas, axes, MESH, RULES) == tree
+    tree = {path: sh.spec_for(t.shape, ax, MESH, RULES)
+            for path, t, ax in dryrun.leaves(metas, tpr.axes_tree(schema))}
+    assert tree == {"w": ("data", "model"), "b/x": (None,)}
     assert sh.shard_shape((8, 4), tree["w"], MESH) == (2, 2)
+    assert dryrun.shard_bytes(metas, tpr.axes_tree(schema), MESH,
+                              RULES) == (2 * 2 + 6) * 4
 
 
 def test_logical_rules_equal_the_reference():
