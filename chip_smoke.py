@@ -6,7 +6,8 @@ Phases (any failure raises and the script exits non-zero):
   1. device  — a CUDA card is required; prints its name and power limit;
   2. build   — compiles every kernel of the port from ``src/repro_torch/csrc``
                (six sources) with nvcc, all at once, and prints the build
-               time;
+               time, each source's nvcc seconds and each kernel's
+               registers and spills;
   3. kernels — each kernel against its plain PyTorch version on the card, at
                the main path's shape and at edge shapes, with stated
                tolerances; times the kernel, the plain version and the one
@@ -25,7 +26,13 @@ Phases (any failure raises and the script exits non-zero):
                SDPA times only the rows without a softcap (it has none),
                with the window as a mask; edge shapes include a window of
                128 at Sq 96 against Sk 520 (bf16, f16), f32 at dh 256 and
-               Sq > Sk under a window; xent forward and backward
+               Sq > Sk under a window, then each mask mode the Hopper
+               kernel compiles (causal; full; window and softcap) at every
+               head dim in bf16 and f16, on transposes of (B, S, H, dh)
+               views cut from longer buffers, Sq and Sk not multiples of
+               64; phi4's shape through the general instantiation (a
+               window of 4096, the same function) timed beside the causal
+               one (B11); xent forward and backward
                at the train phase's loss chunk, and the backward with the RL learner's dy (zero on prompt rows
                and on a zero-advantage rollout, negative where the
                advantage is); AdamW at phi4's embedding; the SSD scan at
@@ -328,6 +335,7 @@ WHISPER_ENC = (1, 12, 12, WHISPER_FRAMES, WHISPER_FRAMES, 64)
 WHISPER_CROSS = (1, 12, 12, WHISPER_PAD, WHISPER_FRAMES, 64)
 VLM_LAYERS = 5            # one pattern group: 6.37 B params; 100 is 87.4 B
 VLM_CROSS = (1, 64, 8, PROMPT, 1600, 128)
+GENERAL_ROW = 11          # phase_kernels' row of the general instantiation
 SESSION_STEPS, SESSION_K, SESSION_CANCEL_STEPS, SESSION_CANCEL_AT = 4, 2, 40, 2
 # the TrainJobs' learning rate: the TrainJob's default (1e-3, one warmup
 # step) is a smoke model's; at full width its first Adam step raises the
@@ -404,7 +412,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     out = build.build_all()
     log(f"[build] {sorted(out)} in {time.perf_counter() - t0:.2f} s")
-    for name, text in out.items():
+    for name, (text, seconds) in out.items():
+        log(f"[build] {name}: nvcc {seconds:.2f} s")
         for kernel, regs, smem, spill in _ptxas_report(text):
             log(f"[build:{name}] {kernel}: {regs} registers, {smem} bytes "
                 f"static shared memory; {spill}")
@@ -512,12 +521,20 @@ def _flash_errs(got, want):
     return d.max().item(), (d.amax(-1) / scale).max().item()
 
 
+def _cut_view(B, S, n, dh, gen, dtype, scale=1.0):
+    """A (B, n, S, dh) transpose of a (B, S, n, dh) view cut from a
+    (B, S + 5, n, dh) buffer of N(0, scale^2) values: the models' layout,
+    with a batch stride that is not n * S * dh."""
+    buf = scale * torch.randn(B, S + 5, n, dh, generator=gen, device="cuda")
+    return buf.to(dtype)[:, :S].transpose(1, 2)
+
+
 def _flash_mutants_fail(fa, q, k, v, kw, want, tol, shape):
     """Show that the row can fail a wrong kernel: the plain version without
-    the softcap, and with the window one 32-key tile (the dh 256 kernel's)
-    longer, must each miss ``want`` by more than the tolerance.  Only where
-    the feature bites: a window longer than every row's keys masks
-    nothing, so its mutant equals ``want``."""
+    the softcap, and with the window 32 keys longer, must each miss
+    ``want`` by more than the tolerance.  Only where the feature bites: a
+    window longer than every row's keys masks nothing, so its mutant
+    equals ``want``."""
     mutants = {}
     if kw["softcap"] is not None:
         mutants["no softcap"] = dict(kw, softcap=None)
@@ -563,16 +580,38 @@ def phase_kernels(main_shape):
         (1, 4, 2, 700, 700, 256, True, f32, 2e-5, 128, 50.0),    # f32 dh 256
         (1, 4, 2, 130, 60, 256, True, bf, 2e-2, 16, 50.0),       # Sq > Sk
     ]
+    # B11: the general instantiation (a window at runtime) at phi4's shape,
+    # with a window past every row's keys, so the same function as the
+    # plain causal one at row 0; timed beside it
+    cases.insert(GENERAL_ROW, main_shape + (True, bf, 2e-2, 4096, None))
+    # every mask mode x head dim x 16-bit type the kernel compiles, on
+    # transposes of (B, S, heads, dh) buffers cut from longer ones (a batch
+    # stride that is not heads * S * dh), Sq and Sk not multiples of 64
+    cases += [(B, H, KV, Sq, Sk, dh, causal, dtype, 2e-2, window, cap,
+               "cut")
+              for dh in fa.HEAD_DIMS for dtype in (bf, f16)
+              for (B, H, KV, Sq, Sk, causal, window, cap) in (
+                  (1, 8, 2, 200, 200, True, None, None),        # causal
+                  (2, 4, 2, 130, 330, False, None, None),       # full
+                  (1, 8, 4, 150, 270, True, 96, 30.0))]         # general
     rows = []
-    for (B, H, KV, Sq, Sk, dh, causal, dtype, tol, window, cap) in cases:
+    for (B, H, KV, Sq, Sk, dh, causal, dtype, tol, window, cap,
+         *layout) in cases:
         # with a softcap c, q is scaled by c so that the scores spread over
         # +-c and the cap bends them (unit q and k give scores of N(0, 1),
         # which a cap of 50 moves by less than 1e-2)
         qs = cap if cap is not None and dtype != f32 else 1.0
-        q = (qs * torch.randn(B, H, Sq, dh, generator=gen,
-                              device="cuda")).to(dtype)
-        k = torch.randn(B, KV, Sk, dh, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(B, KV, Sk, dh, generator=gen, device="cuda").to(dtype)
+        if layout:
+            q, k, v = (_cut_view(B, S, n, dh, gen, dtype, scale)
+                       for n, S, scale in ((H, Sq, qs), (KV, Sk, 1.0),
+                                           (KV, Sk, 1.0)))
+        else:
+            q = (qs * torch.randn(B, H, Sq, dh, generator=gen,
+                                  device="cuda")).to(dtype)
+            k = torch.randn(B, KV, Sk, dh, generator=gen,
+                            device="cuda").to(dtype)
+            v = torch.randn(B, KV, Sk, dh, generator=gen,
+                            device="cuda").to(dtype)
         kw = dict(causal=causal, window=window, softcap=cap)
         got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -581,7 +620,8 @@ def phase_kernels(main_shape):
         shape = f"B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} dh={dh} " \
                 f"{str(dtype)[6:]} {'causal' if causal else 'full'}" + \
                 (f" window={window}" if window else "") + \
-                (f" softcap={cap} q*{qs:g}" if cap else "")
+                (f" softcap={cap} q*{qs:g}" if cap else "") + \
+                (" (B,S,H,dh) cut views" if layout else "")
         # f32: absolute; f16/bf16: each query row's error over that row's
         # scale (its largest |output|, at least 1/16).  Kernel and plain
         # version each round P and the output once, about 2^-8 of the
@@ -601,7 +641,7 @@ def phase_kernels(main_shape):
         rows.append((shape, err, q, k, v, kw))
         del got, want
     timed = {}
-    for i in range(11):               # the main paths' shapes
+    for i in range(GENERAL_ROW + 1):  # the main paths' shapes, then B11's
         shape, err, q, k, v, kw = rows[i]
         ms = _time_ms(lambda: fa.flash_attention(q, k, v, **kw))
         plain_ms = _time_ms(lambda: fa.attention_plain(q, k, v, **kw))
@@ -620,11 +660,18 @@ def phase_kernels(main_shape):
                     "library_ms": library_ms, "shape": shape,
                     "host_us": host_us}
         torch.cuda.empty_cache()
+    general = timed[GENERAL_ROW]
+    log(f"[kernels] B11: flash at phi4's shape through the general "
+        f"instantiation (a runtime window of 4096) {general['ms']:.4f} ms, "
+        f"the causal one {timed[0]['ms']:.4f} ms: "
+        f"{general['ms'] / timed[0]['ms'] - 1:+.1%}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:25",
             "launches": None, **timed[0],
-            "edge_shapes_max_abs_err": max(r[1] for r in rows[11:]),
+            "edge_shapes_max_abs_err": max(r[1] for r in
+                                           rows[GENERAL_ROW + 1:]),
+            "phi4_general": general,
             "zamba2_dh80": timed[1], "granite_dh64": timed[2],
             "static_b4": timed[3], "codeqwen_kv32": timed[4],
             "gemma2_local_512": timed[5], "gemma2_local_5120": timed[6],

@@ -13,11 +13,9 @@
 // two f32 sums of another order round apart, one bf16 step of a score.)
 //
 // Layout: q (B,H,Sq,dh), k/v (B,KV,Sk,dh), o (B,H,Sq,dh), each given by its
-// (batch, head, seq) strides in elements with a unit stride on dh, so the
-// caller may pass transposed views without a copy.  Query head h reads KV
-// head h / (H / KV) (native GQA; KV == H is the Pallas kernel's case).  For
-// f16/bf16 the base pointers and strides must be 16-byte aligned (the
-// wrapper checks): every copy is 16 bytes.
+// (batch, head, seq) strides with a unit stride on dh, so the caller may
+// pass transposed views without a copy.  Query head h reads KV head
+// h / (H / KV) (native GQA; KV == H is the Pallas kernel's case).
 //
 // Mask: the causal mask is bottom-right aligned like the oracle
 // (kernels/ref.py attention_ref, tril(k = Sk - Sq)): key j is visible to
@@ -31,45 +29,66 @@
 // its diagonal and, under a window, wholly left of its band are skipped:
 // their probabilities are exactly 0.  That skip is what makes a window
 // cheap: a q tile reads about w / 64 + 2 k tiles, not all of them.
-// Head dims 16, 32, 64, 80 (zamba2), 112 (kimi-k2), 128 and 256 (gemma2)
-// are instantiated.
+// Head dims 16, 32, 64, 80 (zamba2), 112 (kimi-k2), 128 and 256 (gemma2).
 //
 // Bound on an H100 at phi4-mini prefill shapes (B=1, H=24, KV=8, S=512,
 // dh=128, bf16): q, k, v and o are 8.4 MB and the causal work 1.6 GFLOP,
 // so the card's floor is the 2.5 us of memory traffic, not the 1.6 us of
-// tensor-core math; a kernel near it keeps scores out of device memory,
-// reads k and v once per q tile from L2 and keeps the tensor cores fed.
+// tensor-core math.  At 512 tokens what the kernel takes beyond that is
+// latency: one q tile's chain of k tiles (8 at the last tile), each a
+// product, a softmax step and a second product, plus the launch.  At
+// gemma2's 5120 tokens (dh 256) the work is 0.2 ms of tensor-core math and
+// the rate of the products is what counts.
 //
-// f16/bf16: flash_fwd_mma, FlashAttention-2 style.  One block of 4 warps
-// owns one (batch, head, 64-row q tile); each warp owns 16 query rows, and
-// its Q fragments are loaded once and held in registers over the k loop.
-// K and V tiles of 64 keys (32 at dh 256) are double-buffered in shared
-// memory by 16-byte cp.async copies (rows padded by 16 bytes, so ldmatrix
-// hits all 32 banks; rows past Sq and Sk are zero-filled), the next tile
-// in flight while this one is multiplied.  S = Q K^T is mma.sync m16n8k16
-// with f32 accumulators (K fragments through ldmatrix); the online max and
-// sum run on the accumulator fragments, with two quad shuffles for a row's
-// max and one reduction of its sum at the end; P is rounded to q's type in
-// registers (as the JAX model rounds its probabilities to v's dtype before
-// P V) and fed straight back as the A operand of P V, whose V fragments
-// come through ldmatrix.trans.  dh 80 is five k16 steps, dh 112 seven
-// (seven n16 pairs of P V): 14 16-byte chunks a row, 7 a thread for a
-// 64-row tile; the padded row is 120 elements (240 bytes, 60 words), so the
-// eight rows an ldmatrix reads start on words 0, 28, 24, ..., 4 mod 32 and
-// hit all 32 banks once; Q and two K/V stages take 77 KB.  Q and two K/V
-// stages take 87 KB of shared memory at dh 128 (two blocks an SM).  The
-// grid walks the q tiles from the last, so the causal tiles with the most
-// k tiles start first, one an SM; the blocks past the first SM-count take
-// the lightest tiles first, so an SM's second block pairs light with
-// heavy.  At phi4's prefill shape this is about 9x the byte
-// bound and 1.7x PyTorch's SDPA (PERF.md); wgmma with TMA and warp
-// specialization (FlashAttention-3's design) is the next step.
-// dh 256 (gemma2): a warp's O accumulator alone is 128 f32 registers a
-// thread, so Q is not held in registers there but reloaded from shared
-// memory by ldmatrix for each k tile (64 registers fewer, one ldmatrix
-// more per k16 step), and the K/V tiles hold 32 keys (an S tile of 16
-// registers instead of 32): Q and two K/V stages take 99 KB, two blocks
-// an SM.
+// f16/bf16: flash_fwd_wgmma, FlashAttention-3's structure on Hopper's own
+// instructions (hopper.cuh):
+//  * TMA.  q, k and v are each read through a tensor map over (dh, seq,
+//    heads, batch) with the view's own byte strides (encoded on the host
+//    at each launch from the strides the entry point takes,
+//    encode_operand), in boxes one swizzle span wide (16, 32 or 64
+//    columns: 32-, 64- and 128-byte swizzles) that land in shared memory
+//    in the layout wgmma reads.  TMA's zero fill
+//    covers the ragged rows past Sq and Sk, and the columns past dh: dh 80
+//    and 112 run as 128, two 64-column boxes whose columns past dh load as
+//    zeros (1.6x and 1.14x the products' work, one code path, no mixed
+//    swizzles; measured in PERF.md).
+//  * A producer warp (warp 4) issues the loads: Q once, then K and V of
+//    each k tile into a ring of three stages, each completed on its own
+//    full mbarrier (K's and V's apart, so S can start before V lands) and
+//    freed by the consumers' arrivals on its empty mbarrier once P V is
+//    done.  (Two stages left each load's latency in every step; freeing
+//    K's slot apart from V's, at S, moved no shape by more than 3 %.)
+//  * One consumer warpgroup (warps 0-3) owns 64 query rows.  S = Q K^T is
+//    wgmma m64nBNk16 with Q and K both K-major in shared memory; the online
+//    max and sum run on the accumulators (a row's four lanes share a
+//    quad); P is rounded to q's type in registers (as the JAX model rounds
+//    its probabilities) and is the register A operand of O += P V, whose V
+//    is the MN-major (transposed) B operand in shared memory.  Row
+//    statistics and O stay in f32 registers.
+//  * Overlap: S of tile t is issued together with P V of tile t - 1, and
+//    t's softmax step runs while that P V is in flight; O is rescaled
+//    after it completes (3-9 % faster than a softmax step that waits for
+//    both; PERF.md).
+//  * Masks are compiled in (Mode): CAUSAL (no window, no softcap: the
+//    decoder families), FULL (non-causal, no softcap: encoders and cross
+//    attention) and GENERAL (window and softcap as runtime fields: gemma2).
+//    Per-score tests run only on the tiles that cross the ragged tail, the
+//    diagonal or the window's left edge.
+//  * Registers come from the launch bounds, so a block is 160 threads: two
+//    blocks an SM at 168 registers a thread for dh <= 128 (ten warps,
+//    three on one SM sub-partition's 16K registers), one at 255 for dh
+//    256, whose O alone is 128 accumulators.  No instantiation spills.  A
+//    producer warpgroup handing its registers to the consumers by
+//    setmaxnreg (which works once the mbarrier wait has no trap; see
+//    hopper.cuh) allows two consumer warpgroups of 232 registers sharing
+//    each K/V tile with 128-key tiles: it measured within 3 % of this
+//    design where it won and slower at B=4 and gemma2's 512 tokens, with
+//    twice the build (PERF.md), so it is not used.
+//  * Blocks take (batch, head, 64-row q tile) items from the heaviest
+//    causal tile to the lightest, so the longest k chains start first; at
+//    phi4's 512 tokens that is 192 items for 132 SMs, two blocks an SM.
+//    (Packing a KV group's query heads into one block would load each K/V
+//    tile once for g heads but leave phi4 64 items: fewer than the SMs.)
 //
 // f32: flash_fwd, the CUDA-core kernel of the first port (one block of 256
 // threads per 64-row q tile, Q, K and V staged as f32 in shared memory,
@@ -80,6 +99,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "hopper.cuh"
 #include "mma_sm80.cuh"
 
 namespace {
@@ -96,21 +116,10 @@ static_assert(BK == 64, "the softmax step gives each lane two columns");
 static_assert(BQ == 64 && NT == 256, "S micro-tiles are 4x4 on a 16x16 grid");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -131,7 +140,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
-  int B, H, KV, Sq, Sk;
+  int B, H, KV, Sq, Sk, dh;
   long long qs[3], ks[3], vs[3], os[3];  // (batch, head, seq) strides
   // score in log2 units: x = s * qk_scale, then x = cap_log2 * tanh(x)
   // when cap_log2 > 0 (softcap c: qk_scale = scale / c, cap_log2 =
@@ -147,21 +156,23 @@ __device__ __forceinline__ float score_log2(float s, const Args& a) {
 }
 
 // Whether causal masking hides key j from query i (d = Sk - Sq).
-__device__ __forceinline__ bool hidden(const Args& a, int i, int j, int d) {
-  return a.causal && (j > i + d || (a.window > 0 && j <= i + d - a.window));
+__device__ __forceinline__ bool hidden(bool causal, int window, int i, int j,
+                                       int d) {
+  return causal && (j > i + d || (window > 0 && j <= i + d - window));
 }
 
 // The k tiles [first, end) a q tile of `rows` rows from q0 must read: when
 // every one of its rows sees a key, the tiles above its diagonal and left
 // of its window band are skipped; otherwise a fully masked row must still
 // average all of v.
-__device__ __forceinline__ void k_tiles(const Args& a, int q0, int rows,
+__device__ __forceinline__ void k_tiles(int Sq, int Sk, bool causal,
+                                        int window, int q0, int rows,
                                         int tile, int& first, int& end) {
-  const int d = a.Sk - a.Sq;
-  int lo = 0, hi = a.Sk;
-  if (a.causal && q0 + d >= 0) {
-    hi = min(a.Sk, q0 + rows + d);
-    if (a.window > 0) lo = max(0, q0 + d - a.window + 1);
+  const int d = Sk - Sq;
+  int lo = 0, hi = Sk;
+  if (causal && q0 + d >= 0) {
+    hi = min(Sk, q0 + rows + d);
+    if (window > 0) lo = max(0, q0 + d - window + 1);
   }
   first = lo / tile;
   end = (hi + tile - 1) / tile;
@@ -206,7 +217,7 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
   }
 
   int t_first, t_end;
-  k_tiles(a, q0, BQ, BK, t_first, t_end);
+  k_tiles(a.Sq, a.Sk, a.causal, a.window, q0, BQ, BK, t_first, t_end);
 
   const int r0 = warp * ROWS;           // this warp's rows (softmax, PV)
   const int tr = tid >> 4, tc = tid & 15;   // S micro-tile coordinates
@@ -256,7 +267,7 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
         float x = score_log2(s[r][c], a);
         if (j >= a.Sk)
           x = -INFINITY;
-        else if (hidden(a, i, j, diag))
+        else if (hidden(a.causal, a.window, i, j, diag))
           x = NEG_INF;
         sS[(tr * 4 + r) * SP + tc + 16 * c] = x;
       }
@@ -314,209 +325,314 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
 }
 
 // ---------------------------------------------------------------- f16/bf16,
-// tensor cores
+// Hopper: TMA, wgmma and a warp-specialized pipeline
 
-constexpr int MQ = 64;                 // query rows per block, 16 a warp
-constexpr int MNT = 128;               // 4 warps
-// Keys per tile: 64, and 32 at dh 256, where a warp's O accumulator is
-// already 128 registers a thread: the smaller S tile keeps it from
-// spilling, and Q plus two K/V stages (99 KB) let two blocks share an SM.
-#define KEYS_PER_TILE(DH) ((DH) > 128 ? 32 : 64)
+// What a block masks, compiled in: CAUSAL (no window, no softcap: the
+// decoder families), FULL (non-causal, no softcap: encoders and cross
+// attention) and GENERAL (the window and the softcap as runtime fields,
+// causal or not: gemma2).
+enum Mode { CAUSAL = 0, FULL = 1, GENERAL = 2 };
 
-template <int DH>
-constexpr int mma_smem_bytes() {       // Q, then K and V in two stages
-  return (MQ + 4 * KEYS_PER_TILE(DH)) * (DH + 8) * 2;
-}
+// The tiles of a padded head dim DHP (dh 80 and 112 run as 128, their
+// columns past dh zero-filled by TMA): column blocks one swizzle span wide
+// (16, 32 or 64 elements), one consumer warpgroup of 64 query rows (warps
+// 0-3) and a producer warp (warp 4), K/V tiles of BN keys (128 at dh 16,
+// 32 and 64; 64 from padded dh 128 on, where 128 keys would not leave
+// two blocks' three stages in an SM's shared memory) in STAGES stages
+// (three: with two, the load of tile t + 1 could start only when tile
+// t - 1 was released, at the end of step t, and its latency showed in
+// every step).  Registers come from the launch bounds: two blocks an
+// SM (ten warps, three on one SM sub-partition's 16K registers) give a
+// thread 168; at dh 256 one block an SM gives 255, which O's 128
+// accumulators need (its shared memory allows one anyway).
+template <int DHP>
+struct Tiles {
+  static constexpr int SPAN = DHP < 64 ? DHP : 64;
+  static constexpr int CB = DHP / SPAN;
+  static constexpr int BN = DHP < 128 ? 128 : 64;
+  static constexpr int STAGES = 3;
+  static constexpr int ROWS = 64;                 // query rows a block
+  static constexpr int THREADS = 160;
+  static constexpr int MIN_BLOCKS = DHP < 256 ? 2 : 1;
+  static constexpr int Q_BYTES = ROWS * DHP * 2;
+  static constexpr int KV_BYTES = BN * DHP * 2;   // one K or V tile
+  static constexpr int TILE_BYTES = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int BAR_BYTES = 8 * (1 + 3 * STAGES);
+  // the tiles from the first 1024-byte boundary, the barriers before it
+  // when they fit there and after the tiles when not: 1024 bytes of slack
+  // cover both (at dh 128 two blocks of three stages fill an SM's 228 KB)
+  static constexpr int SMEM = 1024 + TILE_BYTES;
+  static_assert(BAR_BYTES <= 512, "barriers fit the slack");
+  static_assert(BN == 64 || BN == 128, "the wgmma_ss widths");
+};
 
-// Copies rows [row0, row0 + ROWS) of a (rows, DH) matrix with row stride
-// `stride` into a padded tile, zero from row `limit` on.
-template <typename T, int DH, int ROWS>
-__device__ __forceinline__ void load_rows(T* dst, const T* src,
-                                          long long stride, int row0,
-                                          int limit, int tid) {
-  constexpr int CH = DH / 8;           // 16-byte chunks a row
-  static_assert(ROWS * CH % MNT == 0, "whole chunks a thread");
+// A thread's scores in log2 units (softcapped with CAP); with EDGE, keys
+// past Sk are -inf and hidden keys NEG_INF.  mx: the row maxima.
+template <int MODE, bool EDGE, bool CAP, int N>
+__device__ __forceinline__ void scores_log2(float (&sc)[N], const Args& a,
+                                            bool causal, int window, int k0,
+                                            int i0, int qd, float (&mx)[2]) {
+  const int diag = a.Sk - a.Sq;
 #pragma unroll
-  for (int i = 0; i < ROWS * CH / MNT; ++i) {
-    const int c = tid + i * MNT;
-    const int r = c / CH, col = (c % CH) * 8;
-    const bool in = row0 + r < limit;
-    tc::cp_async16(dst + r * (DH + 8) + col,
-                   in ? src + (row0 + r) * stride + col : src, in ? 16 : 0);
+  for (int j = 0; j < N / 4; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float x = sc[4 * j + r] * a.qk_scale;
+      if (CAP) x = a.cap_log2 * tanhf(x);
+      if (EDGE) {
+        const int key = k0 + 8 * j + 2 * qd + (r & 1);
+        if (key >= a.Sk)
+          x = -INFINITY;
+        else if (MODE != FULL &&
+                 hidden(causal, window, i0 + (r >> 1) * 8, key, diag))
+          x = NEG_INF;
+      }
+      sc[4 * j + r] = x;
+      mx[r >> 1] = fmaxf(mx[r >> 1], x);
+    }
   }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(MNT) flash_fwd_mma(Args a, int q_tiles,
-                                                     int first_wave) {
-  constexpr int LD = DH + 8;           // padded row, elements
-  constexpr int KS = DH / 16;          // k16 steps of Q K^T, n16 pairs of P V
-  constexpr int MK = KEYS_PER_TILE(DH);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);   // [MQ][LD]
-  T* sK = sQ + MQ * LD;                     // [2][MK][LD]
-  T* sV = sK + 2 * MK * LD;                 // [2][MK][LD]
+// One k tile's online-softmax step for a consumer warpgroup's 64 rows
+// (from qc; this thread's rows i0 and i0 + 8): the scores to log2 units,
+// masked only on a tile that crosses an edge (the ragged tail, the
+// diagonal or the window's left edge), the running max and sum updated;
+// sc becomes P in f32 (l sums it unrounded).  alpha: the factor that
+// rescales the rows' earlier output.
+template <int MODE, int N>
+__device__ __forceinline__ void softmax_step(float (&sc)[N], const Args& a,
+                                             bool causal, int window, int k0,
+                                             int qc, int i0, int qd,
+                                             float (&m_row)[2],
+                                             float (&l_row)[2],
+                                             float (&alpha)[2]) {
+  const int diag = a.Sk - a.Sq, keys = 2 * N;
+  bool edge = k0 + keys > a.Sk;
+  if (MODE != FULL)
+    edge = edge || (causal && (k0 + keys - 1 > qc + diag ||
+                               (window > 0 && k0 <= qc + 63 + diag - window)));
+  float mx[2] = {-INFINITY, -INFINITY};
+  // uniform branches, each to a loop without per-score tests
+  if (MODE == GENERAL && a.cap_log2 > 0.f) {
+    if (edge)
+      scores_log2<MODE, true, true>(sc, a, causal, window, k0, i0, qd, mx);
+    else
+      scores_log2<MODE, false, true>(sc, a, causal, window, k0, i0, qd, mx);
+  } else {
+    if (edge)
+      scores_log2<MODE, true, false>(sc, a, causal, window, k0, i0, qd, mx);
+    else
+      scores_log2<MODE, false, false>(sc, a, causal, window, k0, i0, qd, mx);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {     // a row's four lanes share a quad
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    const float m_new = fmaxf(m_row[hh], mx[hh]);
+    alpha[hh] = exp2f(m_row[hh] - m_new);
+    m_row[hh] = m_new;
+    l_row[hh] *= alpha[hh];
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const float p = exp2f(sc[n] - m_row[(n >> 1) & 1]);
+    l_row[(n >> 1) & 1] += p;
+    sc[n] = p;
+  }
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // Work items run from the heaviest (the last q tile of every head) to
-  // the lightest.  The first block an SM takes the heaviest ones; the
-  // blocks after them take the lightest first, so an SM that holds two
-  // blocks pairs a heavy item with a light one.
+// P rounded to q's type as the A operand of P V: the n8 blocks 2 kk and
+// 2 kk + 1 of S are k16 step kk.
+template <typename T, int N>
+__device__ __forceinline__ void pack_p(const float (&p)[N],
+                                       uint32_t (&pa)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[kk][e] = tc::pack2<T>(p[8 * kk + 2 * e], p[8 * kk + 2 * e + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) o[n] *= alpha[(n >> 1) & 1];
+}
+
+// Issues (and commits) S = Q K^T over the K tile in stage s: Q and K both
+// K-major in shared memory, one k16 step a wgmma.
+template <typename T, int DHP>
+__device__ __forceinline__ void issue_qk(float (&sc)[Tiles<DHP>::BN / 2],
+                                         uint64_t dq, uint64_t dk, int s) {
+  using C = Tiles<DHP>;
+#pragma unroll
+  for (int kb = 0; kb < DHP / 16; ++kb) {
+    const int cb = kb * 16 / C::SPAN, kin = kb * 16 % C::SPAN;
+    hopper::wgmma_ss<T, C::BN, 0>(
+        sc, dq + ((cb * C::ROWS * C::SPAN + kin) * 2 >> 4),
+        dk + ((s * C::BN * DHP + cb * C::BN * C::SPAN + kin) * 2 >> 4),
+        kb > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// Issues (and commits) O += P V over the V tile in stage s: P from
+// registers, V MN-major in shared memory (trans-b), n = DHP.
+template <typename T, int DHP>
+__device__ __forceinline__ void issue_pv(
+    float (&o)[DHP / 2], const uint32_t (&pa)[Tiles<DHP>::BN / 16][4],
+    uint64_t dv, int s) {
+  using C = Tiles<DHP>;
+#pragma unroll
+  for (int kk = 0; kk < C::BN / 16; ++kk)
+    hopper::wgmma_rs<T, DHP, 1>(
+        o, pa[kk], dv + ((s * C::BN * DHP + kk * 16 * C::SPAN) * 2 >> 4), 1);
+  hopper::wgmma_commit();
+}
+
+template <typename T, int DHP, int MODE>
+__global__ void __launch_bounds__(Tiles<DHP>::THREADS, Tiles<DHP>::MIN_BLOCKS)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Args a,
+                    int q_tiles, int first_wave) {
+  using C = Tiles<DHP>;
+  constexpr int SPAN = C::SPAN, CB = C::CB, BN = C::BN, ST = C::STAGES;
+  constexpr int ROWS = C::ROWS;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // column blocks start on 1024 bytes (the 128-byte swizzle's period)
+  const uint32_t pad = (1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023;
+  T* sQ = reinterpret_cast<T*>(smem_raw + pad);   // [CB][ROWS][SPAN]
+  T* sK = sQ + ROWS * DHP;                  // [ST][CB][BN][SPAN]
+  T* sV = sK + ST * BN * DHP;               // [ST][CB][BN][SPAN]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(
+      pad >= C::BAR_BYTES ? smem_raw : smem_raw + pad + C::TILE_BYTES);
+  uint64_t* k_full = q_full + 1;            // [ST]
+  uint64_t* v_full = k_full + ST;           // [ST]
+  uint64_t* empty = v_full + ST;            // [ST]
+
+  // Blocks take (batch, head, q tile) items from the heaviest (the last q
+  // tile of every head) to the lightest; the blocks past the first wave
+  // take the lightest first, so an SM's second block pairs light with
+  // heavy.
   int item = blockIdx.x;
-  if (item >= first_wave)
-    item = gridDim.x - 1 - (item - first_wave);
+  if (item >= first_wave) item = gridDim.x - 1 - (item - first_wave);
   const int BH = a.B * a.H;
   const int h = item % a.H, b = (item / a.H) % a.B;
-  const int q0 = (q_tiles - 1 - item / BH) * MQ;
+  const int q0 = (q_tiles - 1 - item / BH) * ROWS;
   const int kvh = h / (a.H / a.KV);
-  const T* qp = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[1];
-  const T* kp = static_cast<const T*>(a.k) + b * a.ks[0] + kvh * a.ks[1];
-  const T* vp = static_cast<const T*>(a.v) + b * a.vs[0] + kvh * a.vs[1];
-  T* op = static_cast<T*>(a.o) + b * a.os[0] + h * a.os[1];
-  const int diag = a.Sk - a.Sq;         // j visible to i iff j <= i + diag
+  const bool causal = MODE == CAUSAL || (MODE == GENERAL && a.causal);
+  const int window = MODE == GENERAL ? a.window : 0;
+  int t_first, t_end;                       // the k tiles it reads
+  k_tiles(a.Sq, a.Sk, causal, window, q0, ROWS, BN, t_first, t_end);
 
-  int t_first, t_end;
-  k_tiles(a, q0, MQ, MK, t_first, t_end);
-
-  load_rows<T, DH, MQ>(sQ, qp, a.qs[2], q0, a.Sq, tid);
-  tc::cp_async_commit();
-  load_rows<T, DH, MK>(sK, kp, a.ks[2], t_first * MK, a.Sk, tid);
-  load_rows<T, DH, MK>(sV, vp, a.vs[2], t_first * MK, a.Sk, tid);
-  tc::cp_async_commit();
-
-  // ldmatrix lane offsets.  A fragments (Q) and V (transposed): rows
-  // (l % 8) + 8 ((l / 8) % 2), columns 8 (l / 16).  K: keys (l % 8) +
-  // 8 (l / 16), columns 8 ((l / 8) % 2).
-  const int ar = (lane & 7) + ((lane >> 3) & 1) * 8, ac = (lane >> 4) * 8;
-  const int kr = (lane & 7) + (lane >> 4) * 8, kc = ((lane >> 3) & 1) * 8;
-  const int g = lane >> 2, qd = lane & 3;
-  const int i0 = q0 + warp * 16 + g;    // this lane's rows: i0 and i0 + 8
-
-  // Q fragments, held in registers over the whole k loop up to dh 128
-  constexpr bool QREG = DH <= 128;     // dh 256: O alone is 128 registers
-  tc::cp_async_wait<1>();
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(k_full + s, 1);
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(empty + s, 4);       // each consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
-  uint32_t qf[QREG ? KS : 1][4];
-  if constexpr (QREG) {
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      tc::ldmatrix_x4(qf[ks], sQ + (warp * 16 + ar) * LD + ks * 16 + ac);
+  // a tile's stage and the parity of its fill
+  auto stage = [&](int t) { return (t - t_first) % ST; };
+  auto parity = [&](int t) {
+    return static_cast<uint32_t>(((t - t_first) / ST) & 1);
+  };
+
+  // the warp, broadcast from lane 0 so the compiler sees it uniform
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x & 31;
+  if (warp == 4) {
+    // Producer warp: one thread keeps TMA loads of the K and V tiles in
+    // flight, STAGES ahead of the consumers.
+    if (lane == 0) {
+      hopper::prefetch_map(&tq);
+      hopper::prefetch_map(&tk);
+      hopper::prefetch_map(&tv);
+      hopper::mbar_arrive_expect_tx(q_full, C::Q_BYTES);
+      for (int cb = 0; cb < CB; ++cb)
+        hopper::tma_load(sQ + cb * ROWS * SPAN, &tq, q_full, cb * SPAN, q0,
+                         h, b);
+      for (int t = t_first; t < t_end; ++t) {
+        const int s = stage(t);
+        hopper::mbar_wait(empty + s, parity(t) ^ 1);
+        hopper::mbar_arrive_expect_tx(k_full + s, C::KV_BYTES);
+        for (int cb = 0; cb < CB; ++cb)
+          hopper::tma_load(sK + (s * CB + cb) * BN * SPAN, &tk, k_full + s,
+                           cb * SPAN, t * BN, kvh, b);
+        hopper::mbar_arrive_expect_tx(v_full + s, C::KV_BYTES);
+        for (int cb = 0; cb < CB; ++cb)
+          hopper::tma_load(sV + (s * CB + cb) * BN * SPAN, &tv, v_full + s,
+                           cb * SPAN, t * BN, kvh, b);
+      }
+    }
+    return;
   }
 
-  float o[DH / 8][4];
+  // The consumer warpgroup: query rows q0 .. q0 + 63, this thread's i0 and
+  // i0 + 8.
+  const int qd = lane & 3;
+  const int i0 = q0 + 16 * warp + (lane >> 2);
+  auto release = [&](int t) {         // this warp is done with tile t
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty + stage(t));
+  };
+  constexpr uint32_t SBO = 8 * SPAN * 2;        // 8 rows of one span
+  const uint64_t dq = hopper::smem_desc(sQ, 0, SBO, SPAN * 2);
+  const uint64_t dk = hopper::smem_desc(sK, 0, SBO, SPAN * 2);
+  const uint64_t dv = hopper::smem_desc(sV, BN * SPAN * 2, SBO, SPAN * 2);
+  float o[DHP / 2];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) o[n][r] = 0.f;
-  float m_row[2] = {NEG_INF, NEG_INF}, l_row[2] = {0.f, 0.f};
+  for (int n = 0; n < DHP / 2; ++n) o[n] = 0.f;
+  float m_row[2] = {NEG_INF, NEG_INF}, l_row[2] = {0.f, 0.f}, alpha[2];
+  uint32_t pa[BN / 16][4];
+  hopper::mbar_wait(q_full, 0);
 
-  for (int t = t_first; t < t_end; ++t) {
-    const int buf = (t - t_first) & 1;
-    if (t + 1 < t_end) {
-      load_rows<T, DH, MK>(sK + (buf ^ 1) * MK * LD, kp, a.ks[2],
-                           (t + 1) * MK, a.Sk, tid);
-      load_rows<T, DH, MK>(sV + (buf ^ 1) * MK * LD, vp, a.vs[2],
-                           (t + 1) * MK, a.Sk, tid);
-    }
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();
-    __syncthreads();                    // tile t landed
-    const T* kb = sK + buf * MK * LD;
-    const T* vb = sV + buf * MK * LD;
-
-    float s[MK / 8][4];
-#pragma unroll
-    for (int j = 0; j < MK / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qk[4];
-      if constexpr (QREG) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) qk[e] = qf[ks][e];
-      } else {
-        tc::ldmatrix_x4(qk, sQ + (warp * 16 + ar) * LD + ks * 16 + ac);
-      }
-#pragma unroll
-      for (int np = 0; np < MK / 16; ++np) {
-        uint32_t bk[4];
-        tc::ldmatrix_x4(bk, kb + (np * 16 + kr) * LD + ks * 16 + kc);
-        tc::mma16816<T>(s[2 * np], qk, bk[0], bk[1]);
-        tc::mma16816<T>(s[2 * np + 1], qk, bk[2], bk[3]);
-      }
-    }
-
-    // Scores in log2 units (softcapped); mask only the tiles that cross an
-    // edge: the ragged tail, the diagonal or the window's left edge.
-    const int k0 = t * MK;
-    const bool edge =
-        k0 + MK > a.Sk ||
-        (a.causal && (k0 + MK - 1 > q0 + diag ||
-                      (a.window > 0 && k0 <= q0 + MQ - 1 + diag - a.window)));
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < MK / 8; ++j) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float x = score_log2(s[j][r], a);
-        if (edge) {
-          const int key = k0 + j * 8 + 2 * qd + (r & 1);
-          if (key >= a.Sk)
-            x = -INFINITY;
-          else if (hidden(a, i0 + (r >> 1) * 8, key, diag))
-            x = NEG_INF;
-        }
-        s[j][r] = x;
-        mx[r >> 1] = fmaxf(mx[r >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {   // a row's four lanes share a quad
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-      const float m_new = fmaxf(m_row[hh], mx[hh]);
-      alpha[hh] = exp2f(m_row[hh] - m_new);
-      m_row[hh] = m_new;
-      l_row[hh] *= alpha[hh];
-    }
-#pragma unroll
-    for (int j = 0; j < MK / 8; ++j) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p = exp2f(s[j][r] - m_row[r >> 1]);
-        s[j][r] = p;
-        l_row[r >> 1] += p;             // this lane's part, in f32
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V: two n8 tiles of S are one k16 A fragment of P.
-#pragma unroll
-    for (int kk = 0; kk < MK / 16; ++kk) {
-      const uint32_t pa[4] = {tc::pack2<T>(s[2 * kk][0], s[2 * kk][1]),
-                              tc::pack2<T>(s[2 * kk][2], s[2 * kk][3]),
-                              tc::pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              tc::pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < KS; ++dp) {
-        uint32_t bv[4];
-        tc::ldmatrix_x4_trans(bv, vb + (kk * 16 + ar) * LD + dp * 16 + ac);
-        tc::mma16816<T>(o[2 * dp], pa, bv[0], bv[1]);
-        tc::mma16816<T>(o[2 * dp + 1], pa, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();                    // buffer buf is free for tile t + 2
+  {   // the first tile: S, its softmax step, P (O is still 0)
+    float sc[BN / 2];
+    hopper::mbar_wait(k_full + stage(t_first), parity(t_first));
+    __syncwarp();
+    hopper::wgmma_fence();
+    issue_qk<T, DHP>(sc, dq, dk, stage(t_first));
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    softmax_step<MODE>(sc, a, causal, window, t_first * BN, q0, i0, qd,
+                       m_row, l_row, alpha);
+    pack_p<T>(sc, pa);
   }
-  tc::cp_async_wait<0>();
+  // Each later tile: S of tile t is issued beside P V of tile t - 1, and
+  // t's softmax step runs while that P V does (FlashAttention-3's overlap
+  // within a warpgroup); O is rescaled once P V is done.
+  for (int t = t_first + 1; t < t_end; ++t) {
+    float sc[BN / 2];
+    hopper::mbar_wait(k_full + stage(t), parity(t));
+    hopper::mbar_wait(v_full + stage(t - 1), parity(t - 1));
+    __syncwarp();
+    hopper::wgmma_fence();
+    issue_qk<T, DHP>(sc, dq, dk, stage(t));
+    issue_pv<T, DHP>(o, pa, dv, stage(t - 1));
+    hopper::wgmma_wait<1>();                      // S of tile t
+    hopper::fence_regs(sc);
+    softmax_step<MODE>(sc, a, causal, window, t * BN, q0, i0, qd, m_row,
+                       l_row, alpha);
+    hopper::wgmma_wait<0>();                      // P V of tile t - 1
+    hopper::fence_regs(o);
+    release(t - 1);
+    rescale(o, alpha);
+    pack_p<T>(sc, pa);
+  }
+  hopper::mbar_wait(v_full + stage(t_end - 1), parity(t_end - 1));
+  __syncwarp();
+  hopper::wgmma_fence();
+  issue_pv<T, DHP>(o, pa, dv, stage(t_end - 1));
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(o);
 
+  T* op = static_cast<T*>(a.o) + b * a.os[0] + h * a.os[1];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float l = l_row[hh];
@@ -527,39 +643,90 @@ __global__ void __launch_bounds__(MNT) flash_fwd_mma(Args a, int q_tiles,
     if (i >= a.Sq) continue;
     T* row = op + i * a.os[2];
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * qd) =
-          tc::pack2<T>(o[n][2 * hh] / den, o[n][2 * hh + 1] / den);
+    for (int n = 0; n < DHP / 8; ++n)
+      if (8 * n < a.dh)
+        *reinterpret_cast<uint32_t*>(row + 8 * n + 2 * qd) = tc::pack2<T>(
+            o[4 * n + 2 * hh] / den, o[4 * n + 2 * hh + 1] / den);
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  constexpr int smem = mma_smem_bytes<DH>();
+// The tensor map of q, k or v: dims (dh, seq, heads, batch), innermost
+// first, with the view's own byte strides of seq, heads and batch (element
+// strides st: batch, head, seq).  An axis of size 1 is never stepped, so
+// it takes a row's bytes whatever the view says.  A stride TMA cannot
+// take (not a positive multiple of 16 bytes below 2^40) is refused;
+// kernels/flash_attention.py tensor_map_geometry computes the same and
+// names it.
+inline cudaError_t encode_operand(CUtensorMap* map, bool bf16,
+                                  const void* ptr, int dh, int seq,
+                                  int heads, int B, const long long* st,
+                                  const uint32_t* box) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(dh),
+                            static_cast<uint64_t>(seq),
+                            static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(B)};
+  const long long steps[3] = {st[2], st[1], st[0]};
+  uint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    const long long bytes = steps[i] * 2;
+    if (dims[i + 1] == 1)
+      strides[i] = 2ull * dh;
+    else if (bytes <= 0 || bytes % 16 || bytes >= (1ll << 40))
+      return cudaErrorInvalidValue;
+    else
+      strides[i] = static_cast<uint64_t>(bytes);
+  }
+  return hopper::encode_map16(map, bf16, 4, ptr, dims, strides, box);
+}
+
+template <typename T, int DHP, int MODE>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
+  using C = Tiles<DHP>;
+  auto kernel = flash_fwd_wgmma<T, DHP, MODE>;
   static unsigned long long smem_set = 0;
-  const cudaError_t e = tc::allow_smem(flash_fwd_mma<T, DH>, smem, smem_set);
+  cudaError_t e = tc::allow_smem(kernel, C::SMEM, smem_set);
+  if (e != cudaSuccess) return e;
+  const bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  const uint32_t q_box[4] = {C::SPAN, C::ROWS, 1, 1};
+  const uint32_t kv_box[4] = {C::SPAN, C::BN, 1, 1};
+  CUtensorMap maps[3];
+  e = encode_operand(&maps[0], bf16, a.q, a.dh, a.Sq, a.H, a.B, a.qs, q_box);
+  if (e == cudaSuccess)
+    e = encode_operand(&maps[1], bf16, a.k, a.dh, a.Sk, a.KV, a.B, a.ks,
+                       kv_box);
+  if (e == cudaSuccess)
+    e = encode_operand(&maps[2], bf16, a.v, a.dh, a.Sk, a.KV, a.B, a.vs,
+                       kv_box);
   if (e != cudaSuccess) return e;
   int sms = 0;
-  const cudaError_t e2 = tc::sm_count(&sms);
-  if (e2 != cudaSuccess) return e2;
-  const int q_tiles = (a.Sq + MQ - 1) / MQ;
+  e = tc::sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  const int q_tiles = (a.Sq + C::ROWS - 1) / C::ROWS;
   const long long blocks = (long long)q_tiles * a.B * a.H;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_fwd_mma<T, DH><<<static_cast<unsigned>(blocks), MNT, smem, stream>>>(
-      a, q_tiles, sms);
+  kernel<<<static_cast<unsigned>(blocks), C::THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], a, q_tiles, sms);
   return cudaGetLastError();
 }
 
+template <typename T, int DHP>
+cudaError_t launch_mode(const Args& a, cudaStream_t stream) {
+  if (a.cap_log2 == 0.f && a.window == 0)
+    return a.causal ? launch_wgmma<T, DHP, CAUSAL>(a, stream)
+                    : launch_wgmma<T, DHP, FULL>(a, stream);
+  return launch_wgmma<T, DHP, GENERAL>(a, stream);
+}
+
 template <typename T>
-cudaError_t launch_mma_dh(const Args& a, int dh, cudaStream_t stream) {
-  switch (dh) {
-    case 16: return launch_mma<T, 16>(a, stream);
-    case 32: return launch_mma<T, 32>(a, stream);
-    case 64: return launch_mma<T, 64>(a, stream);
-    case 80: return launch_mma<T, 80>(a, stream);   // zamba2's shared attention
-    case 112: return launch_mma<T, 112>(a, stream);  // kimi-k2
-    case 128: return launch_mma<T, 128>(a, stream);
-    case 256: return launch_mma<T, 256>(a, stream);  // gemma2
+cudaError_t launch_wgmma_dh(const Args& a, cudaStream_t stream) {
+  switch (a.dh) {
+    case 16: return launch_mode<T, 16>(a, stream);
+    case 32: return launch_mode<T, 32>(a, stream);
+    case 64: return launch_mode<T, 64>(a, stream);
+    case 80:                                   // zamba2's shared attention
+    case 112:                                  // kimi-k2
+    case 128: return launch_mode<T, 128>(a, stream);
+    case 256: return launch_mode<T, 256>(a, stream);   // gemma2
     default: return cudaErrorInvalidValue;
   }
 }
@@ -618,6 +785,7 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
   a.KV = KV;
   a.Sq = Sq;
   a.Sk = Sk;
+  a.dh = dh;
   for (int i = 0; i < 3; ++i) {
     a.qs[i] = strides[i];
     a.ks[i] = strides[3 + i];
@@ -629,10 +797,8 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
   a.causal = causal;
   a.window = causal ? window : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_dh<float>(a, B, dh, s);
-    case 1: return launch_mma_dh<__half>(a, dh, s);
-    case 2: return launch_mma_dh<__nv_bfloat16>(a, dh, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (dtype == 0) return launch_dh<float>(a, B, dh, s);
+  if (dtype != 1 && dtype != 2) return cudaErrorInvalidValue;
+  return dtype == 1 ? launch_wgmma_dh<__half>(a, s)
+                    : launch_wgmma_dh<__nv_bfloat16>(a, s);
 }

@@ -16,8 +16,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -157,38 +158,50 @@ def library_path(name: str) -> Path:
 
 
 def _start(name: str):
-    """Start nvcc for one kernel; returns (popen, tmp, final, log) or None
-    when the library is already built."""
+    """Start nvcc for one kernel, its output going to the log; returns
+    (popen, tmp, final, log, start time) or None when the library is
+    already built."""
     so = library_path(name)
     if so.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    log = so.with_suffix(".log")
+    log = so.with_suffix(f".{os.getpid()}.log")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, so, log
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+    return proc, tmp, so, log, time.perf_counter()
 
 
-def _finish(name: str, started) -> str:
+def _finish(name: str, started) -> Tuple[str, float]:
+    """Wait for nvcc; returns (its output, seconds from its start to its
+    end), ("", 0.0) when nothing was built."""
     if started is None:
-        return ""
-    proc, tmp, so, log = started
-    out, _ = proc.communicate()
-    log.write_text(out)
+        return "", 0.0
+    proc, tmp, so, log, t0 = started
+    proc.wait()
+    seconds = time.perf_counter() - t0
+    out = log.read_text()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n{out}")
     os.replace(tmp, so)          # atomic: a concurrent loader sees all or none
-    return out
+    return out, seconds
 
 
-def build_all() -> Dict[str, str]:
-    """Compile every kernel concurrently, one nvcc per source; returns the
-    compiler's output (register and shared-memory use) per kernel."""
+def build_all() -> Dict[str, Tuple[str, float]]:
+    """Compile every kernel concurrently, one nvcc per source; returns per
+    kernel the compiler's output (register and shared-memory use) and the
+    seconds its nvcc took."""
     started = {n: _start(n) for n in SIGNATURES}
-    return {n: _finish(n, s) for n, s in started.items()}
+    pending, done = dict(started), {}
+    while pending:               # finish each as it ends, for its own time
+        for n, s in list(pending.items()):
+            if s is None or s[0].poll() is not None:
+                done[n] = _finish(n, s)
+                del pending[n]
+        time.sleep(0.05)
+    return {n: done[n] for n in SIGNATURES}
 
 
 def load(name: str) -> ctypes.CDLL:

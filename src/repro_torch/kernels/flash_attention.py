@@ -17,16 +17,22 @@ and head dims 112 (kimi-k2) and 256 (gemma2).
 What bounds it on an H100: at phi4-mini prefill shapes (B=1, H=24, KV=8,
 S=512, dh=128, bf16) the inputs and output are 8.4 MB against 1.6 GFLOP of
 causal work, so the floor is memory traffic (2.5 us at 3.35 TB/s), not the
-tensor cores (1.6 us at 989 TFLOP/s).  The design reads q, k and v in place
-through their strides (no repeat of KV heads, no transpose copy), keeps
-scores and probabilities on chip (registers; shared memory in f32) and
-never writes them out, and skips k tiles above the causal diagonal.  In
-f16/bf16 it is FlashAttention-2 on the tensor cores: ``mma.sync`` for
-Q K^T and P V, K/V tiles double-buffered by ``cp.async``, P rounded to q's
-dtype before P V (as the JAX model rounds its probabilities,
-``models/attention.py``), row statistics and the final rescale in f32.
-f32 keeps the first port's CUDA-core kernel: TF32 products would not hold
-its tolerance.
+tensor cores (1.6 us at 989 TFLOP/s); what the kernel takes beyond it at
+512 tokens is the latency of one q tile's chain of k tiles.  At gemma2's
+5120 tokens (dh 256) the floor is the 0.2 ms of tensor-core work.  The
+design reads q, k and v in place through their strides (no repeat of KV
+heads, no transpose copy), keeps scores and probabilities in registers and
+never writes them out, and skips k tiles above the causal diagonal and left
+of a window.  In f16/bf16 it is FlashAttention-3's structure on Hopper's
+own instructions: TMA loads through tensor maps over each view's strides
+(``tensor_map_geometry``) into a ring of shared-memory stages completed on
+mbarriers, one producer warp apart from the consumer warpgroup, ``wgmma``
+for Q K^T and P V (P rounded to q's dtype in registers, as the JAX model
+rounds its probabilities, ``models/attention.py``), f32 row statistics and
+accumulators, S of one tile overlapped with P V of the last, and the mask
+mode (causal, non-causal, or window/softcap at runtime) compiled in.  f32
+keeps the first port's CUDA-core kernel: TF32 products would not hold its
+tolerance.
 
 Differences from the Pallas kernel, on purpose:
   * GQA is native: k/v are (B, KV, Sk, dh) with KV dividing H, and query
@@ -81,6 +87,40 @@ def _check_features(window, softcap):
         raise ValueError(f"softcap {softcap!r}: a positive float or None")
 
 
+def tensor_map_geometry(shape, strides, itemsize: int, name: str = "x"):
+    """The TMA tensor map of one f16/bf16 operand as the C side encodes it
+    from the strides it is given (``csrc/flash_attention.cu``
+    ``encode_operand``): ``(dims, byte_strides)``.
+
+    ``shape`` is (B, heads, seq, dh) and ``strides`` its element strides
+    (any view whose dh is contiguous, such as a transpose of a (B, S, H,
+    dh) projection).  ``dims`` runs innermost first, (dh, seq, heads, B);
+    ``byte_strides`` are those of seq, heads and B.  An axis of size 1 is
+    never stepped, so it takes dh's row bytes as its stride whatever the
+    view says.  Raises ``ValueError`` naming the stride TMA cannot take:
+    dh not contiguous, or a stride that is not a positive multiple of 16
+    bytes below 2^40.  The wrapper calls it only to name the stride of a
+    launch the C side refused."""
+    B, heads, seq, dh = (int(n) for n in shape)
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+    if int(strides[3]) != 1:
+        raise ValueError(f"{name}.stride(3) is {strides[3]}: the head dim "
+                         f"must be contiguous")
+    byte_strides = []
+    for axis, size in ((2, seq), (1, heads), (0, B)):
+        step = int(strides[axis]) * itemsize
+        if size == 1:
+            step = dh * itemsize
+        elif step <= 0 or step % 16 or step >= 1 << 40:
+            raise ValueError(f"{name}.stride({axis}) is {strides[axis]} "
+                             f"elements ({step} bytes): a TMA tensor map "
+                             f"takes positive multiples of 16 bytes below "
+                             f"2^40")
+        byte_strides.append(step)
+    return (dh, seq, heads, B), tuple(byte_strides)
+
+
 def attention_plain(q, k, v, *, causal: bool = True, scale=None,
                     window=None, softcap=None):
     """The kernel's plain version: the oracle (``ref.attention_ref``) with
@@ -123,9 +163,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The inputs may be strided views (e.g. ``x.transpose(1, 2)`` of a
     (B,S,H,dh) projection) as long as dh is contiguous, and in f16/bf16
-    their rows start on 16 bytes (``ValueError`` otherwise, naming the
-    stride).  On CUDA the result is a (B,H,Sq,dh) view of a (B,Sq,H,dh)
-    buffer, so transposing it back to the model layout costs no copy.
+    their rows start on 16 bytes and their strides suit a TMA tensor map
+    (``ValueError`` otherwise, naming the stride).  On CUDA the result is
+    a (B,H,Sq,dh) view of a (B,Sq,H,dh) buffer, so transposing it back to
+    the model layout costs no copy.
     """
     global launches
     _check(q, k, v)
@@ -161,6 +202,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             scale, int(causal), int(window or 0) if causal else 0,
             float(softcap or 0.0), stream)
     if rc != 0:
+        if q.dtype != torch.float32:   # name a stride the tensor maps refused
+            for name, t in (("q", q), ("k", k), ("v", v)):
+                tensor_map_geometry(t.shape, t.stride(), t.element_size(),
+                                    name)
         raise RuntimeError(f"flash attention launch failed: CUDA error {rc}")
     with _launches_lock:
         launches += 1

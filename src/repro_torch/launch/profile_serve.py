@@ -11,17 +11,21 @@ recurrent-state, encoder-decoder and VLM families; ``--layers`` cuts the
 depth, which the 100-layer VLM needs to fit one card), runs one untimed
 prefill and decode step, then times one B=1 prefill of ``PROMPT`` tokens
 (whisper's engine pads it to ``decoder_len - GEN``) and ``STEPS`` fused
-decode steps under ``torch.profiler``.  For each phase it prints one JSON line:
-host wall time, device busy time (the union of kernel intervals), the
-device's idle share of the window, the kernel count, the time of each of
-the port's own kernels (flash, SSD, WKV6, gmm) and their share of busy
-time, and the top kernels by device time, after the profiler's table for
-the phase.  Needs a CUDA card.
+decode steps, first ``REPEATS`` times each without the profiler (the wall
+a user feels; the profiler adds its own host time), then once under
+``torch.profiler``.  For each phase it prints one JSON line: the
+unprofiled walls and their median, the profiled host wall time, device
+busy time (the union of kernel intervals), the device's idle share of the
+window, the kernel count, the time of each of the port's own kernels
+(flash, SSD, WKV6, gmm) and their share of busy time, and the top kernels
+by device time, after the profiler's table for the phase.  Needs a CUDA
+card.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import time
 from collections import defaultdict
@@ -35,8 +39,9 @@ from repro_torch.runtime import steps as steps_mod
 from repro_torch.serving.engine import ServingEngine
 
 PROMPT, GEN, SLOTS, STEPS, SEED, BLOCK = 512, 64, 4, 8, 0, 16
+REPEATS = 10          # unprofiled runs of each phase
 # the port's kernels, by a part of their CUDA functions' names: flash_fwd
-# matches flash_fwd_mma (f16/bf16) and flash_fwd (f32); gmm_fwd matches
+# matches flash_fwd_wgmma (f16/bf16) and flash_fwd (f32); gmm_fwd matches
 # gmm_fwd_mma and gmm_fwd_gemv (f16/bf16, C above 8 and up to 8) and
 # gmm_fwd (f32)
 OWN_KERNELS = {"flash": "flash_fwd", "ssd": "ssd_fwd", "wkv6": "wkv_fwd",
@@ -65,7 +70,20 @@ def _kernel_stats(prof) -> tuple[float, dict]:
     return busy, by_name
 
 
+def _walls(fn) -> list[float]:
+    """Wall ms of ``REPEATS`` unprofiled runs of fn, each synchronized."""
+    runs = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return runs
+
+
 def _phase(name: str, fn) -> dict:
+    walls = _walls(fn)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
@@ -77,7 +95,8 @@ def _phase(name: str, fn) -> dict:
     own = {k: sum(v for n, v in by_name.items() if fn in n) / 1e3
            for k, fn in OWN_KERNELS.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    row = {"phase": name, "wall_ms": wall_us / 1e3,
+    row = {"phase": name, "unprofiled_wall_ms": statistics.median(walls),
+           "unprofiled_walls_ms": walls, "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy_us / 1e3,
            "device_idle_share": 1.0 - busy_us / wall_us,
            "kernels": len([e for e in prof.events()

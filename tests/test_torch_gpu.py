@@ -157,6 +157,69 @@ def test_flash_window_softcap_and_cross_match_plain(B, H, KV, Sq, Sk, dh,
     assert (got.float() - want.float()).abs().max().item() <= tol * scale
 
 
+def _cut_views(B, H, KV, Sq, Sk, dh, dt, seed):
+    """q, k, v as the models pass them: transposes of (B, S, heads, dh)
+    views, here cut from (B, S + 3, heads, dh) buffers so the batch
+    stride is not heads * S * dh."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for n, S in ((H, Sq), (KV, Sk), (KV, Sk)):
+        buf = torch.as_tensor(rng.standard_normal((B, S + 3, n, dh))
+                              .astype(np.float32)).to("cuda", dt)
+        out.append(buf[:, :S].transpose(1, 2))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("mode,B,H,KV,Sq,Sk,window,cap", [
+    ("causal", 1, 8, 2, 200, 200, None, None),
+    ("full", 2, 4, 2, 130, 330, None, None),
+    ("general", 1, 8, 4, 150, 270, 96, 30.0),
+])
+def test_flash_each_mask_mode_and_head_dim_on_model_views(
+        mode, B, H, KV, Sq, Sk, window, cap, dh, dtype):
+    """Each instantiation of the f16/bf16 kernel (mask mode x head dim x
+    type) on the models' transposed views, through TMA tensor maps over
+    their strides, Sq and Sk not multiples of 64 (q scaled by 4 under the
+    softcap).  Each query row is held to 2e-2 of its own scale (its
+    largest |output|, at least 1/16): a row that averages a hundred keys
+    has outputs near 0.1, so one scale for the whole tensor would let an
+    off-by-one in the mask or the window pass there."""
+    _card()
+    dt = getattr(torch, dtype)
+    q, k, v = _cut_views(B, H, KV, Sq, Sk, dh, dt, seed=Sq + Sk + dh)
+    assert q.stride(0) != H * Sq * dh and q.stride(2) == H * dh
+    if cap is not None:
+        q = (q.transpose(1, 2) * 4).transpose(1, 2)   # keeps the layout
+    causal = mode != "full"
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.dtype == dt
+    want = fa.attention_plain(q, k, v, causal=causal, window=window,
+                              softcap=cap).float()
+    row_scale = want.abs().amax(-1, keepdim=True).clamp_min(1 / 16)
+    assert ((got.float() - want).abs() / row_scale).max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+def test_flash_refuses_a_stride_its_tensor_maps_cannot_take():
+    """k and v broadcast over their heads (an expanded axis of stride 0,
+    which the 16-byte check lets through): the tensor maps refuse it, the
+    wrapper names the stride and nothing launches."""
+    _card()
+    q, k, v = (torch.as_tensor(x).to("cuda", torch.bfloat16)
+               for x in _qkv(1, 4, 1, 64, 64, 64, seed=3))
+    k, v = k.expand(1, 4, 64, 64), v.expand(1, 4, 64, 64)
+    before = fa.launches
+    with pytest.raises(ValueError, match=r"k\.stride\(1\) is 0 elements"):
+        fa.flash_attention(q, k, v)
+    assert fa.launches == before
+
+
 @pytest.mark.gpu
 def test_flash_at_the_static_batchers_b4_prefill():
     """phi4's heads at S 512 with B=4, bf16: the static batcher's prefill."""
