@@ -4,6 +4,8 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. device  — a CUDA card is required; prints its name and power limit;
+               cuBLAS's per-thread workspaces are allocated first, so each
+               takes a segment of its own (see phase_blas_workspaces);
   2. build   — compiles every kernel of the port from ``src/repro_torch/csrc``
                (six sources) with nvcc, all at once, and prints the build
                time, each source's nvcc seconds and each kernel's
@@ -43,15 +45,18 @@ Phases (any failure raises and the script exits non-zero):
                inputs past the L2), the bound's operations at the inputs'
                type's rate; the grouped matmul at
                granite-moe's prefill and decode buckets (f32, f16, bf16),
-               ragged and strided shapes, timed warm (20 launches on one
-               copy) and cold (rotating through copies of x and w that
-               together exceed the 50 MB L2 several times, as a decode
-               step walks 72 distinct weight matrices), torch.bmm alike;
-               then its autograd Function at granite's train buckets (E 32,
-               cap_e 800, bf16): dx and dw against autograd of the plain
-               einsum, three launches for forward and backward, each
-               backward product timed cold and warm (and warm with its
-               transposed-operand copy) beside its bound and torch.bmm;
+               ragged and strided shapes, each without occupied rows and
+               with rows all 0, partial and random (x NaN past the rows,
+               w NaN in the empty experts), timed with full buckets warm
+               (20 launches on one copy) and cold (rotating through copies
+               of x and w that together exceed the 50 MB L2 several times,
+               as a decode step walks 72 distinct weight matrices),
+               torch.bmm alike; then its autograd Function at granite's
+               train buckets (E 32, cap_e 800, bf16): dx and dw against
+               autograd of the plain version, with and without rows,
+               three launches for forward and backward, each backward
+               product timed cold and warm as the kernel reads it (no
+               operand copied) beside its bound and torch.bmm;
                xent also at gemma2's softcapped loss chunk (1024 x 256,000,
                softcap 30);
   4. small   — phi4 smoke config in f32: the card's prefill logits (through
@@ -74,8 +79,11 @@ Phases (any failure raises and the script exits non-zero):
                completes, the prefix cache hits, flash ran on every layer of
                every full prefill and on no decode step, and (granite) the
                grouped matmul ran 3 times a layer in every full prefill and
-               every decode step; then a short run shows paged tokens equal
-               slotted tokens;
+               every decode step, the rows vectors its dispatch passed in
+               one full prefill and one decode step recorded and the
+               first layer's occupancy held and timed (x NaN past the
+               rows, w NaN in the empty experts); then a short run shows
+               paged tokens equal slotted tokens;
   7. serve-ssm — full-width zamba2-2.7b and rwkv6-1.6b in bf16 (random
                weights from a seed) each serve the same 8 requests through
                the slotted cache (their state caches do not page): a
@@ -126,7 +134,11 @@ Phases (any failure raises and the script exits non-zero):
                36.4 GB) with phase 6's mix (paged tokens equal slotted,
                flash once a prefill layer, gmm 3 a layer a step), each gmm
                bucket shape it ran (E 384, C 17 and 1) held against the
-               plain version and timed; the smoke config's loss and grads
+               plain version and timed with full buckets, then at the
+               occupancy its dispatch gave (the rows vectors of one full
+               prefill and one decode step recorded in the serve run; the
+               bound over the occupied experts' weights; torch.bmm and
+               torch._grouped_mm on the occupied rows as yardsticks); the smoke config's loss and grads
                card vs CPU and one int8 + factored update card vs CPU (q
                flips counted); then 2 layers of 64 experts (7.04 B params)
                under its own int8 + factored moments, 6 bf16 steps at lr
@@ -377,6 +389,19 @@ def phase_device() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 means f32 here
     torch.backends.cudnn.allow_tf32 = False
     return smi
+
+
+def phase_blas_workspaces() -> None:
+    """cuBLAS keeps a workspace (32 MiB on an H100) for each thread that
+    calls it: the host thread's and autograd's backward thread's.  Both
+    are allocated here, while the caching allocator holds nothing, so each
+    takes a segment of its own.  Allocated later, one can land inside a
+    large cached segment and keep it from being released; the dry-run
+    phase's check of allocated growth against the pass's argument bytes
+    then sees that segment's free space reused whole by a leaf."""
+    a = torch.ones(2, 16, 16, device="cuda", requires_grad=True)
+    torch.bmm(a, a).sum().backward()
+    torch.cuda.synchronize()
 
 
 def _ptxas_report(text: str):
@@ -1154,13 +1179,85 @@ def phase_wkv():
             "library": "none: no single PyTorch call computes the WKV6 scan"}
 
 
-def _gmm_work(x, w):
-    """(bytes, flops) of one grouped matmul: x and w read once, the output
-    written once, 2 E C D F operations."""
-    E, C, D = x.shape
-    F = w.shape[2]
-    return (x.element_size() * (E * C * D + E * D * F + E * C * F),
-            2.0 * E * C * D * F)
+def _gmm_work(E, C, D, F, item, rows=None, mode="fwd"):
+    """(bytes, flops) of one grouped matmul of x (E,C,D) and w (E,D,F)
+    ("fwd") or of its gradient products dx = dy w^T ("dx") and dw = x^T dy
+    ("dw"): each operand's occupied rows read once (all C without
+    ``rows``), the weights of the experts with rows > 0 read once (every
+    expert's without), the whole output written once; 2 D F operations an
+    occupied row."""
+    if rows is None:
+        live_rows, live_experts = E * C, E
+    else:
+        r = rows.clamp(0, C)
+        live_rows, live_experts = int(r.sum()), int((r > 0).sum())
+    reads = {"fwd": live_rows * D + live_experts * D * F,
+             "dx": live_rows * F + live_experts * D * F,
+             "dw": live_rows * (D + F)}[mode]
+    writes = {"fwd": E * C * F, "dx": E * C * D, "dw": E * D * F}[mode]
+    return item * (reads + writes), 2.0 * live_rows * D * F
+
+
+def _gmm_rows(kind, E, C, seed):
+    """A rows vector on the card: "zero" (every expert empty), "partial"
+    (0, C/4, C/2, 3C/4, C in turn) or "random" (a third empty)."""
+    if kind == "zero":
+        r = torch.zeros(E, dtype=torch.int32)
+    elif kind == "partial":
+        r = torch.tensor([C * (e % 5) // 4 for e in range(E)],
+                         dtype=torch.int32)
+    else:
+        r = torch.randint(0, C + 1, (E,), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(seed))
+        r[::3] = 0
+    return r.cuda()
+
+
+def _gmm_poisoned(t, rows, experts=False):
+    """A copy of t with t's strides, NaN in its rows c >= rows[e] (or, with
+    ``experts``, in every expert whose rows are 0): what the kernel must
+    never let into its result."""
+    u = torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                            device=t.device)
+    u.copy_(t)
+    if experts:
+        u[rows == 0] = float("nan")
+    else:
+        past = torch.arange(t.shape[1], device=t.device)[None] >= rows[:, None]
+        u[past] = float("nan")
+    return u
+
+
+def _gmm_err(got, want, dtype, what):
+    """max |got - want| against GMM_RTOL of want's scale; raises on a miss,
+    a NaN or the wrong dtype."""
+    err = (got.float() - want.float()).abs().max().item()
+    tol = GMM_RTOL[dtype] * max(1.0, want.float().abs().max().item())
+    if not (err <= tol and got.dtype == dtype):
+        raise AssertionError(f"gmm disagrees with its plain version at "
+                             f"{what}: {err:.3g} > {tol:.3g}")
+    return err
+
+
+def _gmm_hold(label, x, w, rows_list):
+    """gmm against gmm_plain at x, w for each (name, rows) of rows_list,
+    with x NaN past the rows and w NaN in the empty experts where rows are
+    given: one launch a call; -> {name: max abs error}."""
+    from repro_torch.kernels import moe_gmm
+    errs = {}
+    for name, rows in rows_list:
+        xp = x if rows is None else _gmm_poisoned(x, rows)
+        wp = w if rows is None else _gmm_poisoned(w, rows, experts=True)
+        before = moe_gmm.launches
+        got = moe_gmm.gmm(xp, wp, rows)
+        torch.cuda.synchronize()
+        if moe_gmm.launches != before + 1:
+            raise AssertionError(f"gmm at {label} launched "
+                                 f"{moe_gmm.launches - before} kernels")
+        errs[name] = _gmm_err(got, moe_gmm.gmm_plain(xp, wp, rows), x.dtype,
+                              f"{label}, rows {name}")
+        del got, xp, wp
+    return errs
 
 
 def phase_gmm():
@@ -1168,9 +1265,11 @@ def phase_gmm():
     granite-moe's buckets (prefill C 200, decode C 2; gate/up and out) in
     bf16, f32 and f16, at tests/test_kernels.py's shapes, on both sides of
     the small-C path's limit (C 8 and 9, 16 and 17), and at ragged and
-    strided edge shapes; timed at the four bf16 bucket shapes, warm and
-    cold, with torch.bmm as the yardstick timed alike."""
-    from repro_torch.kernels import moe_gmm
+    strided edge shapes, each without rows and with rows all 0, partial
+    and random (x NaN past the rows, w NaN in empty experts); timed at the
+    four bf16 bucket shapes with full buckets, warm and cold, with
+    torch.bmm as the yardstick timed alike; then the backward
+    (``_gmm_backward``)."""
     gen = torch.Generator(device="cuda").manual_seed(10)
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     prefill, decode = (32, 200, 1024, 512), (32, 2, 1024, 512)
@@ -1193,6 +1292,8 @@ def phase_gmm():
         (3, 1, 72, 40, f32, "", "ragged C=1 D=72 F=40"),
         (3, 2, 72, 40, bf, "", "ragged C=2 D=72 F=40 bf16"),
         (2, 200, 72, 40, f16, "", "ragged C=200 D=72 F=40 f16"),
+        (3, 37, 76, 44, bf, "view", "ragged C=37 D=76 F=44 in 16-byte rows"),
+        (3, 2, 76, 44, f16, "view", "ragged C=2 D=76 F=44 in 16-byte rows"),
         (1, 130, 1024, 512, bf, "", "one expert, C=130"),
         (4, 37, 72, 40, f32, "group", "group slice of (G,E,D,F), F=40 of 64"),
         (4, 37, 72, 40, bf, "expert", "expert-strided w and x views"),
@@ -1201,7 +1302,7 @@ def phase_gmm():
         (32, 16, 512, 1024, f16, "", "C=16 f16"),
         (32, 17, 512, 1024, bf, "expert", "C=17, expert-strided views"),
     ]
-    errs, timed = [], []
+    errs, errs_rows, timed = [], [], []
     for E, C, D, F, dtype, layout, label in cases:
         x = torch.randn(E, C, D, generator=gen, device="cuda").to(dtype)
         if layout == "group":          # (G,E,D,F) of 64 columns: group 1,
@@ -1212,24 +1313,29 @@ def phase_gmm():
                             device="cuda").to(dtype)[::2]
             x = torch.randn(2 * E, C, D + 8, generator=gen,
                             device="cuda").to(dtype)[::2, :, :D]
+        elif layout == "view":         # rows of 16-byte chunks, D and F not
+            x = torch.randn(E, C, D + 4, generator=gen,
+                            device="cuda").to(dtype)[:, :, :D]
+            w = torch.randn(E, D, F + 4, generator=gen,
+                            device="cuda").to(dtype)[:, :, :F]
         else:
             w = torch.randn(E, D, F, generator=gen, device="cuda").to(dtype)
-        got = moe_gmm.gmm(x, w)
-        torch.cuda.synchronize()
-        want = moe_gmm.gmm_plain(x, w)
-        err = (got.float() - want.float()).abs().max().item()
-        tol = GMM_RTOL[dtype] * max(1.0, want.float().abs().max().item())
+        held = _gmm_hold(label, x, w, [("none", None)] + [
+            (kind, _gmm_rows(kind, E, C, seed=E + C))
+            for kind in ("zero", "partial", "random")])
+        err = held.pop("none")
+        err_rows = max(held.values())
         log(f"[kernels] gmm {label} (E={E} C={C} D={D} F={F}, x strides "
-            f"{x.stride()}, w strides {w.stride()}): max_abs_err={err:.3g} "
-            f"(tolerance {tol:.3g})")
-        if not (err <= tol and got.dtype == dtype):
-            raise AssertionError(f"gmm disagrees with its plain version at "
-                                 f"{label}")
+            f"{x.stride()}, w strides {w.stride()}): max_abs_err={err:.3g}; "
+            f"with rows 0 / partial / random and NaN past them "
+            f"{err_rows:.3g} (tolerance {GMM_RTOL[dtype]:.3g} of the scale)")
         errs.append(err)
+        errs_rows.append(err_rows)
         if len(timed) < 4:
             timed.append((label, x, w, err))
-        del x, w, got, want
-    rows = [_gmm_timed(label, x, w, err, gen) for label, x, w, err in timed]
+        del x, w
+    rows = [_gmm_timed(label, "fwd", x, w, None, err, gen)
+            for label, x, w, err in timed]
     del timed
     backward = _gmm_backward(gen)
     return {"name": "moe_gmm", "route": "cuda",
@@ -1239,54 +1345,115 @@ def phase_gmm():
             "timing": "ms and library_ms cold (inputs rotated through "
                       "copies beyond L2); *_warm and plain_ms on one copy",
             "edge_shapes_max_abs_err": max(errs[4:]),
+            "with_rows_max_abs_err": max(errs_rows),
             "prefill_out": rows[1], "decode_gate_up": rows[2],
             "decode_out": rows[3], "train_backward": backward}
 
 
-def _gmm_timed(label, x, w, err, gen, extra=None) -> dict:
-    """One gmm shape timed cold (rotating copies of x and w beyond L2) and
-    warm, with torch.bmm timed alike and the plain version warm; ``extra``
-    adds more warm timings {name: fn}."""
+def _gmm_calls(mode, a, b, rows):
+    """(kernel, torch.bmm, plain) thunk makers for one grouped product: the
+    forward x w, or the backward's dx = dy w^T and dw = x^T dy (a, b as
+    the entry point takes them; bmm reads the transposed views in place)."""
     from repro_torch.kernels import moe_gmm
-    nbytes, flops = _gmm_work(x, w)
-    copies = [(x, w)] + [
-        (torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype),
-         torch.randn(w.shape, generator=gen, device="cuda").to(w.dtype))
+    E, C = a.shape[:2]
+    if mode == "fwd":
+        return (lambda x, w: moe_gmm.gmm(x, w, rows), torch.bmm,
+                lambda x, w: moe_gmm.gmm_plain(x, w, rows))
+    if mode == "dx":                   # a = dy (E,C,F), b = w (E,D,F)
+        D, F = b.shape[1:]
+        return (lambda dy, w: moe_gmm._launch(moe_gmm._DX, dy, w, rows, C, D,
+                                              F),
+                lambda dy, w: torch.bmm(dy, w.transpose(1, 2)),
+                lambda dy, w: moe_gmm._dx_plain(dy, w, rows))
+    D, F = a.shape[2], b.shape[2]      # a = x (E,C,D), b = dy (E,C,F)
+    return (lambda x, dy: moe_gmm._launch(moe_gmm._DW, x, dy, rows, D, F, C),
+            lambda x, dy: torch.bmm(x.transpose(1, 2), dy),
+            lambda x, dy: moe_gmm._dw_plain(x, dy, rows))
+
+
+def _grouped_mm_args(x, w, rows):
+    """torch._grouped_mm's inputs for x's occupied rows: the rows packed
+    expert after expert, w, and each expert's end offset (int32)."""
+    live = torch.arange(x.shape[1], device=x.device)[None] < rows[:, None]
+    return x[live], w, torch.cumsum(rows, 0, dtype=torch.int32)
+
+
+def _gmm_timed(label, mode, a, b, rows, err, gen) -> dict:
+    """One grouped product timed cold (rotating copies of its operands
+    beyond L2) and warm, with torch.bmm (the whole buckets) timed alike,
+    the plain version warm and the wrapper's host time a call; with
+    ``rows`` (the forward at a dispatch's occupancy) also
+    torch._grouped_mm on the occupied rows packed with their offsets,
+    where the card's PyTorch has it.  The bound counts what ``rows``
+    occupies (``_gmm_work``), and the full buckets' beside it."""
+    E, C = a.shape[:2]
+    D, F = {"fwd": (a.shape[2], b.shape[2]), "dx": (b.shape[1], b.shape[2]),
+            "dw": (a.shape[2], b.shape[2])}[mode]
+    nbytes, flops = _gmm_work(E, C, D, F, a.element_size(), rows, mode)
+    full_bytes, full_flops = _gmm_work(E, C, D, F, a.element_size(), None,
+                                       mode)
+    kernel, library, plain = _gmm_calls(mode, a, b, rows)
+    copies = [(a, b)] + [
+        (torch.randn(a.shape, generator=gen, device="cuda").to(a.dtype),
+         torch.randn(b.shape, generator=gen, device="cuda").to(b.dtype))
         for _ in range(max(1, math.ceil(COLD_BYTES / nbytes) - 1))]
-    ms = _time_cold_ms(moe_gmm.gmm, copies)
-    library_ms = _time_cold_ms(torch.bmm, copies)
-    ms_warm = _time_ms(lambda: moe_gmm.gmm(x, w))
-    library_warm = _time_ms(lambda: torch.bmm(x, w))
-    plain_ms = _time_ms(lambda: moe_gmm.gmm_plain(x, w))
-    host_us = _host_us(lambda: moe_gmm.gmm(x, w))
-    more = {k: _time_ms(fn) for k, fn in (extra or {}).items()}
+    ms = _time_cold_ms(kernel, copies)
+    library_ms = _time_cold_ms(library, copies)
+    ms_warm = _time_ms(lambda: kernel(a, b))
+    library_warm = _time_ms(lambda: library(a, b))
+    plain_ms = _time_ms(lambda: plain(a, b))
+    host_us = _host_us(lambda: kernel(a, b))
+    grouped = {}
+    if rows is not None:
+        if not hasattr(torch, "_grouped_mm"):
+            grouped = {"grouped_mm": f"torch {torch.__version__} has no "
+                                     f"torch._grouped_mm"}
+        else:   # a yardstick only: a refusal is recorded, not raised
+            packed = [_grouped_mm_args(x, w, rows) for x, w in copies]
+            try:
+                grouped = {"grouped_mm_ms": _time_cold_ms(torch._grouped_mm,
+                                                          packed),
+                           "grouped_mm_ms_warm": _time_ms(
+                               lambda: torch._grouped_mm(*packed[0]))}
+            except RuntimeError as exc:
+                grouped = {"grouped_mm": f"refused: {str(exc)[:200]}"}
+            del packed
     n_copies = len(copies)
     del copies
-    bound_ms, bound_by = _bound(nbytes, flops, x.dtype)
-    log(f"[kernels] gmm timed at {label}: cold ({n_copies} copies, "
-        f"{n_copies * nbytes / 1e6:.0f} MB) kernel {ms:.4f} ms, torch.bmm "
-        f"{library_ms:.4f} ms; warm kernel {ms_warm:.4f} ms, torch.bmm "
-        f"{library_warm:.4f} ms; plain {plain_ms:.4f} ms; bound "
-        f"{bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.2f} MB, "
-        f"{flops / 1e9:.3f} GFLOP); the wrapper's host time "
-        f"{host_us:.1f} us a call; {more}")
-    return {"shape": label, "max_abs_err": err, "ms": ms,
-            "host_us": host_us, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "ms_warm": ms_warm, "library_ms_warm": library_warm,
-            "cold_copies": n_copies, **more}
+    bound_ms, bound_by = _bound(nbytes, flops, a.dtype)
+    full_bound_ms, full_bound_by = _bound(full_bytes, full_flops, a.dtype)
+    occ = "" if rows is None else (
+        f", {int((rows > 0).sum())} of {E} experts occupied, "
+        f"{int(rows.clamp(0, C).sum())} of {E * C} rows")
+    log(f"[kernels] gmm timed at {label}{occ}: cold ({n_copies} copies) "
+        f"kernel {ms:.4f} ms, torch.bmm {library_ms:.4f} ms; warm kernel "
+        f"{ms_warm:.4f} ms, torch.bmm {library_warm:.4f} ms; {grouped}; "
+        f"plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}, "
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), full buckets' "
+        f"{full_bound_ms:.5f} ms; the wrapper's host time {host_us:.1f} us "
+        f"a call")
+    out = {"shape": label, "max_abs_err": err, "ms": ms, "host_us": host_us,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms, "ms_warm": ms_warm,
+           "library_ms_warm": library_warm, "full_bound_ms": full_bound_ms,
+           "cold_copies": n_copies, **grouped}
+    if rows is not None:
+        out["rows"] = rows.tolist()
+        out["occupied_experts"] = int((rows > 0).sum())
+    return out
 
 
 def _gmm_backward(gen) -> dict:
     """The gmm Function's backward at granite-moe's train buckets (E 32,
     cap_e 800: T 2048 tokens, top-8, cf 1.25) in bf16, for the gate/up and
     the out product: dx and dw through the kernel against autograd of the
-    plain einsum (2^-7 of the output's scale: one rounding of an f32
-    sum), then each timed at its kernel shape, dx = dy @ w^T as
-    gmm(dy, w^T) and dw = x^T @ dy as gmm(x^T, dy), with the transposed
-    operand copied beforehand (warm, with that copy, too)."""
+    plain version (2^-7 of the output's scale: one rounding of an f32
+    sum), without rows and with a random rows vector (x NaN past it, w NaN
+    in its empty experts), three launches each; then each backward
+    product timed at full buckets, as the kernel runs it (dy and w read in
+    place for dx, x and dy for dw: no copy) beside torch.bmm on the
+    transposed views."""
     from repro_torch.kernels import moe_gmm
-    from repro_torch.kernels.ref import gmm_ref
     bf = torch.bfloat16
     E, C = GRANITE_TRAIN_BUCKET
     out = {}
@@ -1294,38 +1461,118 @@ def _gmm_backward(gen) -> dict:
         x = torch.randn(E, C, D, generator=gen, device="cuda").to(bf)
         w = torch.randn(E, D, F, generator=gen, device="cuda").to(bf)
         dy = torch.randn(E, C, F, generator=gen, device="cuda").to(bf)
-        before = moe_gmm.launches
-        xk, wk = (t.clone().requires_grad_() for t in (x, w))
-        moe_gmm.gmm_train(xk, wk).backward(dy)
-        torch.cuda.synchronize()
-        ran = moe_gmm.launches - before
-        xp, wp = (t.clone().requires_grad_() for t in (x, w))
-        gmm_ref(xp, wp).backward(dy)
         errs = {}
-        for name, got, want in (("dx", xk.grad, xp.grad),
-                                ("dw", wk.grad, wp.grad)):
-            err = (got.float() - want.float()).abs().max().item()
-            tol = GMM_RTOL[bf] * max(1.0, want.float().abs().max().item())
-            log(f"[kernels] gmm backward {label} {name} {tuple(got.shape)}: "
-                f"max_abs_err={err:.3g} against the plain einsum's autograd "
-                f"(tolerance {tol:.3g})")
-            if not (err <= tol and got.dtype == bf):
-                raise AssertionError(f"gmm backward {label} {name} "
-                                     f"disagrees with the plain autograd")
-            errs[name] = err
-        if ran != 3:
-            raise AssertionError(f"gmm_train forward+backward launched {ran} "
-                                 f"kernels, not 3")
-        wt, xt = moe_gmm._transposed(w), moe_gmm._transposed(x)
+        for kind in (None, "random"):
+            rows = None if kind is None else _gmm_rows(kind, E, C, seed=D)
+            xp = x if rows is None else _gmm_poisoned(x, rows)
+            wp = w if rows is None else _gmm_poisoned(w, rows, experts=True)
+            before = moe_gmm.launches
+            xk, wk = (t.clone().requires_grad_() for t in (xp, wp))
+            moe_gmm.gmm_train(xk, wk, rows).backward(dy)
+            torch.cuda.synchronize()
+            ran = moe_gmm.launches - before
+            xq, wq = (t.clone().requires_grad_() for t in (xp, wp))
+            moe_gmm.gmm_plain(xq, wq, rows).backward(dy)
+            for name, got, want in (("dx", xk.grad, xq.grad),
+                                    ("dw", wk.grad, wq.grad)):
+                err = _gmm_err(got, want, bf, f"backward {label} {name}, "
+                                              f"rows {kind}")
+                errs[name] = max(errs.get(name, 0.0), err)
+                log(f"[kernels] gmm backward {label} {name} "
+                    f"{tuple(got.shape)}, rows {kind}: max_abs_err={err:.3g} "
+                    f"against the plain version's autograd")
+            if ran != 3:
+                raise AssertionError(f"gmm_train forward+backward launched "
+                                     f"{ran} kernels, not 3")
+            del xp, wp, xk, wk, xq, wq
         out[f"{label} dx"] = _gmm_timed(
-            f"granite train {label} dx (E={E} C={C} F={F} D={D})", dy, wt,
-            errs["dx"], gen, extra={"ms_warm_with_transpose": lambda: (
-                moe_gmm.gmm(dy, moe_gmm._transposed(w)))})
+            f"granite train {label} dx (E={E} C={C} F={F} D={D})", "dx", dy,
+            w, None, errs["dx"], gen)
         out[f"{label} dw"] = _gmm_timed(
-            f"granite train {label} dw (E={E} D={D} C={C} F={F})", xt, dy,
-            errs["dw"], gen, extra={"ms_warm_with_transpose": lambda: (
-                moe_gmm.gmm(moe_gmm._transposed(x), dy))})
-        del x, w, dy, xk, wk, xp, wp, wt, xt
+            f"granite train {label} dw (E={E} D={D} C={C} F={F})", "dw", x,
+            dy, None, errs["dw"], gen)
+        del x, w, dy
+    return out
+
+
+def _moe_layers(arch: str) -> int:
+    from repro_torch.configs import registry
+    cfg = registry.get_config(arch)
+    return cfg.num_groups * cfg.block_pattern.count("moe")
+
+
+class _GmmRecorder:
+    """Wraps ``models.moe.gmm`` (``with``): records every bucket shape it
+    is called with and, once ``arm``-ed, the first ``per_capacity`` calls
+    of each bucket capacity C with their rows (copies on the card: no host
+    sync in the serve loop): with 3 a MoE layer, one full prefill's and
+    one decode step's."""
+
+    def __init__(self, per_capacity: int):
+        from repro_torch.models import moe as moe_mod
+        self.mod, self.inner, self.per = moe_mod, moe_mod.gmm, per_capacity
+        self.shapes, self.calls, self.armed = set(), {}, False
+
+    def __call__(self, x, w, rows=None):
+        key = (tuple(x.shape), tuple(w.shape))
+        self.shapes.add(key)
+        if self.armed and rows is not None:
+            got = self.calls.setdefault(x.shape[1], [])
+            if len(got) < self.per:
+                got.append((key, rows.clone()))
+        return self.inner(x, w, rows)
+
+    def __enter__(self):
+        self.mod.gmm = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.gmm = self.inner
+
+    def arm(self):
+        self.armed = True
+
+    def layers(self):
+        """{C: [rows of each MoE layer's calls, in order]} on the CPU (a
+        layer's gate, up and out calls share one vector)."""
+        return {C: [r.cpu() for _, r in calls[::3]]
+                for C, calls in self.calls.items()}
+
+
+def _gmm_occupancy(arch, recorder, gen, smi) -> dict:
+    """The rows vectors ``recorder`` saw in ``arch``'s serve run at the
+    full prefill's capacity (its largest C) and the decode step's (its
+    smallest), summarised per layer, and the forward at the first MoE
+    layer's occupancy for each bucket shape (gate/up and out) on new
+    random bf16 tensors: held against the plain version without rows and
+    with them (x NaN past them, w NaN in the empty experts), then timed."""
+    bf = torch.bfloat16
+    layers = recorder.layers()
+    out = {}
+    for C, phase in ((max(layers), "prefill"), (min(layers), "decode")):
+        occupied = [int((r > 0).sum()) for r in layers[C]]
+        filled = [int(r.sum()) for r in layers[C]]
+        log(f"[{arch}] gmm rows at C={C} ({phase}): occupied experts a "
+            f"layer {occupied}; rows a layer {filled}; the first layer's "
+            f"{layers[C][0].tolist()}")
+        rows = layers[C][0].cuda()
+        keys = sorted({k for k, _ in recorder.calls[C]},
+                      key=lambda k: -k[0][2])
+        for (E, _, D), (_, _, F) in keys:
+            label = (f"{arch} {phase} {'gate/up' if D > F else 'out'} at its "
+                     f"dispatch's occupancy (E={E} C={C} D={D} F={F})")
+            x = torch.randn(E, C, D, generator=gen, device="cuda").to(bf)
+            w = torch.randn(E, D, F, generator=gen, device="cuda").to(bf)
+            held = _gmm_hold(label, x, w, [("none", None),
+                                           ("dispatch", rows)])
+            torch.cuda.empty_cache()
+            out[label] = dict(_gmm_timed(label, "fwd", x, w, rows,
+                                         held["dispatch"], gen),
+                              full_max_abs_err=held["none"],
+                              occupied_by_layer=occupied,
+                              rows_by_layer=filled, card=smi)
+            del x, w
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1637,14 +1884,16 @@ def _count_per_call(engine, counters):
     return per
 
 
-def phase_serve(smi: str, arch: str = ARCH, after=None, layers: int = 0):
+def phase_serve(smi: str, arch: str = ARCH, after=None, layers: int = 0,
+                before_run=None):
     """Full-width phi4, granite-moe, gemma2 or kimi-k2 (depth cut to
     ``layers`` where given) in bf16 serves 8 requests through the paged
     pool with the prefix cache; flash runs on every layer of every full
     prefill and the MoE's gmm 3 times a layer in every full prefill and
     decode step; then paged equals slotted on a short run.
     ``after(cfg, params)`` runs on the served weights before they are
-    freed."""
+    freed; ``before_run()`` right before the requests are served (after
+    the warm-up)."""
     from repro_torch.configs import registry
     from repro_torch.core.queue import WorkQueue
     from repro_torch.kernels import flash_attention as fa
@@ -1683,6 +1932,8 @@ def phase_serve(smi: str, arch: str = ARCH, after=None, layers: int = 0):
     prefills_before = engine.metrics.series(GAUGES.PREFILL_S).stats()["count"]
     for mod in counters.values():
         mod.launches = 0
+    if before_run is not None:
+        before_run()
     results, metrics = engine.run(queue)
     torch.cuda.synchronize()
     launches = {name: mod.launches for name, mod in counters.items()}
@@ -2454,36 +2705,32 @@ def _kimi_update_check() -> dict:
             "params_apart": far, "params": n}
 
 
-def _kimi_gmm(shapes, smi: str) -> dict:
+def _kimi_gmm(recorder, smi: str) -> dict:
     """The grouped matmul at the bucket shapes the kimi serve run gave it
     (E 384; the prefill's and the decode's capacities; gate/up and out),
     on new random bf16 tensors (the served weights are freed): each held
-    against its plain version once, and timed as ``_gmm_timed`` times
-    granite's."""
-    from repro_torch.kernels import moe_gmm
+    against its plain version and timed with full buckets as
+    ``_gmm_timed`` times granite's, then at the occupancy its dispatch
+    gave (``_gmm_occupancy``: NaN past the rows and in the empty experts,
+    the bound over the occupied experts' weights)."""
     gen = torch.Generator(device="cuda").manual_seed(27)
-    rows = {}
-    for (E, C, D), (_, _, F) in sorted(shapes, key=lambda s: -s[0][1]):
+    out = {}
+    for (E, C, D), (_, _, F) in sorted(recorder.shapes,
+                                       key=lambda s: -s[0][1]):
         x = torch.randn(E, C, D, generator=gen, device="cuda").to(torch.bfloat16)
         w = torch.randn(E, D, F, generator=gen, device="cuda").to(torch.bfloat16)
-        got = moe_gmm.gmm(x, w)
-        torch.cuda.synchronize()
-        want = moe_gmm.gmm_plain(x, w)
-        err = (got.float() - want.float()).abs().max().item()
-        tol = GMM_RTOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
         label = (f"kimi {'prefill' if C > 1 else 'decode'} "
                  f"{'gate/up' if D == 7168 else 'out'} (E={E} C={C} D={D} "
                  f"F={F})")
-        log(f"[kimi] gmm {label}: max_abs_err={err:.3g} (tolerance {tol:.3g})")
-        if not err <= tol:
-            raise AssertionError(f"gmm disagrees with its plain version at "
-                                 f"{label}")
-        del got, want
+        err = _gmm_hold(label, x, w, [("none", None)])["none"]
+        log(f"[kimi] gmm {label}: max_abs_err={err:.3g}")
         torch.cuda.empty_cache()
-        rows[label] = dict(_gmm_timed(label, x, w, err, gen), card=smi)
+        out[label] = dict(_gmm_timed(label, "fwd", x, w, None, err, gen),
+                          card=smi)
         del x, w
         torch.cuda.empty_cache()
-    return rows
+    out.update(_gmm_occupancy(KIMI, recorder, gen, smi))
+    return out
 
 
 def _fused_leaves(opt_schema) -> int:
@@ -2623,7 +2870,6 @@ def phase_kimi(smi: str):
     Nothing is written to disk; everything is freed before the next phase."""
     from repro_torch.configs import registry
     from repro_torch.launch.profile_train import train_setup
-    from repro_torch.models import moe as moe_mod
     from repro_torch.optim import adamw
     from repro_torch.runtime import steps
     gc.collect()
@@ -2632,18 +2878,12 @@ def phase_kimi(smi: str):
     flash = _kimi_flash(smi)
     quant = _kimi_quant()
 
-    # serving, with every gmm shape recorded
-    seen = set()
-    plain_gmm = moe_mod.gmm
-
-    def recording(x, w):
-        seen.add((tuple(x.shape), tuple(w.shape)))
-        return plain_gmm(x, w)
-    moe_mod.gmm = recording
-    try:
-        serve, ran, _ = phase_serve(smi, KIMI, layers=KIMI_SERVE_LAYERS)
-    finally:
-        moe_mod.gmm = plain_gmm
+    # serving, with every gmm shape and one prefill's and one decode
+    # step's rows recorded
+    with _GmmRecorder(3 * KIMI_SERVE_LAYERS) as recorder:
+        serve, ran, _ = phase_serve(smi, KIMI, layers=KIMI_SERVE_LAYERS,
+                                    before_run=recorder.arm)
+    seen = recorder.shapes
     full = registry.get_config(KIMI)
     log(f"[kimi] serve at {KIMI_SERVE_LAYERS} of {full.num_layers} layers: "
         f"{serve['tok_s']:.1f} tok/s, p50 TTFT {serve['p50_ttft_s']:.4f} s, "
@@ -2651,7 +2891,7 @@ def phase_kimi(smi: str):
         f"36.4 GB in bf16); gmm bucket shapes {sorted(seen)}; {smi}")
     gc.collect()
     torch.cuda.empty_cache()
-    gmm = _kimi_gmm(seen, smi)
+    gmm = _kimi_gmm(recorder, smi)
 
     # training: the smoke checks, then the full-width cut
     _train_smoke_check(KIMI)
@@ -4600,6 +4840,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     smi = phase_device()
+    phase_blas_workspaces()
     phase_build()
     main_shape = (1, 24, 8, PROMPT, PROMPT, 128)    # phi4 prefill, B=1
     flash = phase_kernels(main_shape)
@@ -4615,7 +4856,9 @@ def main() -> int:
     phase_small_families()
     phase_small_train()
     serve, ran_phi4, phi4_run = phase_serve(smi)
-    serve_granite, ran_granite, _ = phase_serve(smi, GRANITE)
+    with _GmmRecorder(3 * _moe_layers(GRANITE)) as granite_rows:
+        serve_granite, ran_granite, _ = phase_serve(
+            smi, GRANITE, before_run=granite_rows.arm)
     serve_zamba, ran_zamba = phase_serve_slotted(smi, ZAMBA)
     serve_rwkv, ran_rwkv = phase_serve_slotted(smi, RWKV)
     serve_gemma2, ran_gemma2, _ = phase_serve(smi, GEMMA2,
@@ -4627,6 +4870,9 @@ def main() -> int:
     ssd["launches"] = ran_zamba["ssd_scan"]
     wkv["launches"] = ran_rwkv["wkv6"]
     gmm["launches"] = ran_granite["moe_gmm"]
+    gmm["occupancy"] = _gmm_occupancy(
+        GRANITE, granite_rows, torch.Generator(device="cuda").manual_seed(11),
+        smi)
     flash["launches_by_path"] = {
         f"{ARCH} serve": ran_phi4["flash_attention"],
         f"{GRANITE} serve": ran_granite["flash_attention"],

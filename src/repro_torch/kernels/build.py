@@ -94,8 +94,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "moe_gmm": {
         "repro_torch_gmm": (
-            [_c_ptr, _c_ptr, _c_ptr,                          # x w out
-             _c_int, _c_int, _c_int, _c_int, _c_int,          # dtype E C D F
+            [_c_ptr, _c_ptr, _c_ptr, _c_ptr,                  # a b out rows
+             _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,  # dtype mode E M N K
              ctypes.POINTER(ctypes.c_longlong),               # 4 strides
              _c_ptr],                                         # stream
             _c_int),

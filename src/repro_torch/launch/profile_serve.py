@@ -41,11 +41,11 @@ from repro_torch.serving.engine import ServingEngine
 PROMPT, GEN, SLOTS, STEPS, SEED, BLOCK = 512, 64, 4, 8, 0, 16
 REPEATS = 10          # unprofiled runs of each phase
 # the port's kernels, by a part of their CUDA functions' names: flash_fwd
-# matches flash_fwd_wgmma (f16/bf16) and flash_fwd (f32); gmm_fwd matches
-# gmm_fwd_mma and gmm_fwd_gemv (f16/bf16, C above 8 and up to 8) and
-# gmm_fwd (f32)
+# matches flash_fwd_wgmma (f16/bf16) and flash_fwd (f32); gmm_ matches
+# gmm_wgmma and gmm_fwd_gemv (f16/bf16, C above 8 and up to 8) and gmm_fwd
+# (f32), and an older tree's gmm_fwd_mma
 OWN_KERNELS = {"flash": "flash_fwd", "ssd": "ssd_fwd", "wkv6": "wkv_fwd",
-               "gmm": "gmm_fwd"}
+               "gmm": "gmm_"}
 
 
 def _kernel_stats(prof) -> tuple[float, dict]:
@@ -134,9 +134,13 @@ def main(argv=None) -> None:
     engine.decode_step([1] * SLOTS, [at] * SLOTS)
     rows = [_phase("prefill", lambda: engine.prefill_into(0, prompt))]
 
+    # each slot decodes its own token (the prompt's first ones), so the
+    # MoE families route them as a batch of distinct requests does
+    tokens = prompt[:SLOTS]
+
     def decode():
         for i in range(STEPS):
-            engine.decode_step([1] * SLOTS, [at + i] * SLOTS)
+            engine.decode_step(tokens, [at + i] * SLOTS)
     rows.append(_phase(f"decode x{STEPS}", decode))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -53,7 +53,7 @@ ARCH = "phi4-mini-3.8b"
 BATCH, SEQ, STEPS, SEED = 2, 1024, 2, 0
 GROUPS = {"xent_ms": ("xent_fwd", "xent_bwd"), "adamw_ms": ("adamw",),
           "ssd_ms": ("ssd_fwd",), "wkv6_ms": ("wkv_fwd",),
-          "gmm_ms": ("gmm_fwd",),
+          "gmm_ms": ("gmm_",),
           "matmul_ms": ("gemm", "nvjet", "cutlass", "sm90_xmma")}
 
 

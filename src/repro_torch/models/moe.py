@@ -9,7 +9,10 @@ prefill and decode both take on one device):
      (E, cap_e, D), in (token, k) order, while the bucket has room
   -> gate, up and out products of every bucket through the port's grouped
      matmul (``kernels.moe_gmm``: the hand-written CUDA kernel on a CUDA
-     tensor, its plain version on a CPU tensor)
+     tensor, its plain version on a CPU tensor), each given ``rows``, the
+     count of every expert's kept entries (int32 (E,), on the device): the
+     rows past it come out as zeros, and the weights of an expert no entry
+     chose are not read (kimi's decode step fills at most 32 of 384)
   -> weighted combine in f32 over each token's K entries.
 
 The capacities are the reference's: ``cap = int(ceil(T*K / tp) * cf)``
@@ -65,17 +68,19 @@ def capacities(T: int, K: int, E: int, cf: float) -> tuple[int, int]:
     return cap, int(-(-cap // E) * cf)
 
 
-def _dispatch_compute_combine(x2d, top_idx, top_w, wg, wu, wo, *, E: int,
-                              cf: float, compute_dtype, train: bool = False):
-    """x2d (T, D); top_idx/top_w (T, K); wg/wu (E, D, F), wo (E, F, D).
-    Returns (T, D) in ``compute_dtype``; ``train`` runs the products through
-    ``gmm_train`` (the kernel's gradient).
+def _dispatch(x2d, top_idx, *, E: int, cf: float, compute_dtype):
+    """x2d (T, D); top_idx (T, K) -> (bucket (E, cap_e, D), row (TK,),
+    kept (TK,), rows (E,) int32).
 
     Entry i = t*K + k is kept when i < cap (the exchange buffer) and fewer
     than cap_e earlier entries chose its expert.  Its bucket row is that
     count (a running sum of hits, so (token, k) order, as the reference's
-    stable sort gives); dropped entries write to and read from a spare row
-    past the buckets and add nothing.
+    stable sort gives); dropped entries write to a spare row past the
+    buckets.  ``rows[e]`` counts expert e's kept entries, which fill its
+    rows 0 .. rows[e] - 1: the reference's ``min(counts_e, cap_e)``
+    (``moe.py:95-98``, tp = 1).  It stays on the device (no host sync), and
+    the grouped matmul reads only those rows and, where it is 0, none of
+    the expert's weights.
     """
     T, D = x2d.shape
     K = top_idx.shape[-1]
@@ -85,23 +90,45 @@ def _dispatch_compute_combine(x2d, top_idx, top_w, wg, wu, wo, *, E: int,
     # (E, TK) hits, summed along the contiguous axis (a scan down the
     # other one runs one thread per expert on the card)
     hits = flat_e[None, :] == torch.arange(E, device=x2d.device)[:, None]
-    rank = hits.cumsum(1).gather(0, flat_e[None, :])[0] - 1
+    seen = hits.cumsum(1, dtype=torch.int32)
+    rank = seen.gather(0, flat_e[None, :])[0] - 1
     kept = rank < cap_e
     if cap < TK:
         kept &= torch.arange(TK, device=x2d.device) < cap
+    # each expert's hits among the exchange's first min(cap, TK) entries,
+    # at most cap_e of them kept
+    n = min(cap, TK)
+    rows = (seen[:, n - 1].clamp(max=cap_e) if n else
+            torch.zeros(E, dtype=torch.int32, device=x2d.device))
     spare = E * cap_e
     row = torch.where(kept, flat_e * cap_e + rank, spare)      # (TK,)
 
     bucket = torch.zeros((spare + 1, D), dtype=compute_dtype,
                          device=x2d.device)
     bucket[row] = x2d.to(compute_dtype).repeat_interleave(K, dim=0)
-    bucket = bucket[:spare].view(E, cap_e, D)
+    return bucket[:spare].view(E, cap_e, D), row, kept, rows
+
+
+def _dispatch_compute_combine(x2d, top_idx, top_w, wg, wu, wo, *, E: int,
+                              cf: float, compute_dtype, train: bool = False):
+    """x2d (T, D); top_idx/top_w (T, K); wg/wu (E, D, F), wo (E, F, D).
+    Returns (T, D) in ``compute_dtype``; ``train`` runs the products through
+    ``gmm_train`` (the kernel's gradient).  The buckets are ``_dispatch``'s;
+    the three products take its ``rows``, so the rows past them come out
+    as zeros and empty experts' weights are not read.
+    """
+    T, D = x2d.shape
+    K = top_idx.shape[-1]
+    TK = T * K
+    bucket, row, kept, rows = _dispatch(x2d, top_idx, E=E, cf=cf,
+                                        compute_dtype=compute_dtype)
+    spare = bucket.shape[0] * bucket.shape[1]
 
     mm = gmm_train if train else gmm
-    gate = mm(bucket, wg.to(compute_dtype))
-    up = mm(bucket, wu.to(compute_dtype))
+    gate = mm(bucket, wg.to(compute_dtype), rows)
+    up = mm(bucket, wu.to(compute_dtype), rows)
     h = F.silu(gate.float()).to(compute_dtype) * up
-    y = mm(h, wo.to(compute_dtype)).view(spare, D)
+    y = mm(h, wo.to(compute_dtype), rows).view(spare, D)
 
     # each token's K entries are rows t*K..t*K+K-1 of the flat order: a
     # gather and a sum over K in f32, as the reference's scatter-add (the

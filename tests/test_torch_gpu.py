@@ -38,7 +38,8 @@ exactly.  The tenant backend: a full-width phi4 ServeJob through
 ``Session(tenant=)`` on a fabric computing on the card gives a direct
 engine's tokens.  The train Functions: gmm's forward, dx and dw (three
 launches) against autograd of the plain einsum, 1e-5 / 2^-7 of the scale
-as the kernel; one zamba2 and one rwkv6 train step's grads (the scan
+as the kernel, also with occupied rows (x NaN past them, the empty
+experts' weights NaN: no NaN reaches the output or either gradient); one zamba2 and one rwkv6 train step's grads (the scan
 kernel forward twice a layer with remat, the plain recompute backward)
 against the CPU's, 1e-5 on the loss and 1e-4 of each leaf's norm (f32,
 the same sums in another order).  The optimizer recipes: ``quantize`` and
@@ -597,6 +598,65 @@ def test_gmm_ragged_d_and_f_inside_aligned_rows(C, dtype):
     assert (got.float() - want.float()).abs().max().item() <= 2 ** -7 * scale
 
 
+def _gmm_rows(kind, E, C):
+    """A rows vector on the card: every expert empty, partial (0, C/4, C/2,
+    3C/4, C in turn), every one full, or random with a third empty."""
+    if kind == "zero":
+        r = np.zeros(E)
+    elif kind == "partial":
+        r = [C * (e % 5) // 4 for e in range(E)]
+    elif kind == "full":
+        r = np.full(E, C)
+    else:
+        r = np.random.RandomState(E + C).randint(0, C + 1, E)
+        r[::3] = 0
+    return torch.as_tensor(np.asarray(r, np.int32), device="cuda")
+
+
+def _poison(x, w, rows):
+    """x NaN in its rows c >= rows[e], w NaN for every empty expert."""
+    x, w = x.clone(), w.clone()
+    past = torch.arange(x.shape[1], device="cuda")[None] >= rows[:, None]
+    x[past] = float("nan")
+    w[rows == 0] = float("nan")
+    return x, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("kind", ["zero", "partial", "full", "random"])
+@pytest.mark.parametrize("E,C,D,F", [
+    (32, 2, 1024, 512),            # the GEMV path in f16/bf16
+    (32, 200, 1024, 512),          # wgmma: granite's prefill bucket
+    (3, 37, 72, 40),               # wgmma with ragged C, D and F
+    (8, 17, 512, 1024),            # kimi's prefill capacity
+])
+def test_gmm_rows_match_plain_with_nan_past_them(E, C, D, F, kind, dtype):
+    """Occupied rows: the kernel against the plain version with x NaN past
+    rows[e] and w NaN for the empty experts: one launch, zero rows past
+    rows[e], nothing NaN (the empty experts' weights are not read)."""
+    _card()
+    rng = np.random.RandomState(C + D)
+    dt_ = getattr(torch, dtype)
+    x = torch.as_tensor(rng.standard_normal((E, C, D)).astype(np.float32),
+                        device="cuda").to(dt_)
+    w = torch.as_tensor(rng.standard_normal((E, D, F)).astype(np.float32),
+                        device="cuda").to(dt_)
+    rows = _gmm_rows(kind, E, C)
+    x, w = _poison(x, w, rows)
+    before = moe_gmm.launches
+    got = moe_gmm.gmm(x, w, rows)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 1 and got.dtype == dt_
+    assert not torch.isnan(got).any()
+    past = torch.arange(C, device="cuda")[None] >= rows[:, None]
+    assert not got[past].any()
+    want = moe_gmm.gmm_plain(x, w, rows)
+    scale = max(1.0, want.float().abs().max().item())
+    tol = (1e-5 if dtype == "float32" else 2 ** -7) * scale
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
 # ---------------------------------------------- train Functions (B8, A9)
 
 @pytest.mark.gpu
@@ -682,6 +742,43 @@ def _cuda_tree(tree):
     if isinstance(tree, dict):
         return {k: _cuda_tree(v) for k, v in tree.items()}
     return tree.cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("kind", ["zero", "partial", "random"])
+@pytest.mark.parametrize("E,C,D,F", [(3, 37, 72, 40), (32, 200, 512, 1024),
+                                     (4, 70, 136, 200)])
+def test_gmm_train_rows_backward_reads_operands_in_place(E, C, D, F, kind,
+                                                         dtype):
+    """The Function's forward, dx and dw with rows (x NaN past them, w NaN
+    in the empty experts) in three launches, against autograd of the plain
+    version: dx zero past the rows, dw zero for the empty experts, all
+    finite; the backward reads w and x in place (no operand is copied)."""
+    _card()
+    rng = np.random.RandomState(C + F)
+    dt_ = getattr(torch, dtype)
+    x, w, dy = (torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                                device="cuda").to(dt_)
+                for s in [(E, C, D), (E, D, F), (E, C, F)])
+    rows = _gmm_rows(kind, E, C)
+    x, w = _poison(x, w, rows)
+    xk, wk = (t.clone().requires_grad_() for t in (x, w))
+    before = moe_gmm.launches
+    got = moe_gmm.gmm_train(xk, wk, rows)
+    got.backward(dy)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 3
+    xp, wp = (t.clone().requires_grad_() for t in (x, w))
+    want = moe_gmm.gmm_plain(xp, wp, rows)
+    want.backward(dy)
+    for a, b in ((got, want), (xk.grad, xp.grad), (wk.grad, wp.grad)):
+        assert a.dtype == dt_ and not torch.isnan(a).any()
+        scale = max(1.0, b.float().abs().max().item())
+        tol = (1e-5 if dtype == "float32" else 2 ** -7) * scale
+        assert (a.float() - b.float()).abs().max().item() <= tol
+    past = torch.arange(C, device="cuda")[None] >= rows[:, None]
+    assert not xk.grad[past].any() and not wk.grad[rows == 0].any()
 
 
 # ------------------------------------------------- training runtime (A5)

@@ -358,21 +358,30 @@ def _grads(fn, inputs, dy):
 
 
 def test_gmm_train_matches_plain_autograd():
-    """A ragged bucket (C 37, D 24, F 40): the Function's dx and dw are
-    ``gmm`` of the transposed operands, against autograd of the plain
-    einsum; nothing launches on the CPU."""
+    """A ragged bucket (C 37, D 24, F 40): the Function's output, dx and dw
+    against autograd of the plain einsum; with ``rows`` (an empty expert,
+    a partial one, a full one) against autograd of ``gmm_plain`` with the
+    same rows; nothing launches on the CPU."""
     rng = np.random.RandomState(8)
     x, w, dy = (torch.as_tensor(rng.standard_normal(s).astype(np.float32))
                 for s in [(3, 37, 24), (3, 24, 40), (3, 37, 40)])
     before = moe_gmm.launches
     got, (gx, gw) = _grads(moe_gmm.gmm_train, (x, w), dy)
     want, (wx, ww) = _grads(gmm_ref, (x, w), dy)
+    for a, b in ((got, want), (gx, wx), (gw, ww)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    rows = torch.tensor([0, 20, 37], dtype=torch.int32)
+    got, (gx, gw) = _grads(
+        lambda a, b: moe_gmm.gmm_train(a, b, rows), (x, w), dy)
+    want, (wx, ww) = _grads(
+        lambda a, b: moe_gmm.gmm_plain(a, b, rows), (x, w), dy)
     assert moe_gmm.launches == before
     for a, b in ((got, want), (gx, wx), (gw, ww)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
                                    atol=1e-6)
-    t = moe_gmm._transposed(torch.ones((2, 37, 5), dtype=torch.bfloat16))
-    assert t.shape == (2, 5, 37) and t.stride() == (5 * 40, 40, 1)
+    assert not got[0].any() and not gx[0].any() and not gw[0].any()
+    assert not got[1, 20:].any() and not gx[1, 20:].any()
 
 
 @pytest.mark.parametrize("name", ["ssd", "wkv6"])
