@@ -38,12 +38,14 @@ Phases (any failure raises and the script exits non-zero):
                at the train phase's loss chunk, and the backward with the RL learner's dy (zero on prompt rows
                and on a zero-advantage rollout, negative where the
                advantage is); AdamW at phi4's embedding; the SSD scan at
-               zamba2's prefill and WKV6 at rwkv6's, each case printing the
-               path it took (bf16 widths that are multiples of 16: the
+               zamba2's prefill (and with x, B and C as views into
+               NaN-filled buffers) and WKV6 at rwkv6's, each case printing
+               the path it took (bf16 widths that are multiples of 16: the
                tensor-core kernels; f32, f16, other widths: the CUDA-core
                ones), timed warm and cold (rotating through copies of the
-               inputs past the L2), the bound's operations at the inputs'
-               type's rate; the grouped matmul at
+               inputs past the L2), SSD also at zamba2's train forward,
+               the bound's operations at the inputs' type's rate; the
+               grouped matmul at
                granite-moe's prefill and decode buckets (f32, f16, bf16),
                ragged and strided shapes, each without occupied rows and
                with rows all 0, partial and random (x NaN past the rows,
@@ -1002,11 +1004,35 @@ def _scan_check(name, case, pairs):
     return max(e for e, _ in errs)
 
 
-def _scan_phase(name, kernel, plain, route, cases, make, work, seed):
+def _scan_time(kernel, plain, make, case, args, gen, work):
+    """Time a scan kernel and its plain version at one case's inputs
+    ``args``: warm (one copy of the inputs) and cold (rotating through
+    copies that exceed the L2), with the bound of work(*args)."""
+    nbytes, flops = work(*args)
+    copies = [args] + [
+        make(case, gen)[0]
+        for _ in range(max(1, math.ceil(COLD_BYTES / nbytes) - 1))]
+    ms_cold = _time_cold_ms(kernel, copies)
+    n_copies = len(copies)
+    del copies
+    ms = _time_ms(lambda: kernel(*args))
+    plain_ms = _time_ms(lambda: plain(*args))
+    bound_ms, bound_by = _bound(nbytes, flops, args[0].dtype)
+    if not ms_cold >= bound_ms:
+        raise AssertionError(f"the cold time {ms_cold} ms is below the "
+                             f"bound {bound_ms} ms: the timing is wrong")
+    return {"ms": ms, "ms_cold": ms_cold, "cold_copies": n_copies,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "mb": nbytes / 1e6, "gflop": flops / 1e9}
+
+
+def _scan_phase(name, kernel, plain, route, cases, make, work, seed,
+                also_time=None):
     """Hold a scan kernel against its plain version on the card at each case
     (y and the last state), printing the path each case took, then time
     both at the first case, the main path's shape: warm (one copy of the
-    inputs) and cold (rotating through copies that exceed the L2).
+    inputs) and cold (rotating through copies that exceed the L2); and at
+    the case labelled ``also_time`` (its row's "timed" entry), if given.
     make(case, gen) -> (args, state, plain chunk, label); route(*args) ->
     the kernel's path; work(*args) -> (bytes moved, operations) of one call
     at that shape."""
@@ -1024,51 +1050,58 @@ def _scan_phase(name, kernel, plain, route, cases, make, work, seed):
         del got, want
         if len(errs) == 1:
             main_args, main_label = args, label
-    nbytes, flops = work(*main_args)
-    copies = [main_args] + [
-        make(cases[0], gen)[0]
-        for _ in range(max(1, math.ceil(COLD_BYTES / nbytes) - 1))]
-    ms_cold = _time_cold_ms(kernel, copies)
-    n_copies = len(copies)
-    del copies
-    ms = _time_ms(lambda: kernel(*main_args))
-    plain_ms = _time_ms(lambda: plain(*main_args))
+    timed = _scan_time(kernel, plain, make, cases[0], main_args, gen, work)
     host_us = _host_us(lambda: kernel(*main_args))
+    nbytes, flops = work(*main_args)
     dtype = main_args[0].dtype
-    bound_ms, bound_by = _bound(nbytes, flops, dtype)
     # the PR 13-15 figure: the operations at f32's CUDA-core rate
     bound_f32_ms, bound_f32_by = _bound(nbytes, flops)
     log(f"[kernels] {name} main {main_label} [{paths[main_label]} path]: "
-        f"warm {ms:.4f} ms, cold ({n_copies} copies, "
-        f"{n_copies * nbytes / 1e6:.0f} MB) {ms_cold:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by} at "
+        f"warm {timed['ms']:.4f} ms, cold ({timed['cold_copies']} copies, "
+        f"{timed['cold_copies'] * nbytes / 1e6:.0f} MB) "
+        f"{timed['ms_cold']:.4f} ms, plain {timed['plain_ms']:.4f} ms, bound "
+        f"{timed['bound_ms']:.5f} ms ({timed['bound_by']} at "
         f"{str(dtype)[6:]}'s rates; {bound_f32_ms:.5f} ms, {bound_f32_by}, "
         f"with the operations at f32's; {nbytes / 1e6:.2f} MB, "
         f"{flops / 1e9:.3f} GFLOP); the wrapper's host time {host_us:.1f} "
         f"us a call; no PyTorch call computes the scan")
-    if not ms_cold >= bound_ms:
-        raise AssertionError(f"{name}'s cold time {ms_cold} ms is below its "
-                             f"bound {bound_ms} ms: the timing is wrong")
+    extra = {}
+    if also_time is not None:
+        case = next(c for c in cases if c[-1] == also_time)
+        args = make(case, gen)[0]
+        extra = {"timed": {"shape": also_time, "path": paths[also_time],
+                           **_scan_time(kernel, plain, make, case, args, gen,
+                                        work)}}
+        t = extra["timed"]
+        log(f"[kernels] {name} at {also_time} [{t['path']} path]: warm "
+            f"{t['ms']:.4f} ms, cold ({t['cold_copies']} copies) "
+            f"{t['ms_cold']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {t['mb']:.2f} MB, "
+            f"{t['gflop']:.3f} GFLOP)")
+        del args
     return {"name": name, "route": "cuda", "launches": None,
-            "max_abs_err": errs[0], "ms": ms, "ms_cold": ms_cold,
-            "cold_copies": n_copies, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_ms_f32_ops": bound_f32_ms, "library_ms": None,
-            "host_us": host_us, "shape": main_label,
+            "max_abs_err": errs[0], "ms": timed["ms"],
+            "ms_cold": timed["ms_cold"], "cold_copies": timed["cold_copies"],
+            "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+            "bound_by": timed["bound_by"], "bound_ms_f32_ops": bound_f32_ms,
+            "library_ms": None, "host_us": host_us, "shape": main_label,
             "path": paths[main_label], "paths": paths,
             "edge_shapes_max_abs_err": max(errs[1:]),
-            "max_abs_err_by_case": by_case}
+            "max_abs_err_by_case": by_case, **extra}
 
 
 def phase_ssd():
     """The SSD scan against its plain version at zamba2's prefill (bf16 x,
     B and C), at its train forward (2 x 1024 tokens from a zero state, as
     ``ssd_scan_train`` calls it) and at edge shapes, on both paths (the
-    bf16 cases but hd 24 take the tensor-core one): y and the last state;
-    timed at zamba2's prefill."""
+    bf16 cases but hd 24 take the tensor-core one), and with x, B and C as
+    views into NaN-filled buffers (a load past a view's rows, head or
+    columns would show as a non-finite output): y and the last state;
+    timed at zamba2's prefill and at its train forward."""
     from repro_torch.kernels import ssm_scan
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     main = (1, PROMPT, 80, 64, 64)      # zamba2: 2 * 2560 / 64 heads, N 64
+    POISONED = "zamba2 prefill bf16, h0, NaN-poisoned views"
     cases = [  # (B, S, H, hd, N, dtype, h0, plain chunk, label)
         main + (bf, False, 256, "zamba2 prefill bf16"),
         main + (f32, True, 256, "zamba2 prefill f32, h0"),
@@ -1085,6 +1118,7 @@ def phase_ssd():
         (1, 40, 2, 24, 48, bf, True, 256, "bf16 hd 24 (not a multiple of 16)"),
         (TRAIN_BATCH, TRAIN_SEQ) + main[2:] + (bf, False, 256,
                                                "zamba2 train bf16"),
+        main + (bf, True, 256, POISONED),
     ]
 
     def make(case, gen):
@@ -1092,6 +1126,16 @@ def phase_ssd():
         x = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
         Bm = torch.randn(B, S, N, generator=gen, device="cuda").to(dtype)
         Cm = torch.randn(B, S, N, generator=gen, device="cuda").to(dtype)
+        if label == POISONED:   # rows, a head and columns of NaN around
+            xbuf = torch.full((B, S + 3, H + 1, hd + 8), float("nan"),
+                              dtype=dtype, device="cuda")
+            bcbuf = torch.full((B, S + 2, 3 * N + 8), float("nan"),
+                               dtype=dtype, device="cuda")
+            views = (xbuf[:, 1:S + 1, 1:, :hd], bcbuf[:, 1:S + 1, 8:8 + N],
+                     bcbuf[:, 1:S + 1, 8 + 2 * N:])
+            for v, t in zip(views, (x, Bm, Cm)):
+                v.copy_(t)
+            x, Bm, Cm = views
         dt = torch.nn.functional.softplus(
             torch.randn(B, S, H, generator=gen, device="cuda"))
         a = -torch.exp(torch.randn(H, generator=gen, device="cuda"))
@@ -1112,7 +1156,7 @@ def phase_ssd():
 
     row = _scan_phase("ssd_scan", ssm_scan.ssd_scan, ssm_scan.ssd_scan_plain,
                       lambda x, dt, a, Bm, Cm: ssm_scan.path(x, Bm), cases,
-                      make, work, seed=8)
+                      make, work, seed=8, also_time="zamba2 train bf16")
     return {**row, "shape": f"B=1 S={PROMPT} H=80 hd=64 N=64 bf16",
             "source": "src/repro_torch/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan.py:21",

@@ -10,6 +10,7 @@
 //     A from shared memory (wgmma_ss, K- or M-major) or registers
 //     (wgmma_rs), B from shared memory, through 64-bit shared-memory
 //     descriptors; its fence, commit_group and wait_group;
+//   * stmatrix, accumulator pairs to shared memory 8 x 8 matrices at a time;
 //   * a named barrier for the threads of some warps (bar.sync id, count);
 //   * setmaxnreg, which moves registers from a producer warpgroup to the
 //     consumers;
@@ -263,7 +264,8 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 // with TRANS_B = 1).
 template <typename T, int N, int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
-  static_assert(N == 64 || N == 128,
+  static_assert(N == 64 || N == 128 ||
+                    (std::is_same<T, __nv_bfloat16>::value && (N == 16 || N == 32)),
                 "the widths written out below");
   if constexpr (std::is_same<T, __nv_bfloat16>::value && N == 64) {
     asm volatile(
@@ -342,6 +344,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value && N == 16) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %12, %11;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value && N == 32) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, "
+      "%16, %17, p, 1, 1, %20, %19;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
   }
 }
@@ -551,6 +575,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
         "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
   }
+}
+
+// ---------------------------------------------------------------- stmatrix
+
+// Stores four 8 x 8 16-bit matrices: lane l gives the address of row l % 8
+// of matrix l / 8 (16 bytes), and r[i] holds this lane's pair of matrix i
+// in mma.sync's C layout (row l / 4, columns 2 (l % 4) and + 1).
+__device__ __forceinline__ void stmatrix_x4(void* p, uint32_t r0, uint32_t r1,
+                                            uint32_t r2, uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(smem_u32(p)),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
 
 // ---------------------------------------------------------------- barriers

@@ -68,11 +68,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
              ctypes.POINTER(ctypes.c_longlong),               # 10 strides
              _c_ptr],                                         # stream
             _c_int),
-        "repro_torch_ssd_scan_tc": (
+        "repro_torch_ssd_walk": (
             [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # x dt a B C h0
-             _c_ptr, _c_ptr, _c_ptr, _c_ptr,                  # y h_last states decay
+             _c_ptr, _c_ptr,                                  # y h_last
              _c_int, _c_int, _c_int, _c_int, _c_int,          # B S H hd N
              ctypes.POINTER(ctypes.c_longlong),               # 10 strides
+             _c_int, _c_int, _c_int,                          # dsl stages smem
+             _c_int, _c_int, _c_int,                          # grid
              _c_ptr],                                         # stream
             _c_int),
     },

@@ -11,11 +11,14 @@ then the chunk's state update.  The CUDA source is
 onto CUDA blocks and what bounds the kernel on an H100.
 
 Two paths, chosen by ``path`` from dtype and shape alone: bf16 x, B and C
-with hd and N multiples of 16 up to 128 (zamba2's prefill) take the
-tensor-core path, Mamba2's chunk-state / state-passing / chunk-scan form in
-three kernels a call, with f32 scratch for each chunk's state from
-``torch.empty``; f32, f16 and other widths take the first port's CUDA-core
-kernel.  A call counts one launch either way.
+with hd and N multiples of 16 up to 128 (zamba2's prefill) take the Hopper
+kernel ``ssd_fwd_walk``, one launch a call: its blocks walk the chunks
+of (batch, head, slice of hd) items in turn with the state in registers,
+their loads through TMA and their products through ``wgmma``, with no
+scratch.  Its launch geometry (``walk_geometry``) and tensor maps
+(``tma_geometry``, run after a refused launch to name the stride) are
+computed here and checked on the CPU.  f32, f16 and other widths take the
+first port's CUDA-core kernel.  A call counts one launch either way.
 
 Beyond the Pallas kernel, which starts from a zero state and returns y
 only, this one takes an initial state ``h0`` and returns the last state
@@ -42,6 +45,7 @@ directions run the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -49,8 +53,13 @@ from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 MAX_STATE = 256       # N: the kernel keeps a chunk of B and C in shared memory
-TC_MAX = 128          # the tensor-core path's largest hd and N
-TC_CHUNK = 64         # its chunk rows: the scratch holds a state a chunk
+TC_MAX = 128          # the Hopper path's largest hd and N
+WALK_CHUNK = 64       # its chunk rows (wgmma's m64)
+WALK_THREADS = 192    # a consumer warpgroup and two producer warps
+WALK_BLOCKS_PER_SM = 2
+SM_SMEM = 233472      # an H100 SM's shared memory, 228 KB
+BLOCK_SMEM_MAX = 232448   # a block's largest opt-in, 227 KB
+BLOCK_SMEM_RESERVED = 1024  # the runtime's own share of each block
 
 launches = 0          # kernel launches in this process (chip_smoke reads it)
 
@@ -81,6 +90,83 @@ def path(x: torch.Tensor, B_: torch.Tensor) -> str:
             and hd <= TC_MAX and N <= TC_MAX):
         return "tensor-core"
     return "cuda-core"
+
+
+def walk_smem_bytes(dsl: int, N: int, stages: int) -> int:
+    """Shared memory of one ``ssd_fwd_walk`` block, as ``walk::Layout`` in
+    ``csrc/ssm_scan.cu`` lays it out: 1024 bytes of alignment slack, the
+    stages (C's and B's 64 x 64 boxes, one or two each, x's 64 x dsl tile
+    and w x's hi and lo tiles), two buffers of the state's hi and lo tiles
+    (64 or 128 rows of dsl), five rows of 64 f32 scalars a stage (dt,
+    cumulative sums, decay factors) and three mbarriers a stage."""
+    mt = 2 if N > 64 else 1
+    x_bytes = WALK_CHUNK * dsl * 2
+    stage = 2 * mt * WALK_CHUNK * 64 * 2 + 3 * x_bytes
+    return (1024 + stages * stage + 4 * mt * 64 * dsl * 2
+            + stages * 5 * WALK_CHUNK * 4 + 3 * stages * 8)
+
+
+def walk_geometry(Bsz: int, H: int, hd: int, N: int, sms: int) -> dict:
+    """The Hopper kernel's launch for hd and N (multiples of 16 up to 128)
+    on a card of ``sms`` SMs.  Its work is ``items``: one (batch, head,
+    slice of ``dsl`` columns of hd) each, dsl 32 where hd allows it, there
+    is an item for every SM and two blocks fit an SM's shared memory (at 2
+    stages: not at hd 128 and N 128), else 16.  The ``grid`` is (blocks,
+    1, 1), two blocks an SM (the kernel's launch bounds), and the blocks
+    take the items in turn: where there are more items than that, an item
+    left over runs on an SM whose other block is done.  ``stages``: 3
+    where two blocks of them fit, else 2; ``smem``: the bytes
+    (``walk_smem_bytes``).  The C entry point refuses a geometry that
+    disagrees with its own layout."""
+    def fit(dsl, stages):
+        return WALK_BLOCKS_PER_SM * (walk_smem_bytes(dsl, N, stages)
+                                     + BLOCK_SMEM_RESERVED) <= SM_SMEM
+
+    dsl = (32 if hd % 32 == 0 and Bsz * H * (hd // 32) >= sms
+           and fit(32, 2) else 16)
+    items = Bsz * H * (hd // dsl)
+    stages = 3 if fit(dsl, 3) else 2
+    return {"dsl": dsl, "stages": stages, "items": items,
+            "smem": walk_smem_bytes(dsl, N, stages),
+            "grid": (min(items, WALK_BLOCKS_PER_SM * sms), 1, 1),
+            "threads": WALK_THREADS}
+
+
+def tma_geometry(x, B_, C, dsl: int) -> dict:
+    """The Hopper kernel's three tensor maps as the C side encodes them from
+    the views' strides: name -> (dims innermost first, byte strides of the
+    outer dims, box).  x: (hd, H, S, B), boxes (dsl, 1, 64, 1); B and C:
+    (N, S, B), boxes (64, 64, 1) (N = 128 takes two a chunk; columns past
+    N and rows past S load as zeros).  A dim of size 1 is never stepped and
+    takes the packed stride.  Raises ``ValueError`` naming a stride TMA
+    cannot take: not a positive multiple of 16 bytes below 2^40."""
+    maps = {}
+    for name, t, axes, box in (
+            ("x", x, (3, 2, 1, 0), (dsl, 1, WALK_CHUNK, 1)),
+            ("B", B_, (2, 1, 0), (64, WALK_CHUNK, 1)),
+            ("C", C, (2, 1, 0), (64, WALK_CHUNK, 1))):
+        item = t.element_size()
+        dims = tuple(int(t.shape[ax]) for ax in axes)
+        packed = -(-dims[0] * item // 16) * 16
+        strides = []
+        for ax, size in zip(axes[1:], dims[1:]):
+            step = int(t.stride(ax)) * item
+            if size == 1:
+                step = packed
+            elif step <= 0 or step % 16 or step >= 1 << 40:
+                raise ValueError(f"{name}.stride({ax}) is {t.stride(ax)} "
+                                 f"elements ({step} bytes): a TMA tensor map "
+                                 f"takes positive multiples of 16 bytes below "
+                                 f"2^40")
+            strides.append(step)
+            packed = step * size
+        maps[name] = (dims, tuple(strides), box)
+    return maps
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ssd_scan_plain(x, dt, a, B_, C, h0=None, *, chunk: int = 256):
@@ -146,7 +232,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     view whose last axis is contiguous, and on the tensor-core path
     (``path``) its rows start on 16 bytes (``ValueError`` otherwise).
     ``chunk`` is the plain version's (the CPU path); the kernels walk their
-    own 64-row chunks.
+    own 64-row chunks.  On the Hopper path every global stride of x, B and
+    C must be a multiple of 16 bytes too (``ValueError`` from
+    ``tma_geometry``, which names the stride).
     """
     global launches
     _check(x, dt, a, B_, C, h0)
@@ -178,11 +266,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if tensor_core:
         for name, t in (("x", x), ("B", B_), ("C", C)):
             build.require_aligned16(name, t)
-        nc = -(-S // TC_CHUNK)
-        states = torch.empty((Bsz, nc, H, hd, N), dtype=torch.float32,
-                             device=x.device)
-        decay = torch.empty((Bsz, nc, H), dtype=torch.float32,
-                            device=x.device)
+        geo = walk_geometry(Bsz, H, hd, N, _sm_count(x.device.index))
     lib = build.load("ssm_scan")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -190,13 +274,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 C.data_ptr(), None if h0 is None else h0.data_ptr(),
                 y.data_ptr(), h_last.data_ptr())
         if tensor_core:
-            rc = lib.repro_torch_ssd_scan_tc(
-                *args, states.data_ptr(), decay.data_ptr(), Bsz, S, H, hd, N,
-                strides, stream)
+            rc = lib.repro_torch_ssd_walk(
+                *args, Bsz, S, H, hd, N, strides, geo["dsl"], geo["stages"],
+                geo["smem"], *geo["grid"], stream)
         else:
             rc = lib.repro_torch_ssd_scan(*args, _DTYPE_CODE[x.dtype], Bsz, S,
                                           H, hd, N, strides, stream)
     if rc != 0:
+        if tensor_core:   # name a stride the tensor maps refused
+            tma_geometry(x, B_, C, geo["dsl"])
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
     launches += 1
     return y, h_last

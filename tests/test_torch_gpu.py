@@ -399,6 +399,19 @@ def _scan_path(dtype, *widths):
     (2, 77, 3, 128, 128, "bfloat16", True),    # the widest it takes
     (1, 130, 4, 16, 48, "bfloat16", False),
     (1, 40, 2, 24, 48, "bfloat16", True),      # hd 24: the CUDA-core path
+    (1, 1, 2, 64, 64, "bfloat16", True),       # one row
+    (1, 10, 2, 64, 64, "bfloat16", False),
+    (1, 63, 2, 64, 64, "bfloat16", True),      # one row short of a chunk
+    (1, 64, 2, 64, 64, "bfloat16", False),     # exactly one chunk
+    (1, 65, 2, 64, 64, "bfloat16", True),      # one row into a second
+    (2, 200, 2, 64, 64, "bfloat16", False),
+    (1, 150, 3, 32, 16, "bfloat16", False),    # N 16
+    (1, 150, 3, 32, 48, "bfloat16", True),     # N 48
+    (1, 150, 3, 32, 128, "bfloat16", False),   # N 128, zero state
+    (1, 150, 3, 16, 64, "bfloat16", True),     # hd 16
+    (1, 150, 3, 128, 64, "bfloat16", False),   # hd 128
+    (1, 64, 80, 128, 128, "bfloat16", True),   # hd, N 128 on every SM: DSL 16
+    (2, 1024, 80, 64, 64, "bfloat16", False),  # zamba2's train forward
 ])
 def test_ssd_kernel_matches_plain(B, S, H, hd, N, dtype, h0):
     _card()
@@ -492,6 +505,46 @@ def test_scan_tensor_core_paths_read_strided_views():
                      logw.contiguous(), u)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,hd,N,h0", [
+    (1, 512, 80, 64, 64, False),   # zamba2's prefill
+    (2, 100, 3, 32, 16, True),
+    (1, 10, 2, 16, 48, True),
+    (1, 77, 2, 128, 128, True),
+])
+def test_ssd_kernel_reads_nothing_past_its_views(B, S, H, hd, N, h0):
+    """x, B and C as views into larger buffers whose other bytes are NaN
+    (rows before and after, a head, columns on each side): a box that
+    reads past its row, batch or head would show as a non-finite y or
+    h_last.  Within 1e-4 of the plain version, one launch."""
+    _card()
+    rng = np.random.RandomState(S + N + 1)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device="cuda")
+    xbuf = torch.full((B, S + 3, H + 1, hd + 8), float("nan"), dtype=bf,
+                      device="cuda")
+    bcbuf = torch.full((B, S + 2, 3 * N + 8), float("nan"), dtype=bf,
+                       device="cuda")
+    x = xbuf[:, 1:S + 1, 1:, :hd]
+    Bm, Cm = bcbuf[:, 1:S + 1, 8:8 + N], bcbuf[:, 1:S + 1, 8 + 2 * N:]
+    for v in (x, Bm, Cm):
+        v.copy_(rnd(*v.shape).to(bf))
+    d = torch.nn.functional.softplus(rnd(B, S, H))
+    a = -torch.exp(rnd(H))
+    state = rnd(B, H, hd, N) if h0 else None
+    before = ssm_scan.launches
+    y, h = ssm_scan.ssd_scan(x, d, a, Bm, Cm, state)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    want_y, want_h = ssm_scan.ssd_scan_plain(x, d, a, Bm, Cm, state)
+    _scan_close(y, want_y)
+    _scan_close(h, want_h)
 
 
 @pytest.mark.gpu

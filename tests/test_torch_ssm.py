@@ -222,15 +222,16 @@ def test_scan_wrappers_reject_what_the_kernels_do_not_take():
 # ---------------------------------------------------------------------------
 # the tensor-core scan kernels' arithmetic, in torch f32 on the CPU
 # ---------------------------------------------------------------------------
-# csrc/ssm_scan.cu and csrc/wkv6.cu run bf16 inputs through three launches:
-# each 64-row chunk's local state, a pass that carries the state over the
-# chunks, and the chunk's output from the state entering it.  Their products
-# run on the tensor cores with f32 sums; every f32 operand goes in as a
-# hi + lo pair of bf16.  The emulations below repeat that arithmetic (the
-# split as roundings to bf16, the products as f32 matmuls) and are held
-# against the plain versions at the kernels' tolerance, 1e-4 of the
-# output's scale.  The kernels themselves run only on a card
-# (tests/test_torch_gpu.py, chip_smoke.py).
+# The bf16 tensor-core kernels' arithmetic.  csrc/ssm_scan.cu walks each
+# (batch, head, slice of hd)'s 64-row chunks in one launch with the state in
+# f32; csrc/wkv6.cu runs three launches: each 64-row chunk's local state, a
+# pass that carries the state over the chunks, and the chunk's output from
+# the state entering it.  Their products run on the tensor cores with f32
+# sums; every f32 operand goes in as a hi + lo pair of bf16.  The
+# emulations below repeat that arithmetic (the split as roundings to bf16,
+# the products as f32 matmuls) and are held against the plain versions at
+# the kernels' tolerance, 1e-4 of the output's scale.  The kernels
+# themselves run only on a card (tests/test_torch_gpu.py, chip_smoke.py).
 
 TC_L, TC_SUB = 64, 16
 
@@ -265,33 +266,51 @@ def _pad_chunks(t, S):
     return torch.cat([t, pad], 1).reshape(t.shape[0], nc, TC_L, *t.shape[2:])
 
 
-def _ssd_tc_emulated(x, dt, a, B_, C, h0, split="hi+lo"):
+def _ssd_walk_emulated(x, dt, a, B_, C, h0, split="hi+lo", dsl=16):
+    """ssd_fwd_walk's arithmetic: per slice of ``dsl`` columns of hd, the
+    state H^T (N x dsl) carried in f32 through the 64-row chunks; per chunk
+    S = C B^T (exact bf16 inputs), G = S exp(cum_t - cum_s) dt_s for s <= t
+    (below the diagonal 16-row block as exp(cum_t - cum_r) exp(cum_r -
+    cum_s) dt_s about r, the last row of s's block; on it masked before the
+    exp), y = exp(cum_t) C H_in^T + G x, then H^T = exp(cum_end) H^T +
+    B^T (w x) with w_s = exp(cum_end - cum_s) dt_s; G, H_in^T and w x are
+    the operands split hi + lo."""
     Bsz, S, H, hd = x.shape
-    N = B_.shape[-1]
     xc, dtc, Bc, Cc = (_pad_chunks(t.float(), S) for t in (x, dt, B_, C))
     nc = xc.shape[1]
     cum = torch.cumsum(dtc * a, dim=2)                 # (B,nc,L,H)
-    cend = cum[:, :, -1]                               # (B,nc,H)
-    # ssd_fwd_state: dH = (w x)^T B, w_s = exp(cum_end - cum_s) dt_s
-    w = torch.exp(cend[:, :, None] - cum) * dtc
-    dH = _mm("bcshd,bcsn->bchdn", w[..., None] * xc, Bc, split, "f32")
-    # ssd_fwd_pass: the state entering each chunk, then the last
-    h = torch.zeros((Bsz, H, hd, N)) if h0 is None else h0.float()
-    h_in = []
-    for c in range(nc):
-        h_in.append(h)
-        h = torch.exp(cend[:, c])[..., None, None] * h + dH[:, c]
-    h_in = torch.stack(h_in, 1)                        # (B,nc,H,hd,N)
-    # ssd_fwd_scan: y = G x + exp(cum_t) C H_in^T
-    cb = torch.einsum("bctn,bcsn->bcts", Cc, Bc)       # exact bf16 inputs
-    delta = cum[:, :, :, None] - cum[:, :, None]       # (B,nc,t,s,H)
-    tri = torch.ones(TC_L, TC_L, dtype=torch.bool).tril()[..., None]
-    G = torch.where(tri, cb[..., None] * torch.exp(delta) *
-                    dtc[:, :, None], torch.zeros(()))
-    y = _mm("bctsh,bcshd->bcthd", G, xc, split, "f32")
-    y = y + torch.exp(cum)[..., None] * _mm(
-        "bctn,bchdn->bcthd", Cc, h_in, "f32", split)
-    return y.reshape(Bsz, nc * TC_L, H, hd)[:, :S], h
+    blk = torch.arange(TC_L) // TC_SUB
+    below = (blk[:, None] > blk[None, :])[..., None]   # (t,s,1)
+    diag = ((blk[:, None] == blk[None, :])
+            & torch.ones(TC_L, TC_L, dtype=torch.bool).tril())[..., None]
+    r = blk * TC_SUB + TC_SUB - 1                      # per column s
+    h = (torch.zeros((Bsz, H, hd, B_.shape[-1])) if h0 is None
+         else h0.float())
+    ys, hs = [], []
+    for d0 in range(0, hd, dsl):
+        ht = h[:, :, d0:d0 + dsl].transpose(-1, -2)    # (B,H,N,dsl)
+        y_slice = []
+        for c in range(nc):
+            cu, dtk = cum[:, c], dtc[:, c]             # (B,L,H)
+            xs = xc[:, c, :, :, d0:d0 + dsl]           # (B,L,H,dsl)
+            cb = torch.einsum("btn,bsn->bts", Cc[:, c], Bc[:, c])[..., None]
+            cur = cu[:, r]                             # (B,s,H): cum_r
+            u = torch.exp(torch.where(below, cu[:, :, None] - cur[:, None],
+                                      float("-inf")))
+            v = torch.exp(cur - cu) * dtk              # (B,s,H)
+            on = torch.exp(torch.where(diag, cu[:, :, None] - cu[:, None],
+                                       float("-inf"))) * dtk[:, None]
+            G = cb * u * v[:, None] + cb * on          # (B,t,s,H)
+            y = torch.exp(cu)[..., None] * _mm(
+                "btn,bhnd->bthd", Cc[:, c], ht, "f32", split)
+            y = y + _mm("btsh,bshd->bthd", G, xs, split, "f32")
+            w = torch.exp(cu[:, -1:] - cu) * dtk
+            ht = torch.exp(cu[:, -1])[..., None, None] * ht + _mm(
+                "bsn,bshd->bhnd", Bc[:, c], w[..., None] * xs, "f32", split)
+            y_slice.append(y)
+        ys.append(torch.cat(y_slice, 1))
+        hs.append(ht.transpose(-1, -2))
+    return torch.cat(ys, -1)[:, :S], torch.cat(hs, 2)
 
 
 def _wkv_tc_emulated(r, k, v, logw, u, s0, split="hi+lo"):
@@ -372,16 +391,22 @@ WKV_TC_SHAPES = [
 ]
 
 
+SSD_WALK_CASES = [(shape, dsl) for shape in SSD_TC_SHAPES + [
+    (1, 512, 2, 64, 64, True),     # zamba2's widths at two heads
+    (1, 77, 2, 128, 128, True),    # the widest: two m64 tiles of the state
+] for dsl in (16, 32) if shape[3] % dsl == 0]
+
+
 @pytest.mark.parametrize("split", ["f32", "hi+lo"])
-@pytest.mark.parametrize("B,S,H,hd,N,h0", SSD_TC_SHAPES)
-def test_ssd_chunk_state_pass_scan_matches_plain(B, S, H, hd, N, h0, split):
-    """The chunk-state / state-passing / chunk-scan form of csrc/ssm_scan.cu
-    over 64-row chunks, its products exact ("f32") and with its f32
-    operands (G, w x, the state) split hi + lo as on the tensor cores, is
-    the plain version's scan within 1e-4 of scale."""
-    args = _ssd_tc_case(B, S, H, hd, N, h0)
+@pytest.mark.parametrize("shape,dsl", SSD_WALK_CASES)
+def test_ssd_chunk_walk_matches_plain(shape, dsl, split):
+    """csrc/ssm_scan.cu's walk over 64-row chunks, one slice of ``dsl``
+    columns of hd at a time with the state in f32, its products exact
+    ("f32") and with G, H_in^T and w x split hi + lo as on the tensor
+    cores, is the plain version's scan within 1e-4 of scale."""
+    args = _ssd_tc_case(*shape)
     want_y, want_h = ssm_scan.ssd_scan_plain(*args)
-    y, h = _ssd_tc_emulated(*args, split=split)
+    y, h = _ssd_walk_emulated(*args, split=split, dsl=dsl)
     assert _within(y, want_y) and _within(h, want_h)
 
 
@@ -403,12 +428,15 @@ def test_wkv6_subchunk_factorisation_matches_plain(B, S, H, hd, s0, floor,
 
 def test_scan_f32_operands_need_the_hi_lo_split():
     """Why the kernels split their f32 operands: fed as one bf16 each (8
-    bits of mantissa), G, the decayed k and r, att and the states move y
+    bits of mantissa), G, w x, the decayed k and r, att and the states move y
     past 1e-4 of its scale; hi + lo holds it (the test above)."""
     args = _ssd_tc_case(1, 128, 2, 32, 32, True)
     want_y, _ = ssm_scan.ssd_scan_plain(*args)
-    assert not _within(_ssd_tc_emulated(*args, split="hi")[0], want_y)
-    assert _within(_ssd_tc_emulated(*args, split="hi+lo")[0], want_y)
+    for dsl in (16, 32):
+        assert not _within(_ssd_walk_emulated(*args, split="hi",
+                                              dsl=dsl)[0], want_y)
+        assert _within(_ssd_walk_emulated(*args, split="hi+lo",
+                                          dsl=dsl)[0], want_y)
     args = _wkv_tc_case(1, 128, 2, 32, True, False)
     want_y, _ = wkv6.wkv6_plain(*args)
     assert not _within(_wkv_tc_emulated(*args, split="hi")[0], want_y)
@@ -439,6 +467,97 @@ def test_scan_paths_follow_dtype_and_shape():
     assert wkv(torch.bfloat16, 40) == "cuda-core"
     assert wkv(torch.float16, 128) == "cuda-core"
     assert wkv(torch.float32, 64) == "cuda-core"
+
+
+SMS = 132                 # an H100 SXM's SMs
+BF = torch.bfloat16
+# (B, S, H, hd, N) of the bf16 cases of chip_smoke.py's phase_ssd and of
+# tests/test_torch_gpu.py's that take the Hopper path
+WALK_SHAPES = [
+    (1, 512, 80, 64, 64),      # zamba2's prefill
+    (2, 1024, 80, 64, 64),     # its train forward
+    (2, 100, 3, 32, 16), (1, 200, 4, 64, 64), (1, 10, 2, 64, 64),
+    (2, 77, 3, 128, 128), (1, 130, 4, 16, 48), (2, 150, 4, 64, 32),
+    (1, 1, 2, 64, 64), (1, 65, 2, 128, 16), (1, 64, 3, 16, 128),
+    (1, 64, 80, 128, 128),     # hd and N 128 with an item for every SM
+]
+
+
+def _poisoned_views(B, S, H, hd, N, device="meta"):
+    """x, B and C as the NaN-poisoned case cuts them: views into larger
+    buffers (rows, heads and columns to spare on every side that the
+    kernel must never read)."""
+    xbuf = torch.empty((B, S + 3, H + 1, hd + 8), dtype=BF, device=device)
+    bcbuf = torch.empty((B, S + 2, 3 * N + 8), dtype=BF, device=device)
+    return (xbuf[:, 1:S + 1, 1:, :hd], bcbuf[:, 1:S + 1, 8:8 + N],
+            bcbuf[:, 1:S + 1, 8 + 2 * N:8 + 3 * N])
+
+
+@pytest.mark.parametrize("B,S,H,hd,N", WALK_SHAPES)
+def test_ssd_walk_launch_geometry(B, S, H, hd, N):
+    """The Hopper SSD kernel's launch as the wrapper computes it: a block
+    per (column slice, head, batch), shared memory within a block's opt-in
+    with two blocks an SM, tensor maps whose strides and box rows are
+    16-byte multiples, on contiguous inputs and on the poisoned views."""
+    x = torch.empty((B, S, H, hd), dtype=BF, device="meta")
+    Bm = torch.empty((B, S, N), dtype=BF, device="meta")
+    assert ssm_scan.path(x, Bm) == "tensor-core"
+    geo = ssm_scan.walk_geometry(B, H, hd, N, SMS)
+    dsl = geo["dsl"]
+    assert dsl in (16, 32) and hd % dsl == 0
+    assert geo["items"] == B * H * (hd // dsl)
+    assert geo["grid"] == (min(geo["items"], 2 * SMS), 1, 1)
+    assert geo["threads"] == ssm_scan.WALK_THREADS == 192
+    assert geo["stages"] in (2, 3)
+    assert geo["smem"] == ssm_scan.walk_smem_bytes(dsl, N, geo["stages"])
+    assert geo["smem"] <= ssm_scan.BLOCK_SMEM_MAX == 232448
+    assert 2 * (geo["smem"] + ssm_scan.BLOCK_SMEM_RESERVED) <= \
+        ssm_scan.SM_SMEM
+    for views in ((x, Bm, Bm), _poisoned_views(B, S, H, hd, N)):
+        maps = ssm_scan.tma_geometry(*views, dsl)
+        assert maps["x"][0] == (hd, H, S, B) and maps["B"][0] == (N, S, B)
+        assert maps["x"][2] == (dsl, 1, 64, 1)
+        assert maps["B"][2] == maps["C"][2] == (64, 64, 1)
+        for dims, strides, box in maps.values():
+            assert len(strides) == len(dims) - 1
+            assert all(st > 0 and st % 16 == 0 for st in strides)
+            assert box[0] * 2 in (32, 64, 128)
+
+
+@pytest.mark.parametrize("B,H,hd,N,dsl,stages,blocks", [
+    (1, 80, 64, 64, 32, 3, 160),    # zamba2's prefill: 160 items
+    (2, 80, 64, 64, 32, 3, 264),    # its train forward: 320 items
+    (1, 2, 64, 64, 16, 3, 8),       # too few items at 32: 16
+    (1, 80, 128, 128, 16, 2, 264),  # N > 64: two m64 state tiles, 2 stages;
+                                    # two blocks at 32 do not fit: 640 items
+    (2, 3, 128, 128, 16, 2, 48),
+    (1, 40, 48, 32, 16, 3, 120),    # hd 48: 32 does not divide it
+])
+def test_ssd_walk_geometry_rule(B, H, hd, N, dsl, stages, blocks):
+    """The rule the source header states: dsl 32 where it divides hd,
+    gives every SM an item and two such blocks fit an SM at two stages,
+    else 16; three stages where two blocks fit an SM, else two; two blocks
+    an SM, which take the items in turn."""
+    geo = ssm_scan.walk_geometry(B, H, hd, N, SMS)
+    assert (geo["dsl"], geo["stages"]) == (dsl, stages)
+    assert geo["items"] == B * H * (hd // dsl)
+    assert geo["grid"] == (blocks, 1, 1)
+
+
+def test_ssd_walk_tma_geometry_names_the_stride_it_cannot_take():
+    """A stride TMA cannot take is named (the wrapper asks once the C side
+    has refused the launch); an axis of size 1 is never stepped, so its
+    stride does not matter."""
+    x = torch.empty((1, 8, 2, 68), dtype=BF, device="meta")[..., :64]
+    Bm = torch.empty((1, 8, 16), dtype=BF, device="meta")
+    with pytest.raises(ValueError, match=r"x\.stride\(2\) is 68"):
+        ssm_scan.tma_geometry(x, Bm, Bm, 32)
+    narrow = torch.empty((1, 8, 20), dtype=BF, device="meta")[..., :16]
+    with pytest.raises(ValueError, match=r"C\.stride\(1\) is 20"):
+        ssm_scan.tma_geometry(x[:, :, :, :64].contiguous(), Bm, narrow, 32)
+    one_head = torch.empty((1, 8, 1, 72), dtype=BF, device="meta")[..., :64]
+    maps = ssm_scan.tma_geometry(one_head, Bm, Bm, 32)
+    assert maps["x"][1][:2] == (128, 144)   # heads: a packed 64-wide row
 
 
 # ---------------------------------------------------------------------------
