@@ -1167,11 +1167,14 @@ def phase_wkv():
     """WKV6 against its plain version at rwkv6's prefill (bf16 r, k, v), at
     its train forward (2 x 1024 tokens from a zero state, as ``wkv6_train``
     calls it) and at edge shapes, on both paths (the bf16 cases but hd 40
-    take the tensor-core one): y and the last state; timed at rwkv6's
-    prefill."""
+    take the tensor-core one), and with r, k, v and logw as views into
+    NaN-filled buffers (a load past a view's rows, head or columns would
+    show as a non-finite output): y and the last state; timed at rwkv6's
+    prefill and at its train forward."""
     from repro_torch.kernels import wkv6
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     main = (1, PROMPT, 32, 64)          # rwkv6: 2048 / 64 heads
+    POISONED = "rwkv6 prefill bf16, s0, NaN-poisoned views"
     cases = [  # (B, S, H, hd, dtype, s0, logw at the -8 floor, chunk, label)
         main + (bf, False, False, 64, "rwkv6 prefill bf16"),
         main + (f32, True, False, 64, "rwkv6 prefill f32, s0"),
@@ -1188,6 +1191,7 @@ def phase_wkv():
         (2, 50, 3, 40, bf, True, False, 64, "bf16 hd 40 (not a multiple of 16)"),
         (TRAIN_BATCH, TRAIN_SEQ) + main[2:] + (bf, False, False, 64,
                                                "rwkv6 train bf16"),
+        main + (bf, True, False, 64, POISONED),
     ]
 
     def make(case, gen):
@@ -1198,6 +1202,17 @@ def phase_wkv():
                                                   device="cuda")), min=-8.0)
         if floor:
             logw = torch.full_like(logw, -8.0)
+        if label == POISONED:   # rows, a head and columns of NaN around
+            bbuf = torch.full((B, S + 3, H + 1, 3 * hd + 16), float("nan"),
+                              dtype=dtype, device="cuda")
+            fbuf = torch.full((B, S + 3, H + 1, hd + 16), float("nan"),
+                              device="cuda")
+            views = tuple(bbuf[:, 1:S + 1, 1:, 8 + i * hd:8 + (i + 1) * hd]
+                          for i in range(3)) + (fbuf[:, 1:S + 1, 1:,
+                                                     4:4 + hd],)
+            for view, t in zip(views, (r, k, v, logw)):
+                view.copy_(t)
+            r, k, v, logw = views
         u = torch.randn(H, hd, generator=gen, device="cuda")
         state = (torch.randn(B, H, hd, hd, generator=gen, device="cuda")
                  if s0 else None)
@@ -1216,7 +1231,7 @@ def phase_wkv():
 
     row = _scan_phase("wkv6", wkv6.wkv6, wkv6.wkv6_plain,
                       lambda r, k, v, logw, u: wkv6.path(r), cases, make, work,
-                      seed=9)
+                      seed=9, also_time="rwkv6 train bf16")
     return {**row, "shape": f"B=1 S={PROMPT} H=32 hd=64 bf16",
             "source": "src/repro_torch/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/wkv6.py:21",

@@ -1,6 +1,6 @@
 // Hopper's own building blocks (sm_90a) as small inline-PTX wrappers, for
 // the port's kernels that are designed for the H100 (flash_attention.cu,
-// moe_gmm.cu):
+// moe_gmm.cu, ssm_scan.cu, wkv6.cu):
 //   * mbarrier: init, arrive, arrive.expect_tx, try_wait.parity (the full
 //     and empty barriers of a pipeline of shared-memory stages);
 //   * TMA: cp.async.bulk.tensor loads (2-5-D, completed on an mbarrier)
@@ -12,11 +12,15 @@
 //     descriptors; its fence, commit_group and wait_group;
 //   * stmatrix, accumulator pairs to shared memory 8 x 8 matrices at a time;
 //   * a named barrier for the threads of some warps (bar.sync id, count);
+//   * thread block clusters: the block's rank, barrier.cluster, mapa, and
+//     st.async into another block's shared memory completed on its
+//     mbarrier, and a wait that acquires at cluster scope;
 //   * setmaxnreg, which moves registers from a producer warpgroup to the
 //     consumers;
 //   * on the host, cuTensorMapEncodeTiled reached through the runtime's
 //     cudaGetDriverEntryPoint, so a library built with nvcc alone (no
-//     -lcuda) encodes tensor maps.
+//     -lcuda) encodes tensor maps (16-bit swizzled, f32 unswizzled), and
+//     encode_view over a strided view's element strides.
 //
 // Shared-memory layouts that wgmma reads (a "swizzle span" is 32, 64 or
 // 128 bytes: 16, 32 or 64 16-bit elements).  A tile is stored as column
@@ -599,6 +603,70 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ---------------------------------------------------------------- clusters
+
+// This block's rank in its thread block cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits for all:
+// writes before the arrive (shared memory of any block, mbarrier inits)
+// are visible after the wait.  A block must not exit while another may
+// still reach into its shared memory.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of the same offset as p in block `rank`.
+__device__ __forceinline__ uint32_t mapa(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// 16 bytes to a shared::cluster address, completing their bytes on the
+// mbarrier at bar (a shared::cluster address in the same block) when they
+// land: the receiver, which set the barrier's expect_tx itself (the
+// transaction count may run negative until then), waits on it; the sender
+// waits on nothing.
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait for a phase completed by other blocks (their arrivals and
+// st.async bytes): acquires at cluster scope what they released.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  auto ready = [&] {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    return done != 0;
+  };
+  if (ready()) return;
+  const long long start = clock64();
+  while (!ready())
+    if (clock64() - start > (1LL << 36)) __trap();
+}
+
 // ---------------------------------------------------------------- setmaxnreg
 
 // All four warps of a warpgroup execute these together.  Registers freed
@@ -642,24 +710,16 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor map of `rank` dims over 16-bit elements at ptr: dims innermost
-// first, byte strides of dims 1.. (multiples of 16), a box of `box`
-// elements a dim; the box's inner extent (box[0] x 2 bytes) is the swizzle
-// span, 32, 64 or 128 bytes.  Elements outside the dims load as zeros.
-inline cudaError_t encode_map16(CUtensorMap* map, bool bf16, int rank,
-                                const void* ptr, const uint64_t* dims,
-                                const uint64_t* strides,
-                                const uint32_t* box) {
+// A tensor map of `rank` dims (2-5) at ptr: dims innermost first, byte
+// strides of dims 1.. (multiples of 16), a box of `box` elements a dim.
+// Elements outside the dims load as zeros.
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                              CUtensorMapSwizzle swizzle, int rank,
+                              const void* ptr, const uint64_t* dims,
+                              const uint64_t* strides, const uint32_t* box) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const int span = static_cast<int>(box[0]) * 2;
-  const CUtensorMapSwizzle swizzle =
-      span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-      : span == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
-                   : CU_TENSOR_MAP_SWIZZLE_NONE;
-  if (swizzle == CU_TENSOR_MAP_SWIZZLE_NONE || rank < 2 || rank > 5)
-    return cudaErrorInvalidValue;
+  if (rank < 2 || rank > 5) return cudaErrorInvalidValue;
   cuuint64_t d[5], s[4];
   cuuint32_t b[5], e[5];
   for (int i = 0; i < rank; ++i) {
@@ -669,12 +729,65 @@ inline cudaError_t encode_map16(CUtensorMap* map, bool bf16, int rank,
     if (i + 1 < rank) s[i] = strides[i];
   }
   const CUresult r = encode(
-      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-      static_cast<cuuint32_t>(rank), const_cast<void*>(ptr), d, s, b, e,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(ptr), d, s,
+      b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Over 16-bit elements, the box's inner extent (box[0] x 2 bytes) being
+// the swizzle span, 32, 64 or 128 bytes.
+inline cudaError_t encode_map16(CUtensorMap* map, bool bf16, int rank,
+                                const void* ptr, const uint64_t* dims,
+                                const uint64_t* strides,
+                                const uint32_t* box) {
+  const int span = static_cast<int>(box[0]) * 2;
+  const CUtensorMapSwizzle swizzle =
+      span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : span == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                   : CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (swizzle == CU_TENSOR_MAP_SWIZZLE_NONE) return cudaErrorInvalidValue;
+  return encode_map(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                              : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                    swizzle, rank, ptr, dims, strides, box);
+}
+
+// Over f32 elements, unswizzled: rows of box[0] x 4 bytes (a multiple of
+// 16) packed one after another in shared memory.
+inline cudaError_t encode_map32(CUtensorMap* map, int rank, const void* ptr,
+                                const uint64_t* dims,
+                                const uint64_t* strides,
+                                const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                    CU_TENSOR_MAP_SWIZZLE_NONE, rank, ptr, dims, strides,
+                    box);
+}
+
+// A tensor map over a strided view (bf16, or f32 with `f32`): dims
+// innermost first, `steps` the element strides of dims 1.., a box of `box`
+// elements a dim.  A dim of size 1 is never stepped, so it takes the
+// packed stride whatever the view says; a stride TMA cannot take (not a
+// positive multiple of 16 bytes below 2^40) is refused, and the wrapper
+// names it (kernels/build.py tma_map).
+inline cudaError_t encode_view(CUtensorMap* map, bool f32, int rank,
+                               const void* ptr, const uint64_t* dims,
+                               const long long* steps, const uint32_t* box) {
+  const int item = f32 ? 4 : 2;
+  uint64_t strides[4];
+  uint64_t packed = (item * dims[0] + 15) / 16 * 16;
+  for (int i = 1; i < rank; ++i) {
+    const long long bytes = steps[i - 1] * item;
+    if (dims[i] == 1)
+      strides[i - 1] = packed;
+    else if (bytes <= 0 || bytes % 16 || bytes >= (1ll << 40))
+      return cudaErrorInvalidValue;
+    else
+      strides[i - 1] = static_cast<uint64_t>(bytes);
+    packed = strides[i - 1] * dims[i];
+  }
+  return f32 ? encode_map32(map, rank, ptr, dims, strides, box)
+             : encode_map16(map, true, rank, ptr, dims, strides, box);
 }
 
 }  // namespace hopper

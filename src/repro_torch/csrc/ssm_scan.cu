@@ -831,29 +831,6 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   }
 }
 
-// A tensor map over 16-bit elements: dims innermost first, the element
-// strides of dims 1.. (steps), the box.  A dim of size 1 is never stepped,
-// so it takes the packed stride whatever the view says; a stride TMA
-// cannot take (not a positive multiple of 16 bytes below 2^40) is refused
-// (kernels/ssm_scan.py tma_geometry then names it).
-inline cudaError_t encode(CUtensorMap* map, const void* ptr, int rank,
-                          const uint64_t* dims, const long long* steps,
-                          const uint32_t* box) {
-  uint64_t strides[4];
-  uint64_t packed = (2 * dims[0] + 15) / 16 * 16;
-  for (int i = 1; i < rank; ++i) {
-    const long long bytes = steps[i - 1] * 2;
-    if (dims[i] == 1)
-      strides[i - 1] = packed;
-    else if (bytes <= 0 || bytes % 16 || bytes >= (1ll << 40))
-      return cudaErrorInvalidValue;
-    else
-      strides[i - 1] = static_cast<uint64_t>(bytes);
-    packed = strides[i - 1] * dims[i];
-  }
-  return hopper::encode_map16(map, true, rank, ptr, dims, strides, box);
-}
-
 template <int DSL, int MT>
 cudaError_t launch(const Args& a, const void* x, const void* B,
                    const void* C, const long long* st, int Bsz, int smem,
@@ -876,9 +853,11 @@ cudaError_t launch(const Args& a, const void* x, const void* B,
                           static_cast<uint64_t>(Bsz)};
   const long long bs[2] = {st[7], st[6]}, cs[2] = {st[9], st[8]};
   const uint32_t nbox[3] = {NBOX, L, 1};
-  e = encode(&maps[0], x, 4, xd, xs, xbox);
-  if (e == cudaSuccess) e = encode(&maps[1], B, 3, nd, bs, nbox);
-  if (e == cudaSuccess) e = encode(&maps[2], C, 3, nd, cs, nbox);
+  e = hopper::encode_view(&maps[0], false, 4, x, xd, xs, xbox);
+  if (e == cudaSuccess)
+    e = hopper::encode_view(&maps[1], false, 3, B, nd, bs, nbox);
+  if (e == cudaSuccess)
+    e = hopper::encode_view(&maps[2], false, 3, C, nd, cs, nbox);
   if (e != cudaSuccess) return e;
   kernel<<<blocks, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], a);
   return cudaGetLastError();

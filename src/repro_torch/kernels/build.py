@@ -86,12 +86,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
              ctypes.POINTER(ctypes.c_longlong),               # 12 strides
              _c_ptr],                                         # stream
             _c_int),
-        "repro_torch_wkv6_tc": (
+        "repro_torch_wkv6_walk": (
             [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # r k v logw u s0
-             _c_ptr, _c_ptr, _c_ptr, _c_ptr,                  # y s_last states decay
+             _c_ptr, _c_ptr,                                  # y s_last
              _c_int, _c_int, _c_int, _c_int,                  # B S H hd
              ctypes.POINTER(ctypes.c_longlong),               # 12 strides
+             _c_int, _c_int, _c_int, _c_int, _c_int,          # slices cluster
+                                                              # stages smem
+             _c_int, _c_int, _c_int, _c_int,                  # grid threads
              _c_ptr],                                         # stream
+            _c_int),
+        "repro_torch_wkv6_max_clusters": (
+            [_c_int, ctypes.POINTER(ctypes.c_int)],          # cluster out
             _c_int),
     },
     "moe_gmm": {
@@ -150,6 +156,31 @@ def require_aligned16(name: str, t) -> None:
                              f"elements ({t.stride(dim) * item} bytes), not a "
                              f"multiple of 16 bytes: the kernel copies "
                              f"16-byte chunks")
+
+
+def tma_map(name: str, t, axes, box) -> tuple:
+    """A scan kernel's TMA tensor map of view ``t`` as its C side encodes
+    it: (dims of ``axes``, innermost first; byte strides of the outer dims;
+    ``box``).  A dim of size 1 is never stepped and takes the packed
+    stride (the rows inside it, rounded up to 16 bytes).  Raises
+    ``ValueError`` naming a stride TMA cannot take: not a positive
+    multiple of 16 bytes below 2^40."""
+    item = t.element_size()
+    dims = tuple(int(t.shape[ax]) for ax in axes)
+    packed = -(-dims[0] * item // 16) * 16
+    strides = []
+    for ax, size in zip(axes[1:], dims[1:]):
+        step = int(t.stride(ax)) * item
+        if size == 1:
+            step = packed
+        elif step <= 0 or step % 16 or step >= 1 << 40:
+            raise ValueError(f"{name}.stride({ax}) is {t.stride(ax)} "
+                             f"elements ({step} bytes): a TMA tensor map "
+                             f"takes positive multiples of 16 bytes below "
+                             f"2^40")
+        strides.append(step)
+        packed = step * size
+    return dims, tuple(strides), tuple(box)
 
 
 def library_path(name: str) -> Path:

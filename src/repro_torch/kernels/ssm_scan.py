@@ -140,28 +140,11 @@ def tma_geometry(x, B_, C, dsl: int) -> dict:
     N and rows past S load as zeros).  A dim of size 1 is never stepped and
     takes the packed stride.  Raises ``ValueError`` naming a stride TMA
     cannot take: not a positive multiple of 16 bytes below 2^40."""
-    maps = {}
-    for name, t, axes, box in (
-            ("x", x, (3, 2, 1, 0), (dsl, 1, WALK_CHUNK, 1)),
-            ("B", B_, (2, 1, 0), (64, WALK_CHUNK, 1)),
-            ("C", C, (2, 1, 0), (64, WALK_CHUNK, 1))):
-        item = t.element_size()
-        dims = tuple(int(t.shape[ax]) for ax in axes)
-        packed = -(-dims[0] * item // 16) * 16
-        strides = []
-        for ax, size in zip(axes[1:], dims[1:]):
-            step = int(t.stride(ax)) * item
-            if size == 1:
-                step = packed
-            elif step <= 0 or step % 16 or step >= 1 << 40:
-                raise ValueError(f"{name}.stride({ax}) is {t.stride(ax)} "
-                                 f"elements ({step} bytes): a TMA tensor map "
-                                 f"takes positive multiples of 16 bytes below "
-                                 f"2^40")
-            strides.append(step)
-            packed = step * size
-        maps[name] = (dims, tuple(strides), box)
-    return maps
+    return {name: build.tma_map(name, t, axes, box)
+            for name, t, axes, box in (
+                ("x", x, (3, 2, 1, 0), (dsl, 1, WALK_CHUNK, 1)),
+                ("B", B_, (2, 1, 0), (64, WALK_CHUNK, 1)),
+                ("C", C, (2, 1, 0), (64, WALK_CHUNK, 1)))}
 
 
 @functools.lru_cache(maxsize=None)

@@ -12,12 +12,17 @@ then the chunk's state update.  The CUDA source is
 CUDA blocks and what bounds the kernel on an H100.
 
 Two paths, chosen by ``path`` from dtype and shape alone: bf16 r, k and v
-with hd a multiple of 16 up to 128 (rwkv6's prefill) take the tensor-core
-path, the chunk-state / state-passing / chunk-scan form in three kernels a
-call over 64-row chunks of 16-row sub-chunks, with f32 scratch for each
-chunk's state from ``torch.empty``; f32, f16 and other widths take the
-first port's CUDA-core kernel (32-row chunks).  A call counts one launch
-either way.
+with hd a multiple of 16 up to 128 (rwkv6's prefill) take the Hopper
+kernel ``wkv_fwd_walk``, one launch a call and no scratch: a thread block
+cluster a (batch, head), whose blocks build its 64-row chunks in parallel
+(each chunk's decay work once, its decays as products of ``w``; loads
+through TMA, products through ``wgmma``) while the state passes from
+block to block through distributed shared memory.  Its launch geometry
+(``walk_geometry``, the cluster size from what the card fits at once) and
+tensor maps (``tma_geometry``, run after a refused launch to name the
+stride) are computed here and checked on the CPU.  f32, f16 and other
+widths take the first port's CUDA-core kernel (32-row chunks).  A call
+counts one launch either way.
 
 Beyond the Pallas kernel, which starts from a zero state and returns y
 only, this one takes an initial state ``s0`` and returns the last state in
@@ -42,6 +47,7 @@ directions run the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -50,7 +56,10 @@ from repro_torch.kernels.ssm_scan import _recompute_grads
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 MAX_HEAD_DIM = 128    # the kernels keep a chunk's (rows, hd) tiles in shared memory
-TC_CHUNK = 64         # the tensor-core path's chunk rows: a state a chunk
+WALK_CHUNK = 64       # the Hopper kernel's chunk rows (wgmma's m64)
+WALK_BOX = 64         # its TMA boxes' channels, and a consumer's columns
+WALK_WARPGROUP = 128  # threads: the att warpgroups, then a consumer a slice
+BLOCK_SMEM_MAX = 232448   # a block's largest opt-in on an H100, 227 KB
 
 launches = 0          # kernel launches in this process (chip_smoke reads it)
 
@@ -78,6 +87,88 @@ def path(r: torch.Tensor) -> str:
     if r.dtype == torch.bfloat16 and hd % 16 == 0 and hd <= MAX_HEAD_DIM:
         return "tensor-core"
     return "cuda-core"
+
+
+def walk_smem_bytes(slices: int, stages_in: int, stages_c: int,
+                    cluster: int) -> int:
+    """Shared memory of one ``wkv_fwd_walk`` block, as ``walk::Layout`` in
+    ``csrc/wkv6.cu`` lays it out: 1024 bytes of alignment slack; input
+    stages of r's and k's bf16 boxes and logw's f32 box (64 rows x 64
+    channels, a box per slice each); consumer stages of v's boxes, q and
+    kd hi and lo (a box per slice each), att hi and lo (one box each) and
+    e_end, rounded up to 1024 bytes; r P8 (64 rows of 64 slices + 8 f32),
+    Wh (8 x 64 slices f32: each 8-row half's product of w), k~8 hi and lo
+    (32 rows of 128 bytes a slice each), in a cluster the inbox of the
+    state (64 x 64 f32), and one mbarrier an input stage, two a consumer
+    stage and one for the state."""
+    box = WALK_CHUNK * WALK_BOX * 2          # a bf16 box; logw's f32 is two
+    in_bytes = slices * (2 * box + 2 * box)
+    c_bytes = -(-(5 * slices * box + 2 * box + 256 * slices) // 1024) * 1024
+    rp = WALK_CHUNK * (WALK_BOX * slices + 8) * 4
+    inbox = WALK_BOX * WALK_BOX * 4 if cluster > 1 else 0
+    return (1024 + stages_in * in_bytes + stages_c * c_bytes + rp
+            + 8 * WALK_BOX * slices * 4 + 2 * 32 * 128 * slices + inbox
+            + (stages_in + 2 * stages_c + 1) * 8)
+
+
+def walk_geometry(B: int, S: int, H: int, hd: int, max_clusters) -> dict:
+    """The Hopper kernel's launch for hd a multiple of 16 up to 128.  An
+    item is one (batch, head), walked by a thread block ``cluster`` of
+    blocks: block rho builds chunks rho, rho + cluster, ... (the work the
+    state does not enter) and the state passes from block to block through
+    distributed shared memory.  ``cluster`` is the largest, at most 8 and
+    at most the chunks, whose clusters all fit on the card at once for
+    every item (``max_clusters(n)``: the card's count for clusters of n
+    blocks; an H100's GPCs take 30 of 4 blocks, not 33); 1 where none does
+    and past hd 64.  ``grid``: (items x cluster, 1, 1).  ``slices``: the
+    consumer warpgroups, 64 columns of v (``dsl``) each, 1 up to hd 64 and
+    2 past it; ``threads``: 384, the att warpgroups (two at one slice, one
+    at two) and one a slice.
+    ``stages``: (input, consumer) stages, (2, 2) at one slice and (1, 1) at
+    two, the most that fit a block's shared memory; ``smem``: the bytes
+    (``walk_smem_bytes``).  The C entry point refuses a geometry that
+    disagrees with its own layout."""
+    slices = -(-hd // WALK_BOX)
+    chunks = -(-S // WALK_CHUNK)
+    items = B * H
+    cluster = 1
+    if slices == 1:
+        for n in range(min(8, chunks), 1, -1):
+            if max_clusters(n) >= items:
+                cluster = n
+                break
+    stages = (2, 2) if slices == 1 else (1, 1)
+    return {"dsl": WALK_BOX, "slices": slices, "cluster": cluster,
+            "stages": stages, "items": items,
+            "smem": walk_smem_bytes(slices, *stages, cluster),
+            "grid": (items * cluster, 1, 1),
+            "threads": WALK_WARPGROUP * 3}
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(index: int, n: int) -> int:
+    """The card's count of co-resident clusters of n walk blocks."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = build.load("wkv6").repro_torch_wkv6_max_clusters(
+            n, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"wkv6 cluster occupancy query failed: CUDA error "
+                           f"{rc}")
+    return out.value
+
+
+def tma_geometry(r, k, v, logw) -> dict:
+    """The Hopper kernel's four tensor maps as the C side encodes them from
+    the views' strides: name -> (dims innermost first, byte strides of the
+    outer dims, box).  Each is over (hd, H, S, B) in boxes of (64, 1, 64,
+    1): r, k and v bf16, logw f32; channels past hd and rows past S load as
+    zeros.  A dim of size 1 is never stepped and takes the packed stride.
+    Raises ``ValueError`` naming a stride TMA cannot take: not a positive
+    multiple of 16 bytes below 2^40."""
+    return {name: build.tma_map(name, t, (3, 2, 1, 0),
+                                (WALK_BOX, 1, WALK_CHUNK, 1))
+            for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw))}
 
 
 def wkv6_plain(r, k, v, logw, u, s0=None, *, chunk: int = 64):
@@ -140,7 +231,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logw may be a strided view whose last axis is contiguous, and on the
     tensor-core path (``path``) its rows start on 16 bytes (``ValueError``
     otherwise).  ``chunk`` is the plain version's (the CPU path); the
-    kernels walk their own chunks.
+    kernels walk their own chunks.  On the Hopper path every global stride
+    of r, k, v and logw must be a multiple of 16 bytes too (``ValueError``
+    from ``tma_geometry``, which names the stride).
     """
     global launches
     _check(r, k, v, logw, u, s0)
@@ -172,11 +265,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tensor_core:
         for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
             build.require_aligned16(name, t)
-        nc = -(-S // TC_CHUNK)
-        states = torch.empty((B, nc, H, hd, hd), dtype=torch.float32,
-                             device=r.device)
-        decay = torch.empty((B, nc, H, hd), dtype=torch.float32,
-                            device=r.device)
+        geo = walk_geometry(B, S, H, hd, functools.partial(
+            _max_clusters, r.device.index))
     lib = build.load("wkv6")
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -184,13 +274,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 u.data_ptr(), None if s0 is None else s0.data_ptr(),
                 y.data_ptr(), s_last.data_ptr())
         if tensor_core:
-            rc = lib.repro_torch_wkv6_tc(
-                *args, states.data_ptr(), decay.data_ptr(), B, S, H, hd,
-                strides, stream)
+            rc = lib.repro_torch_wkv6_walk(
+                *args, B, S, H, hd, strides, geo["slices"], geo["cluster"],
+                *geo["stages"], geo["smem"], *geo["grid"], geo["threads"],
+                stream)
         else:
             rc = lib.repro_torch_wkv6(*args, _DTYPE_CODE[r.dtype], B, S, H,
                                       hd, strides, stream)
     if rc != 0:
+        if tensor_core:   # name a stride the tensor maps refused
+            tma_geometry(r, k, v, logw)
         raise RuntimeError(f"wkv6 launch failed: CUDA error {rc}")
     launches += 1
     return y, s_last

@@ -473,6 +473,86 @@ def test_wkv6_kernel_matches_plain(B, S, H, hd, dtype, s0, floor):
     _scan_close(s, want_s)
 
 
+def _wkv_walk_inputs(B, S, H, hd, s0, rng, poison=False):
+    """bf16 r, k, v and f32 logw, u and s0 (or None) on the card; with
+    ``poison`` r, k, v and logw are views into larger NaN-filled buffers:
+    rows before and after, a head, and columns on each side."""
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device="cuda")
+    if poison:
+        bbuf = torch.full((B, S + 3, H + 1, 3 * hd + 16), float("nan"),
+                          dtype=bf, device="cuda")
+        fbuf = torch.full((B, S + 3, H + 1, hd + 16), float("nan"),
+                          device="cuda")
+        r, k, v = (bbuf[:, 1:S + 1, 1:, 8 + i * hd:8 + (i + 1) * hd]
+                   for i in range(3))
+        logw = fbuf[:, 1:S + 1, 1:, 4:4 + hd]
+        for t in (r, k, v):
+            t.copy_(rnd(*t.shape).to(bf))
+        logw.copy_(torch.clamp(-torch.exp(rnd(*logw.shape)), min=-8.0))
+    else:
+        r, k, v = (rnd(B, S, H, hd).to(bf) for _ in range(3))
+        logw = torch.clamp(-torch.exp(rnd(B, S, H, hd)), min=-8.0)
+    return (r, k, v, logw, rnd(H, hd)), (rnd(B, H, hd, hd) if s0 else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,hd,s0", [
+    (1, 1, 2, 64, True),       # one row
+    (1, 63, 2, 64, False),     # one chunk but a row
+    (1, 64, 2, 64, True),      # one whole chunk
+    (1, 65, 2, 64, True),      # a chunk and a row: a cluster of 2
+    (1, 130, 2, 16, True), (1, 130, 2, 16, False),
+    (1, 150, 3, 32, True), (1, 150, 3, 32, False),
+    (2, 300, 4, 128, True), (2, 300, 4, 128, False),
+    (2, 1024, 32, 64, False),  # rwkv6's train forward
+])
+def test_wkv6_walk_edges_match_plain(B, S, H, hd, s0):
+    """The Hopper WKV6 kernel at its edges (S around a chunk, hd 16, 32
+    and 128, with and without s0) and at the train shape: one launch, y
+    and s_last within 1e-4 of the plain version's scale."""
+    _card()
+    args, state = _wkv_walk_inputs(B, S, H, hd, s0,
+                                   np.random.RandomState(S + hd))
+    assert wkv6.path(args[0]) == "tensor-core"
+    before = wkv6.launches
+    y, s = wkv6.wkv6(*args, state)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    want_y, want_s = wkv6.wkv6_plain(*args, state)
+    _scan_close(y, want_y)
+    _scan_close(s, want_s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,hd,s0", [
+    (1, 512, 32, 64, False),   # rwkv6's prefill
+    (2, 100, 3, 16, True),
+    (1, 10, 2, 64, True),
+    (1, 77, 2, 128, True),
+])
+def test_wkv6_kernel_reads_nothing_past_its_views(B, S, H, hd, s0):
+    """r, k, v and logw as views into larger buffers whose other elements
+    are NaN: a box that read past its rows, head or columns would show as
+    a non-finite y or s_last.  Within 1e-4 of the plain version, one
+    launch."""
+    _card()
+    args, state = _wkv_walk_inputs(B, S, H, hd, s0,
+                                   np.random.RandomState(S + hd + 1),
+                                   poison=True)
+    before = wkv6.launches
+    y, s = wkv6.wkv6(*args, state)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    want_y, want_s = wkv6.wkv6_plain(*args, state)
+    _scan_close(y, want_y)
+    _scan_close(s, want_s)
+
+
 @pytest.mark.gpu
 def test_scan_tensor_core_paths_read_strided_views():
     """x, B and C (SSD) and r, k, v and logw (WKV6) as views into wider

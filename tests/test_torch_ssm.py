@@ -224,16 +224,16 @@ def test_scan_wrappers_reject_what_the_kernels_do_not_take():
 # ---------------------------------------------------------------------------
 # The bf16 tensor-core kernels' arithmetic.  csrc/ssm_scan.cu walks each
 # (batch, head, slice of hd)'s 64-row chunks in one launch with the state in
-# f32; csrc/wkv6.cu runs three launches: each 64-row chunk's local state, a
-# pass that carries the state over the chunks, and the chunk's output from
-# the state entering it.  Their products run on the tensor cores with f32
-# sums; every f32 operand goes in as a hi + lo pair of bf16.  The
+# f32; csrc/wkv6.cu walks each (batch, head)'s 64-row chunks in one launch,
+# its decays as products of w = exp(logw) factored about block and half
+# boundaries, the state in f32.  Their products run on the tensor cores with
+# f32 sums; every f32 operand goes in as a hi + lo pair of bf16.  The
 # emulations below repeat that arithmetic (the split as roundings to bf16,
 # the products as f32 matmuls) and are held against the plain versions at
 # the kernels' tolerance, 1e-4 of the output's scale.  The kernels
 # themselves run only on a card (tests/test_torch_gpu.py, chip_smoke.py).
 
-TC_L, TC_SUB = 64, 16
+TC_L, TC_SUB, TC_HALF = 64, 16, 8
 
 
 def _bf16(t):
@@ -313,47 +313,82 @@ def _ssd_walk_emulated(x, dt, a, B_, C, h0, split="hi+lo", dsl=16):
     return torch.cat(ys, -1)[:, :S], torch.cat(hs, 2)
 
 
-def _wkv_tc_emulated(r, k, v, logw, u, s0, split="hi+lo"):
+def _wkv_walk_emulated(r, k, v, logw, u, s0, split="hi+lo", dsl=64):
+    """wkv_fwd_walk's arithmetic: per slice of ``dsl`` columns of v, the
+    state (hd_k x dsl) carried in f32 through the 64-row chunks; the decays
+    as products of w = exp(logw), in 16-row blocks and their 8-row halves.
+    att: the off-diagonal blocks (t in block i, s in an earlier block J) as
+    (r P8 [WL] W_{J+1}..W_{i-1}) . (k Q), factored about the last row of
+    s's block; the pairs across a block's halves as (r P8) . (k Q8) about
+    the left half's last row; the pairs inside a half with the running
+    product of w and the bonus r u k on the diagonal, exact in f32.  y =
+    att v + q S_in, S_out = e_end S_in + kd^T v.  att, q, kd, the
+    factored operands and S_in are split hi + lo as on the tensor cores."""
     B, S, H, hd = r.shape
     rc, kc, vc, wc = (_pad_chunks(t.float(), S) for t in (r, k, v, logw))
     nc = rc.shape[1]
-    cum = torch.cumsum(wc, dim=2)                      # (B,nc,L,H,hd)
-    cp = cum - wc                                      # cum_{t-1}
-    cend = cum[:, :, -1]                               # (B,nc,H,hd)
-    # wkv_fwd_state: dS = (k exp(cum_end - cum))^T v
-    dS = _mm("bcshi,bcshj->bchij", kc * torch.exp(cend[:, :, None] - cum),
-             vc, split, "f32")
-    s = torch.zeros((B, H, hd, hd)) if s0 is None else s0.float()
-    s_in = []
-    for c in range(nc):
-        s_in.append(s)
-        s = torch.exp(cend[:, c])[..., None] * s + dS[:, c]
-    s_in = torch.stack(s_in, 1)                        # (B,nc,H,hd,hd)
-    # wkv_fwd_scan: att per sub-chunk p of t, then y = att v + q S_in
-    att = torch.zeros((B, nc, TC_L, TC_L, H))
-    for p in range(TC_L // TC_SUB):
-        t = slice(p * TC_SUB, (p + 1) * TC_SUB)
-        if p:                     # earlier sub-chunks through row b
-            b = p * TC_SUB - 1
-            r_t = rc[:, :, t] * torch.exp(cp[:, :, t] - cum[:, :, b:b + 1])
-            k_s = kc[:, :, :b + 1] * torch.exp(cum[:, :, b:b + 1] -
-                                               cum[:, :, :b + 1])
-            att[:, :, t, :b + 1] = _mm("bcthi,bcshi->bctsh", r_t, k_s,
-                                       split, split)
-        # the diagonal sub-chunk: one exp a pair and channel, r (u k) at s = t
-        decay = torch.exp(cp[:, :, t, None] - cum[:, :, None, t])
-        lower = torch.ones(TC_SUB, TC_SUB, dtype=torch.bool).tril(-1)
-        diag = torch.einsum("bcthi,bcshi,bctshi->bctsh", rc[:, :, t],
-                            kc[:, :, t], torch.where(
-                                lower[..., None, None], decay,
-                                torch.zeros(())))
-        bonus = torch.einsum("bcthi,hi,bcthi->bcth", rc[:, :, t], u.float(),
-                             kc[:, :, t])
-        diag = diag + torch.diag_embed(bonus.movedim(-1, -2)).movedim(-3, -1)
-        att[:, :, t, t] = diag
-    y = _mm("bctsh,bcshj->bcthj", att, vc, split, "f32")
-    y = y + _mm("bcthi,bchij->bcthj", rc * torch.exp(cp), s_in, split, split)
-    return y.reshape(B, nc * TC_L, H, hd)[:, :S], s
+    w = torch.exp(wc)                                  # (B,nc,L,H,hd)
+    wh = w.reshape(B, nc, 8, TC_HALF, H, hd)           # the 8-row halves
+    one = torch.ones_like(wh[:, :, :, :1])
+    p8 = torch.cumprod(torch.cat([one, wh[:, :, :, :-1]], 3), 3)
+    q8 = torch.cumprod(torch.cat([one, wh.flip(3)[:, :, :, :-1]], 3),
+                       3).flip(3)
+    Wh = torch.prod(wh, 3)                             # (B,nc,8,H,hd)
+    Wb = Wh[:, :, 0::2] * Wh[:, :, 1::2]               # (B,nc,4,H,hd)
+    p8, q8 = (t.reshape(B, nc, TC_L, H, hd) for t in (p8, q8))
+    half = torch.arange(TC_L) // TC_HALF               # a row's half
+    blk = torch.arange(TC_L) // TC_SUB
+    right = (half % 2 == 1)[:, None, None]
+    other = Wh[:, :, half ^ 1]                         # the block's other half
+    one_r = torch.ones_like(other)
+    pin = torch.where(right, other, one_r)             # P = WL P8 (right)
+    qin = torch.where(right, one_r, other)             # Q = Q8 WR (left)
+    apre = torch.stack([torch.prod(Wb[:, :, :b], 2) for b in range(4)], 2)
+    asuf = torch.stack([torch.prod(Wb[:, :, b + 1:], 2) for b in range(4)], 2)
+    rp8 = rc * p8
+    q = rp8 * pin * apre[:, :, blk]
+    kq = kc * q8 * qin                                 # k~ = k Q
+    kd = kq * asuf[:, :, blk]
+    eend = torch.prod(Wb, 2)                           # (B,nc,H,hd)
+    att = torch.zeros(B, nc, TC_L, TC_L, H)
+    for i in range(1, 4):                              # off the diagonal
+        ti = slice(TC_SUB * i, TC_SUB * (i + 1))
+        a_i = rp8[:, :, ti] * pin[:, :, ti]
+        for J in range(i):
+            g = torch.prod(Wb[:, :, J + 1:i], 2)[:, :, None]
+            sj = slice(TC_SUB * J, TC_SUB * (J + 1))
+            att[:, :, ti, sj] = _mm("bcthi,bcshi->bctsh", a_i * g,
+                                    kq[:, :, sj], split, split)
+    for b in range(4):                                 # across the halves
+        tr = slice(TC_SUB * b + TC_HALF, TC_SUB * (b + 1))
+        sl = slice(TC_SUB * b, TC_SUB * b + TC_HALF)
+        att[:, :, tr, sl] = _mm("bcthi,bcshi->bctsh", rp8[:, :, tr],
+                                kc[:, :, sl] * q8[:, :, sl], split, split)
+    for hb in range(8):                                # inside a half
+        base = TC_HALF * hb
+        for t in range(TC_HALF):
+            d = torch.ones_like(w[:, :, 0])
+            for s in range(t - 1, -1, -1):
+                att[:, :, base + t, base + s] = (
+                    rc[:, :, base + t] * d * kc[:, :, base + s]).sum(-1)
+                d = d * w[:, :, base + s]
+            att[:, :, base + t, base + t] = (
+                rc[:, :, base + t] * u.float() * kc[:, :, base + t]).sum(-1)
+    state = torch.zeros((B, H, hd, hd)) if s0 is None else s0.float()
+    ys, states = [], []
+    for j0 in range(0, hd, dsl):
+        st = state[..., j0:j0 + dsl]
+        y_slice = []
+        for c in range(nc):
+            vs = vc[:, c, ..., j0:j0 + dsl]
+            y = _mm("btsh,bshj->bthj", att[:, c], vs, split, "f32")
+            y = y + _mm("bthi,bhij->bthj", q[:, c], st, split, split)
+            st = eend[:, c][..., None] * st + _mm(
+                "bshi,bshj->bhij", kd[:, c], vs, split, "f32")
+            y_slice.append(y)
+        ys.append(torch.cat(y_slice, 1))
+        states.append(st)
+    return torch.cat(ys, -1)[:, :S], torch.cat(states, -1)
 
 
 def _within(got, want, rtol=1e-4):
@@ -410,26 +445,34 @@ def test_ssd_chunk_walk_matches_plain(shape, dsl, split):
     assert _within(y, want_y) and _within(h, want_h)
 
 
+WKV_WALK_SHAPES = WKV_TC_SHAPES + [
+    (1, 512, 2, 64, True, False),  # rwkv6's widths at two heads
+    (1, 77, 2, 128, True, False),  # the widest: two 64-column slices
+]
+
+
 @pytest.mark.parametrize("split", ["f32", "hi+lo"])
-@pytest.mark.parametrize("B,S,H,hd,s0,floor", WKV_TC_SHAPES)
-def test_wkv6_subchunk_factorisation_matches_plain(B, S, H, hd, s0, floor,
-                                                    split):
-    """csrc/wkv6.cu's form: 64-row chunks of 16-row sub-chunks, pairs in
-    earlier sub-chunks as one product of r exp(cum_{t-1} - cum_b) and
-    k exp(cum_b - cum_s) about the row b before t's sub-chunk, the diagonal
-    with one exp a pair and channel, then the state passed over the
-    chunks; at the -8 floor the far factors flush to 0 in f32 and the
-    result still holds."""
+@pytest.mark.parametrize("B,S,H,hd,s0,floor", WKV_WALK_SHAPES)
+def test_wkv6_chunk_walk_matches_plain(B, S, H, hd, s0, floor, split):
+    """csrc/wkv6.cu's walk over 64-row chunks, one 64-column slice of v at a
+    time with the state in f32: the decays as products of w over 16-row
+    blocks and 8-row halves, att off the diagonal blocks and across the
+    halves as factored products, inside a half with the running product,
+    its products exact ("f32") and with every f32 operand split hi + lo as
+    on the tensor cores, is the plain version's scan within 1e-4 of scale;
+    at the -8 floor the far products flush to 0 in f32 and it still
+    holds."""
     args = _wkv_tc_case(B, S, H, hd, s0, floor)
     want_y, want_s = wkv6.wkv6_plain(*args)
-    y, s = _wkv_tc_emulated(*args, split=split)
+    y, s = _wkv_walk_emulated(*args, split=split)
     assert _within(y, want_y) and _within(s, want_s)
 
 
 def test_scan_f32_operands_need_the_hi_lo_split():
     """Why the kernels split their f32 operands: fed as one bf16 each (8
-    bits of mantissa), G, w x, the decayed k and r, att and the states move y
-    past 1e-4 of its scale; hi + lo holds it (the test above)."""
+    bits of mantissa), G, w x, the decayed k and r, att, q, kd and the
+    states move y past 1e-4 of its scale; hi + lo holds it (the tests
+    above)."""
     args = _ssd_tc_case(1, 128, 2, 32, 32, True)
     want_y, _ = ssm_scan.ssd_scan_plain(*args)
     for dsl in (16, 32):
@@ -439,8 +482,8 @@ def test_scan_f32_operands_need_the_hi_lo_split():
                                           dsl=dsl)[0], want_y)
     args = _wkv_tc_case(1, 128, 2, 32, True, False)
     want_y, _ = wkv6.wkv6_plain(*args)
-    assert not _within(_wkv_tc_emulated(*args, split="hi")[0], want_y)
-    assert _within(_wkv_tc_emulated(*args, split="hi+lo")[0], want_y)
+    assert not _within(_wkv_walk_emulated(*args, split="hi")[0], want_y)
+    assert _within(_wkv_walk_emulated(*args, split="hi+lo")[0], want_y)
 
 
 def test_scan_paths_follow_dtype_and_shape():
@@ -558,6 +601,99 @@ def test_ssd_walk_tma_geometry_names_the_stride_it_cannot_take():
     one_head = torch.empty((1, 8, 1, 72), dtype=BF, device="meta")[..., :64]
     maps = ssm_scan.tma_geometry(one_head, Bm, Bm, 32)
     assert maps["x"][1][:2] == (128, 144)   # heads: a packed 64-wide row
+
+
+# clusters of n wkv_fwd_walk blocks (228,408 bytes of shared memory, one
+# block an SM) that fit on an H100 80GB HBM3 at once, as
+# cudaOccupancyMaxActiveClusters reports them on the card
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+# (B, S, H, hd) of the bf16 cases of chip_smoke.py's phase_wkv and of
+# tests/test_torch_gpu.py's that take the Hopper path
+WKV_WALK_GEOMETRY = [
+    (1, 512, 32, 64),      # rwkv6's prefill
+    (2, 1024, 32, 64),     # its train forward
+    (2, 100, 3, 16), (1, 200, 4, 64), (1, 10, 2, 64), (1, 77, 2, 128),
+    (1, 100, 2, 128), (1, 1, 2, 64), (1, 63, 2, 64), (1, 64, 2, 64),
+    (1, 65, 2, 64), (1, 150, 3, 32), (2, 300, 4, 128), (2, 150, 4, 64),
+]
+
+
+def _wkv_poisoned_views(B, S, H, hd, device="meta"):
+    """r, k, v and logw as the NaN-poisoned case cuts them: views into
+    larger buffers (rows, a head and columns to spare around them)."""
+    bbuf = torch.empty((B, S + 3, H + 1, 3 * hd + 16), dtype=BF,
+                       device=device)
+    fbuf = torch.empty((B, S + 3, H + 1, hd + 16), device=device)
+    return (bbuf[:, 1:S + 1, 1:, 8:8 + hd],
+            bbuf[:, 1:S + 1, 1:, 8 + hd:8 + 2 * hd],
+            bbuf[:, 1:S + 1, 1:, 8 + 2 * hd:8 + 3 * hd],
+            fbuf[:, 1:S + 1, 1:, 4:4 + hd])
+
+
+@pytest.mark.parametrize("B,S,H,hd", WKV_WALK_GEOMETRY)
+def test_wkv6_walk_launch_geometry(B, S, H, hd):
+    """The Hopper WKV6 kernel's launch as the wrapper computes it: a
+    cluster of at most 8 blocks (and at most the chunks) a (batch, head)
+    whose clusters all fit on the card at once, dividing the grid; shared
+    memory within a block's opt-in; tensor maps whose strides and box rows
+    are 16-byte multiples, on contiguous inputs and on poisoned views."""
+    r = torch.empty((B, S, H, hd), dtype=BF, device="meta")
+    logw = torch.empty((B, S, H, hd), device="meta")
+    assert wkv6.path(r) == "tensor-core"
+    geo = wkv6.walk_geometry(B, S, H, hd, H100_CLUSTERS.get)
+    slices, cluster, items = -(-hd // 64), geo["cluster"], B * H
+    assert geo["slices"] == slices and geo["dsl"] == 64
+    assert 1 <= cluster <= min(8, -(-S // 64))
+    assert cluster == 1 or H100_CLUSTERS[cluster] >= items
+    assert geo["grid"] == (items * cluster, 1, 1)
+    assert geo["grid"][0] % cluster == 0
+    assert geo["threads"] == 384
+    assert geo["stages"] == ((2, 2) if slices == 1 else (1, 1))
+    assert geo["smem"] == wkv6.walk_smem_bytes(slices, *geo["stages"],
+                                               cluster)
+    assert geo["smem"] <= wkv6.BLOCK_SMEM_MAX == 232448
+    for views in ((r, r, r, logw), _wkv_poisoned_views(B, S, H, hd)):
+        maps = wkv6.tma_geometry(*views)
+        for name, (dims, strides, box) in maps.items():
+            item = 4 if name == "logw" else 2
+            assert dims == (hd, H, S, B) and box == (64, 1, 64, 1)
+            assert len(strides) == 3
+            assert all(st > 0 and st % 16 == 0 for st in strides)
+            assert box[0] * item % 16 == 0
+
+
+@pytest.mark.parametrize("B,S,H,hd,cluster", [
+    (1, 512, 32, 64, 3),    # rwkv6's prefill: 32 items, 30 fit at 4
+    (2, 1024, 32, 64, 2),   # its train forward: 64 items, 66 fit at 2
+    (1, 512, 2, 64, 8),     # few items: a block a chunk, 8 at most
+    (1, 200, 2, 64, 4),     # at most the chunks
+    (1, 10, 2, 64, 1),      # one chunk
+    (1, 512, 2, 128, 1),    # two slices: one block walks every chunk
+    (4, 512, 40, 64, 1),    # 160 items: no cluster size fits them all
+])
+def test_wkv6_walk_cluster_rule(B, S, H, hd, cluster):
+    """The rule the source header states: the largest cluster, at most 8
+    and at most the chunks, whose clusters all fit on the card at once; 1
+    past hd 64."""
+    geo = wkv6.walk_geometry(B, S, H, hd, H100_CLUSTERS.get)
+    assert geo["cluster"] == cluster
+    assert geo["grid"] == (B * H * cluster, 1, 1)
+
+
+def test_wkv6_walk_tma_geometry_names_the_stride_it_cannot_take():
+    """A stride TMA cannot take is named (the wrapper asks once the C side
+    has refused the launch); an axis of size 1 is never stepped."""
+    r = torch.empty((1, 8, 2, 68), dtype=BF, device="meta")[..., :64]
+    logw = torch.empty((1, 8, 2, 64), device="meta")
+    with pytest.raises(ValueError, match=r"r\.stride\(2\) is 68"):
+        wkv6.tma_geometry(r, r, r, logw)
+    ok = r.contiguous()
+    odd = torch.empty((1, 8, 2, 66), device="meta")[..., :64]
+    with pytest.raises(ValueError, match=r"logw\.stride\(2\) is 66"):
+        wkv6.tma_geometry(ok, ok, ok, odd)
+    one_head = torch.empty((1, 8, 1, 72), dtype=BF, device="meta")[..., :64]
+    maps = wkv6.tma_geometry(one_head, one_head, one_head, logw[:, :, :1])
+    assert maps["r"][1][:2] == (128, 144)   # heads: a packed 64-wide row
 
 
 # ---------------------------------------------------------------------------
