@@ -268,6 +268,21 @@ Phases (any failure raises and the script exits non-zero):
                ``run_scenario`` over 3 windows (chat's waves full-width
                phi4, research's smoke TrainJob, an edge kill and a gpu-hub
                brown-out mid-wave, both restored), the grade table printed.
+ 16. ranks   — training across ranks (``repro_torch.launch.ranks``, one
+               process a rank): granite-moe-1b-a400m at full width and
+               depth (bf16, f32 moments, 2 steps of 2 x 1024 tokens) on
+               mesh (1, 1) over NCCL, then as two ranks sharing the card
+               over gloo (NCCL takes one card a rank) on (1, 2), its
+               experts and their all_to_all on ``model``, and (2, 1),
+               ZeRO-3 on ``data``: every rank's losses and grad norms
+               finite and equal (the global metrics), its per-step ms,
+               collective bytes and peak memory printed, labeled "two
+               ranks sharing one H100 over gloo" (no multi-card rate), and
+               its gmm, xent and AdamW launches as ``_family_launches``
+               implies; then the two-rank runs at 2 layers and 2 x 128
+               tokens in f32 on the card against the same on the CPU
+               (the plain versions, gloo): losses within 1e-4, grad norms
+               within 1e-4 relative, every param block within 2e-4.
 The phases that write checkpoints (elastic, rl, session) print the bytes
 they wrote and left on disk, and connect, fabric and tenant the bytes
 their runs wrote.  Then it prints a ``{"kernels": [...]}`` line, a
@@ -277,8 +292,9 @@ line, a ``{"kimi": {...}}`` line, a ``{"dryrun": {...}}`` line, an
 ...}`` line, an ``{"rl": {...}}`` line, one ``{"session": {...}}`` line a
 workload (apply -> Running and wall seconds, tok/s beside the direct
 engine's, ms a step, events, peak GB, the card), a ``{"connect": {...}}``,
-a ``{"fabric": {...}}`` and a ``{"tenant": {...}}`` line (each with the
-card), the card's name and power limit, and as its last line ``{"ok":
+a ``{"fabric": {...}}``, a ``{"tenant": {...}}`` and a ``{"ranks":
+{...}}`` line (each with the card), the card's name and power limit, and
+as its last line ``{"ok":
 true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -291,6 +307,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -4893,6 +4910,151 @@ def phase_tenant(smi: str, phi4_run):
     return out_rows, launches
 
 
+RANKS_MESHES = ((1, 2), (2, 1))
+RANKS_LAYERS = 24         # granite's full depth
+RANKS_STEPS = 2
+RANKS_CHECK = (2, 128)    # (c): layers and tokens a row, f32, card vs CPU
+RANKS_LABEL = "two ranks sharing one H100 over gloo"
+RANKS_KERNELS = ("moe_gmm", "xent_fwd", "xent_bwd", "adamw_update")
+
+
+def _ranks_run(label, shape, cfg, ocfg, batches, want, smi, **kw):
+    """``train_ranks`` on ``shape`` through ``run_ranks``: each rank's
+    per-step loss, ms, collective bytes and peak memory printed; every
+    loss and grad norm finite and equal on every rank (the global
+    metrics); each rank's kernel launches ``want`` (None: none)."""
+    from repro_torch.launch import ranks
+    t0 = time.perf_counter()
+    res = ranks.run_ranks(ranks.train_ranks, shape,
+                          args=(cfg, ranks.RANK_PARALLEL, ocfg, batches),
+                          **kw)
+    wall = time.perf_counter() - t0
+    for r in res:
+        for j, row in enumerate(r["steps"]):
+            peak = row["peak_bytes"]
+            log(f"[ranks] {label} mesh {shape} rank {r['rank']} "
+                f"{r['coords']} step {j + 1}: loss {row['loss']:.6f} grad "
+                f"norm {row['grad_norm']:.6f} {row['ms']:.1f} ms bytes "
+                f"{row['bytes']} peak "
+                f"{'-' if peak is None else f'{peak / 1e9:.3f} GB'}")
+        log(f"[ranks] {label} mesh {shape} rank {r['rank']} launches "
+            f"{r['launches']}")
+    first = [row["loss"] for row in res[0]["steps"]]
+    for r in res:
+        got = [(row["loss"], row["grad_norm"]) for row in r["steps"]]
+        if not all(math.isfinite(x) for pair in got for x in pair):
+            raise AssertionError(f"[ranks] {label} {shape}: not finite {got}")
+        if [g[0] for g in got] != first:
+            raise AssertionError(f"[ranks] {label} {shape}: rank "
+                                 f"{r['rank']}'s losses differ from rank 0's")
+        ran = {k: r["launches"][k] for k in RANKS_KERNELS}
+        expect = want or dict.fromkeys(RANKS_KERNELS, 0)
+        if ran != expect:
+            raise AssertionError(f"[ranks] {label} {shape} rank {r['rank']} "
+                                 f"launches {ran} != {expect}")
+    return res, {"mesh": list(shape), "label": label, "wall_s": wall,
+                 "ranks": [{"rank": r["rank"], "coords": r["coords"],
+                            "steps": r["steps"], "launches": r["launches"]}
+                           for r in res], "card": smi}
+
+
+def phase_ranks(smi: str):
+    """Training across ranks (``launch.ranks``) on the one card.  NCCL
+    puts one rank on a card, so: (a) mesh (1, 1) over NCCL (its init and
+    every collective of ``sharding.collectives`` through it); (b) two
+    ranks on the card over gloo (``devices=["cuda:0", "cuda:0"]``) on
+    meshes (1, 2) (experts and their all_to_all on ``model``) and (2, 1)
+    (ZeRO-3 on ``data``): granite-moe-1b-a400m at full width and
+    ``RANKS_LAYERS`` layers, bf16, f32 moments, 2 steps of 2 x 1024
+    tokens, each rank's losses, grad norms, ms a step, collective bytes,
+    peak memory and gmm/xent/AdamW launches printed ("two ranks sharing
+    one H100 over gloo": no figure of (b) is a multi-card rate), the
+    launches as ``_family_launches`` implies on every rank; (c) the same
+    two-rank runs at ``RANKS_CHECK`` (2 layers, 2 x 128 tokens) in f32 on
+    the card against the CPU (the plain versions, gloo) within
+    ``phase_small_train``'s tolerances: losses 1e-4, grad norms 1e-4
+    relative, every param block 2e-4 at lr 3e-4.  -> (rows, each run's
+    rank-0 launches by label)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import ranks
+    from repro_torch.models import params as pr
+    from repro_torch.runtime import steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    base = registry.get_config(GRANITE)
+
+    def cut(layers, dtype):
+        return base.replace(num_layers=layers, param_dtype=dtype,
+                            compute_dtype=dtype)
+
+    def expected(cfg, seq):
+        n = len(pr.leaves(steps._model_module(cfg).lm_schema(cfg)))
+        w = _family_launches(cfg, ranks.RANK_PARALLEL, n, RANKS_STEPS, seq)
+        return {k: w[k] for k in RANKS_KERNELS}
+
+    rows, launches = {}, {}
+    cfg = cut(RANKS_LAYERS, "bfloat16")
+    ocfg = OptimizerConfig(warmup_steps=2)
+    batches = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                            seed=0).chunk(0, RANKS_STEPS)
+    want = expected(cfg, TRAIN_SEQ)
+    runs = [("(a) nccl", (1, 1), {})] + [
+        (f"(b) {RANKS_LABEL}", shape,
+         {"devices": ["cuda:0", "cuda:0"], "backend": "gloo"})
+        for shape in RANKS_MESHES]
+    for label, shape, kw in runs:
+        _, row = _ranks_run(label, shape, cfg, ocfg, batches, want, smi,
+                            **kw)
+        key = f"{GRANITE} ranks {label.split()[0]} {shape}"
+        rows[key] = row
+        launches[key] = row["ranks"][0]["launches"]
+    layers, seq = RANKS_CHECK
+    small = cut(layers, "float32")
+    ocfg = OptimizerConfig(warmup_steps=1, decay_steps=100)
+    batches = TokenPipeline(small.vocab_size, seq, TRAIN_BATCH,
+                            seed=1).chunk(0, RANKS_STEPS)
+    # the four runs of (c) at once: two ranks on the card, two on the CPU
+    # (two threads each), for each mesh
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        jobs = {(shape, where): pool.submit(
+            _ranks_run, label, shape, small, ocfg, batches, want, smi,
+            kwargs={"keep": True}, **kw)
+            for shape in RANKS_MESHES
+            for where, label, want, kw in (
+                ("card", f"(c) card, {RANKS_LABEL}", expected(small, seq),
+                 {"backend": "gloo", "devices": ["cuda:0", "cuda:0"]}),
+                ("cpu", "(c) cpu", None, {"device": "cpu", "threads": 2}))}
+        done = {key: job.result() for key, job in jobs.items()}
+    for shape in RANKS_MESHES:
+        (card, row), (cpu, _) = done[shape, "card"], done[shape, "cpu"]
+        loss_err = norm_err = param_err = 0.0
+        for a, b in zip(card, cpu):
+            for x, y in zip(a["steps"], b["steps"]):
+                loss_err = max(loss_err, abs(x["loss"] - y["loss"]))
+                norm_err = max(norm_err, abs(x["grad_norm"] - y["grad_norm"])
+                               / y["grad_norm"])
+            pa, pb = dict(_named(a["params"])), dict(_named(b["params"]))
+            param_err = max(param_err, max(
+                float(abs(pa[k].astype("float64") - pb[k]).max())
+                for k in pb))
+        log(f"[ranks] (c) {shape} f32, {layers} layers, {TRAIN_BATCH} x {seq} "
+            f"tokens, {RANKS_STEPS} steps, card vs cpu: loss max_abs_err "
+            f"{loss_err:.3g} (tolerance 1e-4), grad norm rel err "
+            f"{norm_err:.3g} (1e-4), param blocks max_abs_err {param_err:.3g} "
+            f"(2e-4)")
+        if not (loss_err <= 1e-4 and norm_err <= 1e-4 and param_err <= 2e-4):
+            raise AssertionError(f"[ranks] (c) {shape}: the card disagrees "
+                                 f"with the CPU")
+        rows[f"{GRANITE} ranks (c) {shape}"] = {
+            **row, "loss_max_abs_err": loss_err, "grad_norm_rel_err":
+            norm_err, "param_max_abs_err": param_err}
+    log(f"[ranks] phase {time.perf_counter() - t_start:.1f} s")
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4991,6 +5153,7 @@ def main() -> int:
     tenant, tenant_launches = phase_tenant(smi, phi4_run)
     written += tenant["bytes_written"] / 1e9
     log(f"[disk] written so far {written:.2f} GB")
+    ranks, ranks_launches = phase_ranks(smi)
     flash["launches_by_path"].update({
         f"{ARCH} serve router": ran_router["router"],
         f"{ARCH} serve static": ran_router["static"],
@@ -5027,6 +5190,10 @@ def main() -> int:
             for arch, ran in family_launches.items()})
         row["launches_by_path"][kimi_train] = ran_kimi_train[row["name"]]
         row["launches_by_path"][kimi_witness] = ran_kimi_witness[row["name"]]
+    for row in (xent_fwd, xent_bwd, adamw, gmm):
+        row["launches_by_path"].update({
+            f"{path}, rank 0": ran[row["name"]]
+            for path, ran in ranks_launches.items()})
     kernels = [flash, xent_fwd, xent_bwd, adamw, ssd, wkv, gmm]
     for row in kernels:
         row["card"] = smi
@@ -5047,6 +5214,7 @@ def main() -> int:
     print(json.dumps({"connect": connect}))
     print(json.dumps({"fabric": fabric}))
     print(json.dumps({"tenant": tenant}))
+    print(json.dumps({"ranks": ranks}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

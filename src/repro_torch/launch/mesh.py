@@ -1,20 +1,32 @@
-"""Production meshes, as descriptions.
+"""Meshes: descriptions, and the process groups of a rank on one.
 
-The reference lowers its dry run onto 256 or 512 placeholder host devices
-laid out as a ``jax.sharding.Mesh``.  One card hosts no such process
-group, so the port's mesh is what the sharding rules and the dry run read
-of one: the ordered axis names and their sizes.  It is not a
-``torch.distributed`` mesh and starts no process.
+``Mesh`` is what the sharding rules and the dry run read of a mesh: the
+ordered axis names and their sizes.  The reference lowers its dry run onto
+256 or 512 placeholder host devices laid out as a ``jax.sharding.Mesh``;
+the port counts bytes on the description alone, which starts no process.
+
+``RankMesh`` is one process's place on a mesh that runs: after
+``torch.distributed`` is initialised with one process a rank
+(``launch.ranks.run_ranks``), ``make_rank_mesh`` lays the ranks out
+row-major over the axes, as ``np.array(jax.devices()).reshape(shape)``
+lays out the reference's devices, and builds this rank's subgroup along
+each axis (``groups["data"]``: the ranks that differ from it in the data
+coordinate alone).
 
     make_production_mesh().shape       # {"data": 16, "model": 16}
     make_production_mesh(multi_pod=True).shape
     # -> {"pod": 2, "data": 16, "model": 16}
+    rm = make_rank_mesh((2, 2), device)  # in each of 4 ranks
+    rm.coords                          # rank 3: {"data": 1, "model": 1}
 """
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
+
+import torch
 
 # the fleet layouts the dry run counts bytes on
 PRODUCTION_MESH_SHAPE = (16, 16)
@@ -66,3 +78,54 @@ def single_device_mesh(axes: Tuple[str, ...] = ("data", "model")) -> Mesh:
 
 def mesh_num_chips(mesh: Mesh) -> int:
     return int(math.prod(mesh.sizes))
+
+
+@dataclass(frozen=True)
+class RankMesh:
+    """This rank on a running mesh: the description, its coordinates, its
+    device, the world group and one subgroup per axis (``groups[axis]``
+    spans the ranks whose other coordinates equal this rank's)."""
+    mesh: Mesh
+    rank: int
+    coords: Dict[str, int]
+    device: torch.device
+    world: Any
+    groups: Dict[str, Any]
+
+    def size(self, axis: str) -> int:
+        return self.mesh.shape.get(axis, 1)
+
+    @property
+    def world_size(self) -> int:
+        return mesh_num_chips(self.mesh)
+
+
+def make_rank_mesh(shape: Tuple[int, ...], device,
+                   axes: Tuple[str, ...] = ("data", "model")) -> RankMesh:
+    """This rank's ``RankMesh`` on an initialised default process group
+    of ``prod(shape)`` ranks.  Every rank must call it, in the same order
+    as its other ``new_group`` calls: each subgroup is built by all."""
+    import torch.distributed as dist
+    mesh = make_mesh(shape, axes)
+    world = dist.get_world_size()
+    if world != mesh_num_chips(mesh):
+        raise ValueError(f"mesh {mesh.tag} needs {mesh_num_chips(mesh)} "
+                         f"ranks, the process group has {world}")
+    rank = dist.get_rank()
+    # row-major: rank r sits at everyone[r]
+    everyone = list(itertools.product(*(range(n) for n in mesh.sizes)))
+    coords = everyone[rank]
+    groups = {}
+    for i, axis in enumerate(axes):
+        # one group per line along axis i, built in the same order on all
+        # ranks; this rank keeps the one through its own coordinates
+        lines = sorted({c[:i] + c[i + 1:] for c in everyone})
+        for rest in lines:
+            members = [r for r, c in enumerate(everyone)
+                       if c[:i] + c[i + 1:] == rest]
+            group = dist.new_group(members)
+            if rest == coords[:i] + coords[i + 1:]:
+                groups[axis] = group
+    return RankMesh(mesh=mesh, rank=rank, coords=dict(zip(axes, coords)),
+                    device=torch.device(device), world=dist.group.WORLD,
+                    groups=groups)

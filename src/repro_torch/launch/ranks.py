@@ -1,0 +1,283 @@
+"""One process a rank: the port's train step across ranks.
+
+The counterpart of the reference's ``jax.devices()`` laid out as a mesh.
+``run_ranks(fn, mesh_shape)`` spawns one process a rank (``spawn``, so
+each starts from a fresh import), joins them into a ``torch.distributed``
+process group through a file store in a temporary directory of its own
+(two calls at once never share a port or a store), gives each its device
+and its ``launch.mesh.RankMesh``, runs ``fn(rank_mesh, *args, **kwargs)``
+there and returns each rank's result, in rank order.  ``fn`` must be
+importable (a module-level function; the ones here are ``train_ranks`` and
+``moe_ranks``) and its result picklable.
+
+The backend is NCCL on CUDA and gloo on the CPU unless the caller names
+one.  Rank r takes ``cuda:r``: a mesh larger than the cards raises unless
+the caller passes ``devices=`` itself.  NCCL takes one card a rank; two
+ranks on one card (``devices=["cuda:0", "cuda:0"]``) run over gloo.
+
+    python -m repro_torch.launch.ranks --arch granite-moe-1b-a400m \\
+        --mesh 1,2 --steps 2 --layers 4 --devices cuda:0,cuda:0 \\
+        --backend gloo
+    python -m repro_torch.launch.ranks --smoke --mesh 2,2 --steps 2 \\
+        --device cpu
+
+prints each step's loss, ms and collective bytes per rank and each rank's
+peak memory (``--device cpu``: none; the CPU has no allocator counter).
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import pickle
+import tempfile
+import time
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import bridge
+from repro_torch.configs import registry
+from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
+                                      ParallelConfig)
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.device import resolve_device
+from repro_torch.launch.grad_check import contracted_attention_init_
+from repro_torch.kernels import adamw_update, moe_gmm, xent
+from repro_torch.launch.mesh import RankMesh, make_rank_mesh
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import params as pr
+from repro_torch.runtime import steps
+from repro_torch.sharding import collectives
+
+# the layout the port runs across ranks: the reference's rules with
+# ZeRO-3 on data and experts on model, nothing else split
+RANK_PARALLEL = ParallelConfig(tensor_parallel=False, sequence_parallel=False)
+
+
+def _worker(rank: int, fn, shape, devices, backend: str, threads: int,
+            root: str, args, kwargs) -> None:
+    torch.set_num_threads(threads)
+    dev = torch.device(devices[rank])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{root}/store",
+                            rank=rank, world_size=len(devices))
+    try:
+        out = fn(make_rank_mesh(tuple(shape), dev), *args, **kwargs)
+        with open(f"{root}/rank{rank}.part", "wb") as f:
+            pickle.dump(out, f)
+        os.replace(f"{root}/rank{rank}.part", f"{root}/rank{rank}.pkl")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, mesh_shape: Sequence[int], *, args=(), kwargs=None,
+              device="cuda", backend: Optional[str] = None,
+              devices: Optional[Sequence[str]] = None,
+              threads: Optional[int] = None) -> list:
+    """``fn(rank_mesh, *args, **kwargs)`` on one process a rank of a
+    ``("data", "model")`` mesh of ``mesh_shape`` -> each rank's result.
+
+    ``device`` is the ranks' device type (``"cuda"``, which raises without
+    a card, or ``"cpu"``); rank r takes ``cuda:r`` unless ``devices``
+    names each rank's.  ``threads`` sets each rank's
+    ``torch.set_num_threads`` (default: the host's cores over the ranks).
+    """
+    world = math.prod(int(n) for n in mesh_shape)
+    kind = resolve_device(device).type
+    if devices is None:
+        if kind == "cuda":
+            cards = torch.cuda.device_count()
+            if cards < world:
+                raise RuntimeError(
+                    f"a mesh of {tuple(mesh_shape)} needs {world} cards, "
+                    f"this host has {cards}; pass devices=[...] to put "
+                    f"several ranks on one card (over gloo)")
+            devices = [f"cuda:{r}" for r in range(world)]
+        else:
+            devices = ["cpu"] * world
+    devices = [str(torch.device(d)) for d in devices]
+    if len(devices) != world or any(torch.device(d).type != kind
+                                    for d in devices):
+        raise ValueError(f"devices {devices}: one {kind} device for each of "
+                         f"the {world} ranks")
+    backend = backend or ("nccl" if kind == "cuda" else "gloo")
+    if backend == "nccl" and len(set(devices)) < world:
+        raise ValueError(f"NCCL takes one card a rank, not {devices}; ranks "
+                         f"sharing a card run over gloo")
+    threads = threads or max(1, (os.cpu_count() or 1) // world)
+    with tempfile.TemporaryDirectory(prefix="repro-ranks-") as root:
+        torch.multiprocessing.start_processes(
+            _worker, args=(fn, tuple(mesh_shape), devices, backend, threads,
+                           root, tuple(args), dict(kwargs or {})),
+            nprocs=world, join=True, start_method="spawn")
+        out = []
+        for r in range(world):
+            with open(f"{root}/rank{r}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# what a rank runs
+# ---------------------------------------------------------------------------
+
+def _kernel_counts() -> dict:
+    return {"moe_gmm": moe_gmm.launches, "xent_fwd": xent.fwd_launches,
+            "xent_bwd": xent.bwd_launches,
+            "adamw_update": adamw_update.launches}
+
+
+def seeded_params(cfg: ModelConfig, seed: int):
+    """Whole params of ``cfg`` from ``seed``, drawn on the CPU (so the
+    ranks of every mesh and device start from the same weights) as the
+    train phases of ``chip_smoke.py`` draw theirs: the reference init,
+    every attention at its contracted fan-in, in ``cfg.param_dtype``."""
+    gen = torch.Generator().manual_seed(seed)
+    params = pr.init_params(steps._model_module(cfg).lm_schema(cfg), gen,
+                            "float32", "cpu")
+    contracted_attention_init_(cfg, params)
+    return steps._map(lambda t: t.to(pr.torch_dtype(cfg.param_dtype)),
+                      params)
+
+
+def _shapes(tree, path=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_shapes(v, f"{path}/{k}" if path else k))
+        return out
+    return {path: tuple(tree.shape)}
+
+
+def train_ranks(rm: RankMesh, cfg: ModelConfig, par: ParallelConfig,
+                ocfg: OptimizerConfig, batches, *, params=None,
+                seed: int = 0, keep: bool = False) -> dict:
+    """``steps.train_step`` on this rank for each step of ``batches``
+    ((K, B, S) numpy "tokens" and "labels", the global batch of each step),
+    from whole ``params`` (numpy, as ``bridge.to_numpy`` gives them) or,
+    where None, ``seeded_params(cfg, seed)``.  -> {"rank", "coords",
+    "steps": per step loss, grad_norm, lr, ms, collective bytes and peak
+    bytes, "launches": the step's kernel launches, "shapes": every param
+    and moment block's shape, "params": the blocks as numpy where
+    ``keep``}."""
+    dev = rm.device
+    whole = (seeded_params(cfg, seed) if params is None
+             else bridge.to_torch(params, device="cpu"))
+    local = steps._map(lambda t: t.to(dev),
+                       steps.shard_params(cfg, par, whole, rm))
+    del whole
+    opt = steps.init_opt_state(cfg, ocfg, dev, mesh=rm, par=par)
+    cuda = dev.type == "cuda"
+    before = _kernel_counts()
+    rows = []
+    for j in range(batches["tokens"].shape[0]):
+        collectives.reset_counts()
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        local, opt, m = steps.train_step(
+            cfg, par, ocfg, local, opt, {k: v[j] for k, v in batches.items()},
+            device=dev, mesh=rm)
+        m = {k: float(v) for k, v in m.items()}
+        if cuda:
+            torch.cuda.synchronize(dev)
+        rows.append({**m, "ms": (time.perf_counter() - t0) * 1e3,
+                     "bytes": dict(collectives.bytes_sent),
+                     "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                                    if cuda else None)})
+    after = _kernel_counts()
+    out = {"rank": rm.rank, "coords": rm.coords, "steps": rows,
+           "launches": {k: after[k] - before[k] for k in after},
+           "shapes": {"params": _shapes(local), "m": _shapes(opt["m"]),
+                      "v": _shapes(opt["v"])}}
+    if keep:
+        out["params"] = bridge.to_numpy(local)
+    return out
+
+
+def moe_ranks(rm: RankMesh, cfg: ModelConfig, p, x, dy) -> dict:
+    """The MoE block's routed MLP in train mode on this rank, and its
+    gradients: ``p`` one layer's whole ``router`` (D, E) and ``moe_w*``
+    (E, ...) (numpy), ``x`` and ``dy`` (B, S, D) the global activations
+    and the cotangent of the output.  The rank takes its rows of x (over
+    ``data``) and its experts (over ``model``) and differentiates
+    ``sum(out * dy) + aux``.  -> {"out", "aux", "grads": {"x", "router",
+    "moe_wg", ...} of its blocks} as numpy."""
+    dev = rm.device
+    tp, m = rm.size("model"), rm.coords["model"]
+    dp, d = rm.size("data"), rm.coords["data"]
+    E_local = cfg.moe.num_experts // tp
+    whole = bridge.to_torch(p, device=dev)
+    local = {k: (v[m * E_local:(m + 1) * E_local] if k.startswith("moe_")
+                 else v).clone().requires_grad_() for k, v in whole.items()}
+    rows = x.shape[0] // dp
+    xs = torch.as_tensor(x[d * rows:(d + 1) * rows], device=dev)
+    xs.requires_grad_()
+    with torch.enable_grad():
+        out, aux = moe_mod.moe_mlp(cfg, local, xs, train=True, mesh=rm)
+        loss = (out * torch.as_tensor(dy[d * rows:(d + 1) * rows],
+                                      device=dev)).sum() + aux
+        grads = torch.autograd.grad(loss, [xs, *local.values()])
+    return {"out": out.detach().cpu().numpy(), "aux": float(aux),
+            "grads": {k: g.cpu().numpy()
+                      for k, g in zip(["x", *local], grads)}}
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+def main(argv: Optional[Sequence[str]] = None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="granite-moe-1b-a400m",
+                    choices=list(registry.ARCHS))
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's smoke config (f32)")
+    ap.add_argument("--mesh", default="1,2", help="data,model sizes")
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: all)")
+    ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--batch", type=int, default=2, help="global batch")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--devices", default="",
+                    help="comma-separated device of each rank, e.g. "
+                         "cuda:0,cuda:0 (several ranks a card need gloo)")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"])
+    ap.add_argument("--threads", type=int, default=None)
+    args = ap.parse_args(argv)
+    shape = tuple(int(n) for n in args.mesh.split(","))
+    cfg = (registry.get_smoke if args.smoke else registry.get_config)(
+        args.arch)
+    dtype = "float32" if args.smoke else "bfloat16"
+    cfg = cfg.replace(param_dtype=dtype, compute_dtype=dtype,
+                      num_layers=args.layers or cfg.num_layers)
+    ocfg = OptimizerConfig(warmup_steps=2)
+    batches = TokenPipeline(cfg.vocab_size, args.seq, args.batch,
+                            seed=args.seed).chunk(0, args.steps)
+    results = run_ranks(
+        train_ranks, shape, args=(cfg, RANK_PARALLEL, ocfg, batches),
+        kwargs={"seed": args.seed}, device=args.device,
+        backend=args.backend, threads=args.threads,
+        devices=[d for d in args.devices.split(",") if d] or None)
+    for j in range(args.steps):
+        for res in results:
+            row = res["steps"][j]
+            print(f"[ranks] mesh {args.mesh} rank {res['rank']} "
+                  f"{res['coords']} step {j + 1} loss {row['loss']:.6f} "
+                  f"grad_norm {row['grad_norm']:.6f} ms {row['ms']:.1f} "
+                  f"bytes {row['bytes']}")
+    for res in results:
+        peak = max((row["peak_bytes"] or 0) for row in res["steps"])
+        print(f"[ranks] rank {res['rank']} peak memory "
+              f"{peak / 1e9:.3f} GB launches {res['launches']}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

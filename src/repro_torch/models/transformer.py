@@ -37,7 +37,10 @@ With ``par.remat`` each layer group runs under
 body), so backward keeps one group's input per group and recomputes the
 rest.  ``loss_fn`` follows the reference's routing: the chunked
 cross-entropy (through the fused xent kernel) unless the vocab and
-sequence divide 16 and the layout is not pure-FSDP.
+sequence divide 16 and the layout is not pure-FSDP.  Across ranks
+(``mesh=``, a ``launch.mesh.RankMesh``) ``loss_fn`` gathers the top-level
+leaves, the train forward ZeRO-gathers each layer group's inside its
+remat scope, and the MoE kind gets the mesh (``MESH_KINDS``).
 """
 from __future__ import annotations
 
@@ -51,12 +54,14 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import losses
 from repro_torch.models.layers import (compute_dtype, embed_tokens, rms_norm,
                                        swiglu, unembed)
-from repro_torch.models.params import PSpec
+from repro_torch.models.params import PSpec, tree_map_schema
+from repro_torch.sharding import collectives, specs
 
 # kind -> {"schema": (cfg, G) -> {name: PSpec},
 #          "cache": (cfg, B, S, G) -> {name: PSpec or dict},
 #          "apply": (cfg, p, x, *, mode, positions, cache, pos, shared,
-#                    extras) -> (x, new_cache)}
+#                    extras[, mesh]) -> (x, new_cache)}; the kinds of
+#          ``MESH_KINDS`` take ``mesh`` (train across ranks)
 KINDS: Dict[str, Dict[str, Callable]] = {}
 
 
@@ -195,7 +200,7 @@ def mlp_part(cfg: ModelConfig, p, x):
 
 def _make_attn_apply(window_of: Callable[[ModelConfig], Optional[int]]):
     def apply(cfg, p, x, *, mode, positions, cache, pos, shared,
-              extras=None):
+              extras=None, mesh=None):
         x, new_cache = attention_part(
             cfg, p, x, window=window_of(cfg), mode=mode, positions=positions,
             cache=cache, pos=pos)
@@ -224,9 +229,21 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+# the kinds a train step runs on a mesh: each layer's leaves ZeRO-gathered,
+# the dense part replicated over ``model``, the experts split over it
+MESH_KINDS = ("attn", "global", "local", "moe")
+
+
 def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
-                   tokens: torch.Tensor, extras=None):
-    """-> (final hidden states, the blocks' aux loss summed in f32)."""
+                   tokens: torch.Tensor, extras=None, mesh=None):
+    """-> (final hidden states, the blocks' aux loss summed in f32).
+
+    ``mesh`` (a ``launch.mesh.RankMesh``): ``params`` holds this rank's
+    blocks, whose ``data``-split leaves each layer group gathers inside its
+    remat scope (``collectives.zero_gather``), so the gathered weights of
+    one group at a time live beyond the shards; the top-level leaves come
+    whole (``loss_fn`` gathers them).  The MoE kind gets the mesh.
+    """
     for kind in cfg.block_pattern:
         _kind(kind)
     x = embed_tokens(cfg, params["embed"], tokens)
@@ -239,12 +256,21 @@ def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
 
     shared = params.get("shared_attn")
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    kw = {}
+    if mesh is not None:
+        kw["mesh"] = mesh
+        # a layer slice's dims are its stacked leaf's less the layers axis
+        dims = {key: {name: None if d is None else d - 1
+                      for name, d in grp.items()}
+                for key, grp in _data_dims(cfg, par, mesh)["blocks"].items()}
 
     def body(x, aux, gp):
+        if mesh is not None:
+            gp = collectives.zero_gather_tree(gp, dims, mesh.groups["data"])
         for i, kind in enumerate(cfg.block_pattern):
             x, out = KINDS[kind]["apply"](
                 cfg, gp[f"{i}_{kind}"], x, mode="train", positions=positions,
-                cache=None, pos=None, shared=shared, extras=extras)
+                cache=None, pos=None, shared=shared, extras=extras, **kw)
             if "aux" in out:
                 aux = aux + out["aux"]
         return x, aux
@@ -258,6 +284,25 @@ def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
         else:
             x, aux = body(x, aux, gp)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def _data_dims(cfg: ModelConfig, par: ParallelConfig, mesh):
+    """Each leaf's dimension split over ``data`` on ``mesh``, or None."""
+    rules = specs.logical_rules(par)
+    return tree_map_schema(
+        lambda _path, p: specs.axis_dim(
+            specs.spec_for(p.shape, p.axes, mesh.mesh, rules), "data"),
+        lm_schema(cfg))
+
+
+def _gather_top(cfg: ModelConfig, par: ParallelConfig, params, mesh):
+    """``params`` with its top-level leaves (embedding, head, final norm)
+    ZeRO-gathered and its blocks as they are."""
+    dims = _data_dims(cfg, par, mesh)
+    top = {k: v for k, v in params.items() if k != "blocks"}
+    top = collectives.zero_gather_tree(
+        top, {k: dims[k] for k in top}, mesh.groups["data"])
+    return {**top, "blocks": params["blocks"]}
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
@@ -311,11 +356,16 @@ def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     return unembed(cfg, lm_head(cfg, params), x, transpose=True)
 
 
-def loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
+def loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch,
+            mesh=None):
     """Mean token NLL of ``batch`` ({"tokens", "labels"}: (B,S) int, and
-    the VLM's "extras") plus the MoE blocks' aux loss."""
+    the VLM's "extras") plus the MoE blocks' aux loss.  On ``mesh`` (a
+    ``launch.mesh.RankMesh``) ``params`` and ``batch`` are this rank's:
+    the NLL is the mean over its rows, the aux loss the global one."""
+    if mesh is not None:
+        params = _gather_top(cfg, par, params, mesh)
     x, aux = _train_forward(cfg, par, params, batch["tokens"],
-                            batch.get("extras"))
+                            batch.get("extras"), mesh)
     head = lm_head(cfg, params).to(compute_dtype(cfg))
     S = x.shape[1]
     # the reference's rule: the sharded head needs the vocab on the model

@@ -49,6 +49,7 @@ from repro_torch.kernels.adamw_update import adamw_update
 from repro_torch.models.params import PSpec, leaves, tree_map_schema
 from repro_torch.optim import quant
 from repro_torch.optim.schedule import learning_rate
+from repro_torch.sharding import collectives
 
 BLOCK_ELEMS = 1 << 26     # elements a block of the plain update walks
 
@@ -231,18 +232,40 @@ def _layer(m, i: int):
 # public API
 # ---------------------------------------------------------------------------
 
-def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over the leaves, accumulated in f32 without an
-    f32 copy of any leaf.  No host sync."""
-    return torch.sqrt(sum(
-        torch.linalg.vector_norm(g, dtype=torch.float32).square()
-        for g in grads.values()))
+def _sumsq(g: torch.Tensor) -> torch.Tensor:
+    """A leaf's sum of squares as f32.  On the card ``vector_norm`` in f32
+    (a tree reduction, no copy of the leaf); on the CPU, whose
+    ``vector_norm`` accumulates in order (in f32, 6.5e-4 low at 2**24
+    elements), in f64: accurate to f32's rounding, and the same bits at
+    any thread count (a crash's resume repeats a run's steps bit for
+    bit)."""
+    if g.device.type == "cpu":
+        return torch.linalg.vector_norm(g, dtype=torch.float64).square().to(
+            torch.float32)
+    return torch.linalg.vector_norm(g, dtype=torch.float32).square()
 
 
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
+def global_norm(grads: Dict[str, torch.Tensor], replicas=None,
+                group=None) -> torch.Tensor:
+    """sqrt(sum of squares) over the leaves, accumulated in f32 (on the
+    card without an f32 copy of any leaf).  No host sync.
+
+    Across ranks ``grads`` are this rank's blocks, ``replicas[path]`` how
+    many ranks hold each block of a leaf: each block's squares count once
+    (divided by its replicas) in a sum over ``group`` before the root."""
+    sq = sum(_sumsq(g) / (1 if replicas is None else replicas[path])
+             for path, g in grads.items())
+    if group is not None:
+        sq = collectives.all_reduce_(torch.as_tensor(sq).clone(), group)
+    return torch.sqrt(sq)
+
+
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                        replicas=None, group=None):
     """Scale every leaf by min(1, max_norm / norm), in place and in the
-    grad's own dtype; returns (grads, norm)."""
-    norm = global_norm(grads)
+    grad's own dtype; returns (grads, norm).  ``replicas`` and ``group``
+    are ``global_norm``'s."""
+    norm = global_norm(grads, replicas, group)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in grads.values():
         g.mul_(scale.to(g.dtype))
@@ -265,21 +288,39 @@ def _fused(m, v) -> bool:
             and m.dtype == torch.float32 and v.dtype == torch.float32)
 
 
-def apply_updates(param_schema, params, grads, state, ocfg: OptimizerConfig):
+def apply_updates(param_schema, params, grads, state, ocfg: OptimizerConfig,
+                  *, mesh=None, replicas=None):
     """One AdamW step, in place.  Returns (params, state, stats).
 
     ``grads`` is a tree like ``params`` (param dtype or f32) and is
     clipped in place.  ``state["count"]`` is replaced by count + 1;
     ``stats`` holds the pre-clip ``grad_norm`` and this step's ``lr``,
     both f32 tensors on the params' device.
+
+    On ``mesh`` (a ``launch.mesh.RankMesh``) params, grads and moments are
+    this rank's blocks and ``replicas`` maps each leaf's path to the ranks
+    that hold each of its blocks: the norm is the global one
+    (``global_norm``), and every leaf updates its block, the f32 ones
+    through the fused kernel.  The int8 and factored recipes reduce over
+    whole matrices and raise on more than one rank.
     """
     _check_recipe(ocfg)
+    group = None
+    if mesh is not None:
+        if mesh.world_size > 1 and (ocfg.moment_dtype == "int8"
+                                    or ocfg.second_moment == "factored"):
+            raise NotImplementedError(
+                f"moment_dtype={ocfg.moment_dtype!r}, second_moment="
+                f"{ocfg.second_moment!r} on {mesh.world_size} ranks: their "
+                f"blocks and means span whole matrices (ROADMAP queue A)")
+        group = mesh.world
     flat_p, flat_m, flat_v = _flat(params), _flat(state["m"]), _flat(state["v"])
     flat_g = {k: g.contiguous() for k, g in _flat(grads).items()}
     if ocfg.grad_clip:
-        flat_g, gnorm = clip_by_global_norm(flat_g, ocfg.grad_clip)
+        flat_g, gnorm = clip_by_global_norm(flat_g, ocfg.grad_clip,
+                                            replicas, group)
     else:
-        gnorm = global_norm(flat_g)
+        gnorm = global_norm(flat_g, replicas, group)
     count = state["count"] + 1
     lr = learning_rate(ocfg, count)
     t = count.to(torch.float32)

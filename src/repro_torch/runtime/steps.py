@@ -1,8 +1,9 @@
 """Train, serving step functions and the KV cache layouts, in PyTorch.
 
-Mirrors the JAX package's ``runtime/steps.py`` without meshes or
-shardings.  Training, for every family the port serves, through the family's
-model module (``_model_module``: its ``lm_schema`` and ``loss_fn``, as the
+Mirrors the JAX package's ``runtime/steps.py``, with meshes in training
+only (below, laid out by hand where the reference has GSPMD).  Training,
+for every family the port serves, through the family's model module
+(``_model_module``: its ``lm_schema`` and ``loss_fn``, as the
 reference's ``_train_pieces`` picks them), on batches that carry the
 family's ``extras`` (whisper's frames, the VLM's image embeddings) whenever
 ``extras_specs`` gives any:
@@ -37,6 +38,18 @@ The JAX functions return new params, optimizer state and caches (their
 inputs are donated); these update the given params, moments, cache or pool
 in place and return them.  Train steps take ``device=`` (default
 ``"cuda"``, which raises without a card) and move host batches there.
+
+Across ranks (``train_step`` / ``train_chunk`` given ``mesh=``, a
+``launch.mesh.RankMesh`` of one process a rank, ``launch.ranks``) the
+layout is the reference's rules for ``ParallelConfig(tensor_parallel=False,
+sequence_parallel=False)`` on a ``("data", "model")`` mesh: the batch
+split over ``data``, each leaf's ``fsdp`` axis over ``data`` (ZeRO-3:
+``collectives.zero_gather`` a layer group at a time, the gradients
+reduce-scattered and averaged), the MoE leaves' ``expert`` axis over
+``model`` (``models.moe``'s exchange), everything else replicated.
+``shard_params`` / ``init_opt_state(mesh=)`` give a rank its blocks
+(``sharding.specs.local_shard``), and ``check_layout`` raises
+``NotImplementedError`` for what asks for more.
 """
 from __future__ import annotations
 
@@ -47,9 +60,11 @@ import torch
 from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
                                       ParallelConfig, ShapeConfig)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_num_chips
 from repro_torch.models import params as pr
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
+from repro_torch.sharding import collectives, specs
 
 
 def _model_module(cfg: ModelConfig):
@@ -292,11 +307,105 @@ def train_par(par: ParallelConfig, *, global_batch: int = 1,
     return par
 
 
-def init_opt_state(cfg: ModelConfig, ocfg: OptimizerConfig, device="cuda"):
-    """All-zeros AdamW state {"m", "v", "count"} for ``cfg``'s params."""
-    return _zeros(adamw.opt_state_schema(_model_module(cfg).lm_schema(cfg),
-                                         ocfg),
-                  "float32", resolve_device(device))
+def init_opt_state(cfg: ModelConfig, ocfg: OptimizerConfig, device="cuda",
+                   *, mesh=None, par: ParallelConfig = ParallelConfig()):
+    """All-zeros AdamW state {"m", "v", "count"} for ``cfg``'s params; on
+    ``mesh`` (a ``launch.mesh.RankMesh``) this rank's blocks of it, as
+    ``par``'s rules lay them out."""
+    schema = adamw.opt_state_schema(_model_module(cfg).lm_schema(cfg), ocfg)
+    if mesh is not None:
+        schema = specs.local_schema(schema, mesh.mesh,
+                                    specs.logical_rules(par))
+    return _zeros(schema, "float32", resolve_device(device))
+
+
+def check_layout(cfg: ModelConfig, par: ParallelConfig,
+                 ocfg: OptimizerConfig, mesh) -> None:
+    """Raise ``NotImplementedError`` naming the missing rule where a train
+    step on ``mesh`` (a ``launch.mesh.Mesh``) would need a layout the port
+    does not run: tensor or sequence parallelism or pure FSDP on a
+    ``model`` axis larger than 1, experts not split over it, the int8 or
+    factored moments on more than one rank, kinds other than the dense and
+    MoE ones, a ``pod`` axis.  Nothing falls back."""
+    if tuple(mesh.axis_names) != ("data", "model"):
+        raise NotImplementedError(
+            f"a train step across ranks runs on a ('data', 'model') mesh, "
+            f"not {mesh.axis_names}")
+    tp = mesh.shape["model"]
+    if tp > 1:
+        for flag, rule in (("tensor_parallel", "the tp_* rules: heads, ffn, "
+                            "vocab and activations on 'model'"),
+                           ("sequence_parallel", "act_seq_sharded on "
+                            "'model'"),
+                           ("pure_fsdp", "batch over ('data', 'model') and "
+                            "weights ZeRO-3 over both")):
+            if getattr(par, flag):
+                raise NotImplementedError(
+                    f"ParallelConfig({flag}=True) on a model axis of {tp}: "
+                    f"{rule} is not ported (ROADMAP queue A)")
+        if cfg.moe is not None and not par.expert_parallel:
+            raise NotImplementedError(
+                f"experts replicated over a model axis of {tp} "
+                f"(expert_parallel=False) are not ported")
+        if cfg.moe is not None and cfg.moe.num_experts % tp:
+            raise NotImplementedError(
+                f"{cfg.moe.num_experts} experts do not split over a model "
+                f"axis of {tp}")
+    if mesh_num_chips(mesh) > 1 and (
+            ocfg.moment_dtype == "int8" or ocfg.second_moment == "factored"):
+        raise NotImplementedError(
+            f"moment_dtype={ocfg.moment_dtype!r}, second_moment="
+            f"{ocfg.second_moment!r} on more than one rank: the int8 and "
+            f"factored recipes reduce over whole matrices, which ZeRO "
+            f"splits (ROADMAP queue A)")
+    kinds = set(cfg.block_pattern) - set(tfm.MESH_KINDS)
+    if cfg.family == "audio" or kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: a train step across ranks runs the dense and MoE "
+            f"kinds {tfm.MESH_KINDS}, not {sorted(kinds) or cfg.family!r} "
+            f"(ROADMAP queue A)")
+
+
+def shard_params(cfg: ModelConfig, par: ParallelConfig, params, mesh):
+    """This rank's blocks (contiguous copies) of whole ``params``, as
+    ``par``'s rules lay them out on ``mesh`` (a ``launch.mesh.RankMesh``)."""
+    spec_tree = specs.leaf_specs(_model_module(cfg).lm_schema(cfg),
+                                 mesh.mesh, specs.logical_rules(par))
+    return _map(lambda t, spec: specs.local_shard(t, spec, mesh.mesh,
+                                                  mesh.coords),
+                params, spec_tree)
+
+
+def _rank_rows(batch, mesh, accum: int):
+    """This rank's rows of a global batch: of each of the ``accum``
+    microbatches, the reference's split over ``data`` (rows i*mb + d*r ..
+    i*mb + (d+1)*r, r = mb / dp), so its microbatches hold the tokens the
+    reference's do."""
+    B = batch["tokens"].shape[0]
+    dp, d = mesh.size("data"), mesh.coords["data"]
+    if B % (accum * dp):
+        raise ValueError(f"the batch {B} does not split into {accum} "
+                         f"microbatches over a data axis of {dp}")
+    mb, r = B // accum, B // (accum * dp)
+    rows = torch.tensor([i * mb + d * r + j for i in range(accum)
+                         for j in range(r)],
+                        device=batch["tokens"].device)
+    return _map(lambda v: v.index_select(0, rows.to(v.device)), batch)
+
+
+def _reduce_grads(cfg: ModelConfig, par: ParallelConfig, grads, mesh):
+    """Mean over ``data`` of each rank's grads, in place: a leaf split over
+    ``data`` was summed by its gather's reduce-scatter, every other one is
+    summed here."""
+    dp = mesh.size("data")
+    spec_tree = specs.leaf_specs(_model_module(cfg).lm_schema(cfg),
+                                 mesh.mesh, specs.logical_rules(par))
+
+    def mean(g, spec):
+        if dp > 1 and specs.axis_dim(spec, "data") is None:
+            collectives.all_reduce_(g, mesh.groups["data"])
+        return g.div_(dp)
+    return _map(mean, grads, spec_tree)
 
 
 def _loss_of(cfg: ModelConfig, attr: str):
@@ -310,13 +419,14 @@ def _loss_of(cfg: ModelConfig, attr: str):
 
 
 def _value_and_grad(cfg: ModelConfig, par: ParallelConfig, params, batch,
-                    loss=None):
+                    loss=None, mesh=None):
     """(loss, grads like params) for one (micro)batch; ``loss`` defaults
-    to the family's ``loss_fn``."""
+    to the family's ``loss_fn``, which takes ``mesh`` where there is one."""
     loss = loss or _loss_of(cfg, "loss_fn")
+    kw = {} if mesh is None else {"mesh": mesh}
     req = _map(lambda t: t.detach().requires_grad_(), params)
     with torch.enable_grad():
-        value = loss(cfg, par, req, batch)
+        value = loss(cfg, par, req, batch, **kw)
         grads = iter(torch.autograd.grad(value, tree_leaves(req)))
     return value.detach(), _map(lambda _t: next(grads), req)
 
@@ -356,7 +466,7 @@ def _batch_on(cfg: ModelConfig, batch, dev: torch.device, keys=TRAIN_KEYS):
 
 def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
                params, opt_state, batch, *, device="cuda", loss=None,
-               keys=TRAIN_KEYS):
+               keys=TRAIN_KEYS, mesh=None):
     """One optimizer step -> (params, opt_state, metrics), params and
     moments updated in place.
 
@@ -369,6 +479,13 @@ def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
     and grads summed in f32 and divided by accum, so the trajectory does
     not depend on accum.  ``metrics`` holds f32 device tensors "loss",
     "grad_norm" and "lr".
+
+    ``mesh`` (a ``launch.mesh.RankMesh``): ``params`` and ``opt_state``
+    are this rank's blocks (``shard_params``, ``init_opt_state(mesh=)``)
+    and ``batch`` the global one, of which the rank takes its rows
+    (``_rank_rows``); the grads are averaged over ``data`` and the update
+    clips by the global norm, so ``metrics`` are the reference's global
+    ones on every rank.  ``check_layout`` says what it refuses.
     """
     dev = resolve_device(device)
     batch = _batch_on(cfg, batch, dev, keys)
@@ -379,9 +496,19 @@ def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
     accum = max(ocfg.accum_steps, 1)
     if B % accum:
         raise ValueError(f"accum_steps={accum} must divide the batch {B}")
-    par = train_par(par)
+    if mesh is None:
+        par = train_par(par)
+    else:
+        par = train_par(par, global_batch=B, chips=mesh.world_size)
+        check_layout(cfg, par, ocfg, mesh.mesh)
+        if loss is not None:
+            raise NotImplementedError(
+                "a train step across ranks takes the family's loss_fn; "
+                "the RL loss's global mask sum is not ported")
+        batch = _rank_rows(batch, mesh, accum)
+        B = batch["tokens"].shape[0]
     if accum == 1:
-        value, grads = _value_and_grad(cfg, par, params, batch, loss)
+        value, grads = _value_and_grad(cfg, par, params, batch, loss, mesh)
     else:
         mb = B // accum
         value = torch.zeros((), dtype=torch.float32, device=dev)
@@ -389,19 +516,31 @@ def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
                                            device=dev), params)
         for i in range(accum):
             micro = _map(lambda v: v[i * mb:(i + 1) * mb], batch)
-            l, g = _value_and_grad(cfg, par, params, micro, loss)
+            l, g = _value_and_grad(cfg, par, params, micro, loss, mesh)
             value = value + l
             _map(lambda acc, new: acc.add_(new), grads, g)
         value = value / accum
         _map(lambda acc: acc.div_(accum), grads)
+    schema = _model_module(cfg).lm_schema(cfg)
+    replicas = None
+    if mesh is not None:
+        grads = _reduce_grads(cfg, par, grads, mesh)
+        value = collectives.all_reduce_(
+            value.to(torch.float32).clone(), mesh.groups["data"]) / \
+            mesh.size("data")
+        rules = specs.logical_rules(par)
+        replicas = {path: specs.replicas(
+            specs.spec_for(p.shape, p.axes, mesh.mesh, rules), mesh.mesh)
+            for path, p in pr.leaves(schema)}
     params, opt_state, stats = adamw.apply_updates(
-        _model_module(cfg).lm_schema(cfg), params, grads, opt_state, ocfg)
+        schema, params, grads, opt_state, ocfg, mesh=mesh,
+        replicas=replicas)
     return params, opt_state, {"loss": value.to(torch.float32), **stats}
 
 
 def train_chunk(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
                 params, opt_state, batches, *, device="cuda", loss=None,
-                keys=TRAIN_KEYS):
+                keys=TRAIN_KEYS, mesh=None):
     """K = ``batches["tokens"].shape[0]`` optimizer steps on a (K, B, S)
     chunk (extras stacked (K, B, ...) alike) -> (params, opt_state,
     metrics stacked (K,) on the device).
@@ -409,7 +548,7 @@ def train_chunk(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
     The chunk moves to the device in one copy per leaf, and nothing here
     reads a device value back: the caller syncs once per chunk.  Each step
     is ``train_step`` (with ``loss`` over the batch's ``keys``), so the
-    trajectory equals K per-step calls.
+    trajectory equals K per-step calls (``mesh``: ``train_step``'s).
     """
     dev = resolve_device(device)
     batches = _batch_on(cfg, batches, dev, keys)
@@ -418,7 +557,7 @@ def train_chunk(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
         params, opt_state, m = train_step(
             cfg, par, ocfg, params, opt_state,
             _map(lambda v: v[j], batches), device=dev, loss=loss,
-            keys=keys)
+            keys=keys, mesh=mesh)
         ms.append(m)
     return params, opt_state, {k: torch.stack([m[k] for m in ms])
                                for k in ms[0]}

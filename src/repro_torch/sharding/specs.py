@@ -9,19 +9,25 @@ keeps the byte counts honest.
 The rules and ``spec_for`` are the JAX package's ``sharding/specs.py``,
 entry for entry; a spec is a tuple with one entry a dimension, each None,
 a mesh axis name or a tuple of names, as ``jax.sharding.PartitionSpec``
-holds them.  On one card nothing is partitioned: the dry run
-(``launch.dryrun``) reads these specs to count each tensor's bytes per
-device of a production mesh (``shard_shape``), one leaf at a time, so the
-reference's tree helpers (``shardings_for_schema``, ``shardings_like``)
-have no counterpart.  Nor has its ``constrain``: on one device it is a
-no-op, and the port's models never call it.
+holds them.  The dry run (``launch.dryrun``) reads these specs to count
+each tensor's bytes per device of a production mesh (``shard_shape``),
+one leaf at a time, so the reference's tree helpers
+(``shardings_for_schema``, ``shardings_like``) have no counterpart.  On a
+running mesh (``launch.mesh.RankMesh``) a rank holds the block of each
+leaf that ``local_shard`` cuts, the block ``shard_shape`` counts for its
+device; ``assemble`` puts the blocks of every rank back together.  The
+reference's ``constrain`` has no counterpart: the port's train step lays
+out its activations by hand (``runtime.steps``, ``models.moe``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
 
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models.params import PSpec, tree_map_schema
 
 Axis = Union[str, Tuple[str, ...], None]
 Spec = Tuple[Axis, ...]
@@ -137,3 +143,77 @@ def shard_shape(shape: Sequence[int], spec: Spec, mesh: Mesh
         out.append(dim // n)
     return tuple(out)
 
+
+
+def _flat(axis: Axis) -> Tuple[str, ...]:
+    if axis is None:
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def shard_slices(shape: Sequence[int], spec: Spec, mesh: Mesh,
+                 coords: Mapping[str, int]) -> Tuple[slice, ...]:
+    """The slices of a tensor of ``shape`` that the device at ``coords``
+    holds under ``spec``.  A dimension split over a tuple of axes counts
+    them major to minor, as a ``PartitionSpec`` does."""
+    block = shard_shape(shape, spec, mesh)
+    out = []
+    for i, n in enumerate(block):
+        idx = 0
+        for a in _flat(spec[i] if i < len(spec) else None):
+            idx = idx * mesh.shape.get(a, 1) + coords.get(a, 0)
+        out.append(slice(idx * n, (idx + 1) * n))
+    return tuple(out)
+
+
+def local_shard(t: torch.Tensor, spec: Spec, mesh: Mesh,
+                coords: Mapping[str, int]) -> torch.Tensor:
+    """The device at ``coords``'s block of the whole tensor ``t``, as a
+    contiguous copy."""
+    return t[shard_slices(t.shape, spec, mesh, coords)].contiguous()
+
+
+def assemble(blocks: Mapping[Tuple[int, ...], torch.Tensor],
+             shape: Sequence[int], spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor from the blocks of ``local_shard``, keyed by each
+    device's coordinates in ``mesh.axis_names`` order (replicas must
+    agree; the last one written stands)."""
+    first = next(iter(blocks.values()))
+    out = torch.empty(tuple(shape), dtype=first.dtype, device=first.device)
+    for coords, block in blocks.items():
+        at = dict(zip(mesh.axis_names, coords))
+        out[shard_slices(shape, spec, mesh, at)] = block
+    return out
+
+
+def axis_dim(spec: Spec, axis: str) -> Optional[int]:
+    """The dimension ``spec`` splits over mesh axis ``axis``, or None."""
+    for i, entry in enumerate(spec):
+        if axis in _flat(entry):
+            return i
+    return None
+
+
+def replicas(spec: Spec, mesh: Mesh) -> int:
+    """How many devices of ``mesh`` hold each block under ``spec``."""
+    split = 1
+    for entry in spec:
+        split *= _mesh_size(mesh, entry)
+    n = 1
+    for size in mesh.sizes:
+        n *= size
+    return n // split
+
+
+def leaf_specs(schema, mesh: Mesh, rules: Dict[str, Axis]):
+    """The spec of every leaf of a ``PSpec`` schema, in its structure."""
+    return tree_map_schema(
+        lambda _path, p: spec_for(p.shape, p.axes, mesh, rules), schema)
+
+
+def local_schema(schema, mesh: Mesh, rules: Dict[str, Axis]):
+    """``schema`` with every leaf's shape cut to one device's block."""
+    return tree_map_schema(
+        lambda _path, p: PSpec(
+            shard_shape(p.shape, spec_for(p.shape, p.axes, mesh, rules),
+                        mesh), p.axes, p.init, p.scale, p.dtype), schema)

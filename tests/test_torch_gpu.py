@@ -1209,3 +1209,49 @@ def _leaves(tree, path=""):
         return [kv for k in sorted(tree)
                 for kv in _leaves(tree[k], f"{path}/{k}" if path else k)]
     return [(path, tree)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)])
+def test_two_ranks_on_one_card_train_as_on_the_cpu(shape):
+    """granite-moe smoke (2 layers, 4 x 30 tokens) in f32, two ranks
+    sharing the card over gloo against the same two ranks on the CPU: two steps' losses within
+    1e-4, grad norms within 1e-4 relative, every param block within 2e-4
+    (lr 3e-4), and the gmm, xent and AdamW kernels launched on each card
+    rank (the CPU ranks launch none)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import ranks
+    cfg = registry.get_smoke("granite-moe-1b-a400m").replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    ocfg = OptimizerConfig(warmup_steps=1, decay_steps=100)
+    # 30 tokens a row: not a multiple of 16, so the loss takes the chunked
+    # path through the xent kernels (one chunk a step)
+    batches = TokenPipeline(cfg.vocab_size, 30, 4, seed=1).chunk(0, 2)
+    args = (cfg, ranks.RANK_PARALLEL, ocfg, batches)
+    card = ranks.run_ranks(ranks.train_ranks, shape, args=args,
+                           kwargs={"keep": True}, backend="gloo",
+                           devices=["cuda:0", "cuda:0"])
+    cpu = ranks.run_ranks(ranks.train_ranks, shape, args=args,
+                          kwargs={"keep": True}, device="cpu", threads=2)
+    for a, b in zip(card, cpu):
+        assert a["coords"] == b["coords"]
+        for x, y in zip(a["steps"], b["steps"]):
+            assert abs(x["loss"] - y["loss"]) <= 1e-4
+            assert abs(x["grad_norm"] - y["grad_norm"]) <= 1e-4 * \
+                y["grad_norm"]
+        for k in ("moe_gmm", "xent_fwd", "xent_bwd", "adamw_update"):
+            assert b["launches"][k] == 0
+        assert a["launches"]["moe_gmm"] == 2 * 2 * 12
+        assert a["launches"]["xent_fwd"] == a["launches"]["xent_bwd"] == 2
+        assert a["launches"]["adamw_update"] > 0
+        stack = [(a["params"], b["params"])]
+        while stack:
+            p, q = stack.pop()
+            if isinstance(p, dict):
+                stack.extend((p[k], q[k]) for k in q)
+            else:
+                np.testing.assert_allclose(p, q, rtol=0, atol=2e-4)
