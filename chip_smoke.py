@@ -4916,18 +4916,21 @@ RANKS_STEPS = 2
 RANKS_CHECK = (2, 128)    # (c): layers and tokens a row, f32, card vs CPU
 RANKS_LABEL = "two ranks sharing one H100 over gloo"
 RANKS_KERNELS = ("moe_gmm", "xent_fwd", "xent_bwd", "adamw_update")
+RANKS_TP_MESH = (1, 2)    # (d), (e): granite's own ParallelConfig()
 
 
-def _ranks_run(label, shape, cfg, ocfg, batches, want, smi, **kw):
-    """``train_ranks`` on ``shape`` through ``run_ranks``: each rank's
-    per-step loss, ms, collective bytes and peak memory printed; every
-    loss and grad norm finite and equal on every rank (the global
-    metrics); each rank's kernel launches ``want`` (None: none)."""
+def _ranks_run(label, shape, cfg, ocfg, batches, want, smi, par=None,
+               **kw):
+    """``train_ranks`` on ``shape`` through ``run_ranks`` under ``par``
+    (default ``RANK_PARALLEL``): each rank's per-step loss, ms, collective
+    bytes and peak memory printed; every loss and grad norm finite and
+    equal on every rank (the global metrics); each rank's kernel launches
+    ``want`` (None: none)."""
     from repro_torch.launch import ranks
+    par = par or ranks.RANK_PARALLEL
     t0 = time.perf_counter()
     res = ranks.run_ranks(ranks.train_ranks, shape,
-                          args=(cfg, ranks.RANK_PARALLEL, ocfg, batches),
-                          **kw)
+                          args=(cfg, par, ocfg, batches), **kw)
     wall = time.perf_counter() - t0
     for r in res:
         for j, row in enumerate(r["steps"]):
@@ -4953,6 +4956,8 @@ def _ranks_run(label, shape, cfg, ocfg, batches, want, smi, **kw):
             raise AssertionError(f"[ranks] {label} {shape} rank {r['rank']} "
                                  f"launches {ran} != {expect}")
     return res, {"mesh": list(shape), "label": label, "wall_s": wall,
+                 "parallel": {"tensor_parallel": par.tensor_parallel,
+                              "sequence_parallel": par.sequence_parallel},
                  "ranks": [{"rank": r["rank"], "coords": r["coords"],
                             "steps": r["steps"], "launches": r["launches"]}
                            for r in res], "card": smi}
@@ -4973,8 +4978,13 @@ def phase_ranks(smi: str):
     two-rank runs at ``RANKS_CHECK`` (2 layers, 2 x 128 tokens) in f32 on
     the card against the CPU (the plain versions, gloo) within
     ``phase_small_train``'s tolerances: losses 1e-4, grad norms 1e-4
-    relative, every param block 2e-4 at lr 3e-4.  -> (rows, each run's
-    rank-0 launches by label)."""
+    relative, every param block 2e-4 at lr 3e-4.  (b) and (c) run under
+    ``RANK_PARALLEL`` (experts on ``model``, nothing else); (d) and (e)
+    are (b) and (c) on ``RANKS_TP_MESH`` under granite's own layout,
+    ``registry.get_parallel`` (``ParallelConfig()``: tensor and sequence
+    parallelism on ``model`` besides the experts), whose xent kernels
+    take each rank's sequence slice.  -> (rows, each run's rank-0
+    launches by label)."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import OptimizerConfig
     from repro_torch.data.tokens import TokenPipeline
@@ -4990,9 +5000,14 @@ def phase_ranks(smi: str):
         return base.replace(num_layers=layers, param_dtype=dtype,
                             compute_dtype=dtype)
 
-    def expected(cfg, seq):
+    own = registry.get_parallel(GRANITE)
+
+    def expected(cfg, seq, par=ranks.RANK_PARALLEL, tp=1):
+        # under sequence parallelism a rank's loss runs over seq / tp
+        # positions a row: granite's vocab takes the chunked loss either
+        # way, one xent launch a 512-position chunk
         n = len(pr.leaves(steps._model_module(cfg).lm_schema(cfg)))
-        w = _family_launches(cfg, ranks.RANK_PARALLEL, n, RANKS_STEPS, seq)
+        w = _family_launches(cfg, par, n, RANKS_STEPS, seq // tp)
         return {k: w[k] for k in RANKS_KERNELS}
 
     rows, launches = {}, {}
@@ -5001,11 +5016,14 @@ def phase_ranks(smi: str):
     batches = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
                             seed=0).chunk(0, RANKS_STEPS)
     want = expected(cfg, TRAIN_SEQ)
-    runs = [("(a) nccl", (1, 1), {})] + [
-        (f"(b) {RANKS_LABEL}", shape,
-         {"devices": ["cuda:0", "cuda:0"], "backend": "gloo"})
-        for shape in RANKS_MESHES]
-    for label, shape, kw in runs:
+    shared = {"devices": ["cuda:0", "cuda:0"], "backend": "gloo"}
+    tp = RANKS_TP_MESH[1]
+    runs = [("(a) nccl", (1, 1), {}, want)] + [
+        (f"(b) {RANKS_LABEL}", shape, shared, want)
+        for shape in RANKS_MESHES] + [
+        (f"(d) ParallelConfig(), {RANKS_LABEL}", RANKS_TP_MESH,
+         {**shared, "par": own}, expected(cfg, TRAIN_SEQ, own, tp))]
+    for label, shape, kw, want in runs:
         _, row = _ranks_run(label, shape, cfg, ocfg, batches, want, smi,
                             **kw)
         key = f"{GRANITE} ranks {label.split()[0]} {shape}"
@@ -5016,20 +5034,23 @@ def phase_ranks(smi: str):
     ocfg = OptimizerConfig(warmup_steps=1, decay_steps=100)
     batches = TokenPipeline(small.vocab_size, seq, TRAIN_BATCH,
                             seed=1).chunk(0, RANKS_STEPS)
-    # the four runs of (c) at once: two ranks on the card, two on the CPU
-    # (two threads each), for each mesh
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        jobs = {(shape, where): pool.submit(
-            _ranks_run, label, shape, small, ocfg, batches, want, smi,
-            kwargs={"keep": True}, **kw)
-            for shape in RANKS_MESHES
+    # the six runs of (c) and (e) at once: two ranks on the card, two on
+    # the CPU (two threads each), for each mesh and layout
+    checks = [("(c)", shape, ranks.RANK_PARALLEL, 1) for shape in
+              RANKS_MESHES] + [("(e)", RANKS_TP_MESH, own, tp)]
+    with ThreadPoolExecutor(max_workers=6) as pool:
+        jobs = {(tag, shape, where): pool.submit(
+            _ranks_run, f"{tag} {label}", shape, small, ocfg, batches, want,
+            smi, par=par, kwargs={"keep": True}, **kw)
+            for tag, shape, par, n in checks
             for where, label, want, kw in (
-                ("card", f"(c) card, {RANKS_LABEL}", expected(small, seq),
-                 {"backend": "gloo", "devices": ["cuda:0", "cuda:0"]}),
-                ("cpu", "(c) cpu", None, {"device": "cpu", "threads": 2}))}
+                ("card", f"card, {RANKS_LABEL}",
+                 expected(small, seq, par, n), shared),
+                ("cpu", "cpu", None, {"device": "cpu", "threads": 2}))}
         done = {key: job.result() for key, job in jobs.items()}
-    for shape in RANKS_MESHES:
-        (card, row), (cpu, _) = done[shape, "card"], done[shape, "cpu"]
+    for tag, shape, _, _ in checks:
+        (card, row), (cpu, _) = (done[tag, shape, "card"],
+                                 done[tag, shape, "cpu"])
         loss_err = norm_err = param_err = 0.0
         for a, b in zip(card, cpu):
             for x, y in zip(a["steps"], b["steps"]):
@@ -5040,15 +5061,15 @@ def phase_ranks(smi: str):
             param_err = max(param_err, max(
                 float(abs(pa[k].astype("float64") - pb[k]).max())
                 for k in pb))
-        log(f"[ranks] (c) {shape} f32, {layers} layers, {TRAIN_BATCH} x {seq} "
-            f"tokens, {RANKS_STEPS} steps, card vs cpu: loss max_abs_err "
+        log(f"[ranks] {tag} {shape} f32, {layers} layers, {TRAIN_BATCH} x "
+            f"{seq} tokens, {RANKS_STEPS} steps, card vs cpu: loss max_abs_err "
             f"{loss_err:.3g} (tolerance 1e-4), grad norm rel err "
             f"{norm_err:.3g} (1e-4), param blocks max_abs_err {param_err:.3g} "
             f"(2e-4)")
         if not (loss_err <= 1e-4 and norm_err <= 1e-4 and param_err <= 2e-4):
-            raise AssertionError(f"[ranks] (c) {shape}: the card disagrees "
-                                 f"with the CPU")
-        rows[f"{GRANITE} ranks (c) {shape}"] = {
+            raise AssertionError(f"[ranks] {tag} {shape}: the card "
+                                 f"disagrees with the CPU")
+        rows[f"{GRANITE} ranks {tag} {shape}"] = {
             **row, "loss_max_abs_err": loss_err, "grad_norm_rel_err":
             norm_err, "param_max_abs_err": param_err}
     log(f"[ranks] phase {time.perf_counter() - t_start:.1f} s")

@@ -21,8 +21,12 @@ ranks on one card (``devices=["cuda:0", "cuda:0"]``) run over gloo.
     python -m repro_torch.launch.ranks --smoke --mesh 2,2 --steps 2 \\
         --device cpu
 
-prints each step's loss, ms and collective bytes per rank and each rank's
-peak memory (``--device cpu``: none; the CPU has no allocator counter).
+trains under the arch's own ``ParallelConfig`` (``registry.get_parallel``:
+tensor and sequence parallelism on ``model`` for granite-moe), or with
+``--layout ep`` under ``RANK_PARALLEL``; an arch whose layout
+``steps.check_layout`` refuses on the mesh raises.  It prints each step's
+loss, ms and collective bytes per rank and each rank's peak memory
+(``--device cpu``: none; the CPU has no allocator counter).
 """
 from __future__ import annotations
 
@@ -45,14 +49,17 @@ from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.grad_check import contracted_attention_init_
 from repro_torch.kernels import adamw_update, moe_gmm, xent
-from repro_torch.launch.mesh import RankMesh, make_rank_mesh
+from repro_torch.launch.mesh import RankMesh, make_mesh, make_rank_mesh
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pr
 from repro_torch.runtime import steps
 from repro_torch.sharding import collectives
 
-# the layout the port runs across ranks: the reference's rules with
-# ZeRO-3 on data and experts on model, nothing else split
+# the expert-parallel-only layout across ranks: the reference's rules with
+# ZeRO-3 on data and experts on model, tensor and sequence parallelism off
+# (the dense part replicated over model); ``main``'s ``--layout ep``.  An
+# arch's own layout is ``registry.get_parallel(arch)``: for granite-moe
+# and kimi ``ParallelConfig()``, with both on
 RANK_PARALLEL = ParallelConfig(tensor_parallel=False, sequence_parallel=False)
 
 
@@ -250,6 +257,9 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
                          "cuda:0,cuda:0 (several ranks a card need gloo)")
     ap.add_argument("--backend", default=None, choices=["nccl", "gloo"])
     ap.add_argument("--threads", type=int, default=None)
+    ap.add_argument("--layout", default="own", choices=["own", "ep"],
+                    help="own: the arch's ParallelConfig; ep: "
+                         "RANK_PARALLEL (experts on model, nothing else)")
     args = ap.parse_args(argv)
     shape = tuple(int(n) for n in args.mesh.split(","))
     cfg = (registry.get_smoke if args.smoke else registry.get_config)(
@@ -260,8 +270,15 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     ocfg = OptimizerConfig(warmup_steps=2)
     batches = TokenPipeline(cfg.vocab_size, args.seq, args.batch,
                             seed=args.seed).chunk(0, args.steps)
+    par = (registry.get_parallel(args.arch) if args.layout == "own"
+           else RANK_PARALLEL)
+    # refuse an unported layout here, before any rank starts
+    steps.check_layout(cfg, steps.train_par(par, global_batch=args.batch,
+                                            chips=math.prod(shape)),
+                       ocfg, make_mesh(shape, ("data", "model")),
+                       seq=args.seq)
     results = run_ranks(
-        train_ranks, shape, args=(cfg, RANK_PARALLEL, ocfg, batches),
+        train_ranks, shape, args=(cfg, par, ocfg, batches),
         kwargs={"seed": args.seed}, device=args.device,
         backend=args.backend, threads=args.threads,
         devices=[d for d in args.devices.split(",") if d] or None)

@@ -2,8 +2,10 @@
 
 Numerics mirror the JAX package's ``models/layers.py`` exactly: RMSNorm
 takes the variance in f32 and multiplies in x's dtype by ``1 + scale``;
-RoPE is split-half (not interleaved); SiLU runs in f32.  There is no mesh,
-so the JAX sharding constraints have no counterpart here.
+RoPE is split-half (not interleaved); SiLU runs in f32.  The JAX sharding
+constraints have no counterpart: across ranks the train step lays out its
+activations by hand, and ``sequence_parallel`` says when it runs the
+reference's tensor- and sequence-parallel layout.
 """
 from __future__ import annotations
 
@@ -11,12 +13,22 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.models.params import torch_dtype
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.compute_dtype)
+
+
+def sequence_parallel(mesh, par: Optional[ParallelConfig]) -> bool:
+    """True where a train step on ``mesh`` (a ``launch.mesh.RankMesh`` or
+    None) runs tensor and sequence parallelism on its ``model`` axis: the
+    stream between layers holds this rank's sequence slice, each block
+    gathers it (``collectives.sp_gather``) before its column-parallel
+    products and reduce-scatters its row-parallel output back onto it."""
+    return (mesh is not None and par is not None and mesh.size("model") > 1
+            and par.tensor_parallel and par.sequence_parallel)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

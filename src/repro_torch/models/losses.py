@@ -9,7 +9,12 @@ A port of the JAX package's ``models/losses.py`` for one device:
   * ``weighted_cross_entropy`` — the same with per-token weights (the RL
     form);
   * ``sharded_cross_entropy`` — plain math (``ref.softmax_xent_ref``);
-    without a mesh there is nothing to shard, so it is the one-block loss.
+    without a mesh there is nothing to shard, so it is the one-block loss;
+  * ``sequence_parallel_cross_entropy`` — across ranks under sequence
+    parallelism, each rank's sequence slice through the chunked loss (the
+    xent kernel, the head whole on the rank), averaged over the ``model``
+    group: where the reference takes either loss above on
+    sequence-sharded rows, both compute this mean over the whole vocab.
 
 A chunk's logits are ``x_c @ head.T`` in the compute dtype and only then
 ``.float()``, as the reference's einsum rounds to the compute dtype before
@@ -27,6 +32,7 @@ import torch
 
 from repro_torch.kernels.ref import softmax_xent_ref
 from repro_torch.kernels.xent import softmax_xent
+from repro_torch.sharding import collectives
 
 
 def _chunks(S: int, chunk: int) -> int:
@@ -82,3 +88,17 @@ def chunked_cross_entropy(x: torch.Tensor, labels: torch.Tensor,
         total = total + _chunk_nll(x[:, i:i + c], labels[:, i:i + c], head,
                                    softcap).sum()
     return total / (B * S)
+
+
+def sequence_parallel_cross_entropy(x: torch.Tensor, labels: torch.Tensor,
+                                    head: torch.Tensor, group, *,
+                                    softcap: Optional[float] = None,
+                                    chunk: int = 512) -> torch.Tensor:
+    """Mean token NLL over the rows of ``group``'s ranks: x (B,s,D) this
+    rank's sequence slice of the final hidden states, labels (B,s) its
+    labels, head (V,D) whole.  Every rank's slice holds as many rows, so
+    the mean of the ranks' means (``collectives.group_mean``) is the mean
+    over all of them, and every rank of ``group`` holds it."""
+    return collectives.group_mean(
+        chunked_cross_entropy(x, labels, head, softcap=softcap, chunk=chunk),
+        group)

@@ -18,7 +18,8 @@ prefill and decode both take on one device):
 
 In training on a ``model`` axis of tp > 1 (``moe_mlp`` given a
 ``launch.mesh.RankMesh``, the reference's ``moe.py:45-185`` tp > 1 branch)
-each rank owns E / tp experts: the sequence splits over ``model``, each
+each rank owns E / tp experts: the sequence splits over ``model`` (under
+sequence parallelism it arrives split), each
 rank's entries fill a (tp, cap, D) send buffer by destination rank, an
 ``all_to_all`` carries them to their experts' ranks, which bucket them by
 local expert and run the same grouped matmul on (E / tp, cap_e, D)
@@ -60,7 +61,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.moe_gmm import gmm, gmm_train
-from repro_torch.models.layers import compute_dtype, rms_norm
+from repro_torch.models.layers import (compute_dtype, rms_norm,
+                                       sequence_parallel)
 from repro_torch.models.params import PSpec
 from repro_torch.sharding import collectives
 
@@ -240,17 +242,21 @@ def _routed(cfg: ModelConfig, p, x, train: bool = False):
     return out.reshape(B, S, D), probs, top_idx
 
 
-def _routed_ep(cfg: ModelConfig, p, x, train: bool, mesh):
-    """``_routed`` with this rank's experts on a ``model`` axis of tp > 1:
-    the router runs on the rank's whole (B, S) block, as every ``model``
-    rank holds it; the sequence splits over ``model`` (the reference's
-    ``P(dp_axes, "model", None)``), each slice goes through
-    ``_exchange_compute_combine``, and the slices are gathered back."""
+def _routed_ep(cfg: ModelConfig, p, x, train: bool, mesh,
+               sp: bool = False):
+    """``_routed`` with this rank's experts on a ``model`` axis of tp > 1,
+    each rank's sequence slice (the reference's ``P(dp_axes, "model",
+    None)``) through ``_exchange_compute_combine``.  Under sequence
+    parallelism (``sp``) ``x`` is that slice already: the router runs on
+    it and the output stays on it.  Without, ``x`` is the rank's whole (B,
+    S) block, which every ``model`` rank holds alike: the router runs on
+    it, the sequence splits over ``model`` and the slices are gathered
+    back."""
     mcfg = cfg.moe
     group = mesh.groups["model"]
     tp = mesh.size("model")
     B, S, D = x.shape
-    if S % tp:
+    if not sp and S % tp:
         raise NotImplementedError(
             f"the MoE block on a model axis of {tp} needs the sequence "
             f"({S}) to split over it; the reference's decode branch (S % tp "
@@ -258,20 +264,22 @@ def _routed_ep(cfg: ModelConfig, p, x, train: bool, mesh):
             f"moe.py:187-218) serves only serving on a mesh (ROADMAP "
             f"queue A)")
     probs, top_w, top_idx = _route(cfg, p, x)
-    xs = collectives.seq_split(x, 1, group)
-    ws = collectives.seq_split(top_w, 1, group)
-    ids = collectives.seq_split(top_idx, 1, group)
-    T = B * (S // tp)
+    xs, ws, ids = (x, top_w, top_idx) if sp else (
+        collectives.seq_split(t, 1, group) for t in (x, top_w, top_idx))
+    s = xs.shape[1]
     out = _exchange_compute_combine(
-        xs.reshape(T, D), ids.reshape(T, mcfg.top_k),
-        ws.reshape(T, mcfg.top_k), p["moe_wg"], p["moe_wu"], p["moe_wo"],
-        E=mcfg.num_experts, cf=mcfg.capacity_factor,
+        xs.reshape(B * s, D), ids.reshape(B * s, mcfg.top_k),
+        ws.reshape(B * s, mcfg.top_k), p["moe_wg"], p["moe_wu"],
+        p["moe_wo"], E=mcfg.num_experts, cf=mcfg.capacity_factor,
         compute_dtype=compute_dtype(cfg), train=train, group=group)
-    out = collectives.seq_gather(out.view(B, S // tp, D), 1, group)
+    out = out.view(B, s, D)
+    if not sp:
+        out = collectives.seq_gather(out, 1, group)
     return out, probs, top_idx
 
 
-def moe_mlp(cfg: ModelConfig, p, x, train: bool = False, mesh=None):
+def moe_mlp(cfg: ModelConfig, p, x, train: bool = False, mesh=None,
+            sp: bool = False):
     """x (B,S,D) -> (B,S,D), plus the load-balance aux loss (f32 scalar):
     ``aux_weight * E * sum_e f_e * p_e`` (Shazeer et al.), f_e the share of
     entries routed to e and p_e its mean router probability.  ``train``
@@ -284,16 +292,22 @@ def moe_mlp(cfg: ModelConfig, p, x, train: bool = False, mesh=None):
     group, the reference's means over the global batch.  On a ``model``
     axis of 1 each rank dispatches its own tokens, with the capacities of
     its T: the reference, under GSPMD, computes them over the global batch
-    there, and the two agree wherever no bucket fills.
+    there, and the two agree wherever no bucket fills.  Under sequence
+    parallelism (``sp``) ``x`` is this rank's sequence slice, and ``f`` and
+    ``p`` are averaged over every rank, data and model: each holds an equal
+    share of the tokens the reference's means run over.
     """
     E = cfg.moe.num_experts
     if mesh is not None and mesh.size("model") > 1:
-        out, probs, top_idx = _routed_ep(cfg, p, x, train, mesh)
+        out, probs, top_idx = _routed_ep(cfg, p, x, train, mesh, sp)
     else:
         out, probs, top_idx = _routed(cfg, p, x, train)
     f = F.one_hot(top_idx, E).float().sum(2).mean(dim=(0, 1))
     pbar = probs.mean(dim=(0, 1))
-    if mesh is not None and mesh.size("data") > 1:
+    if sp:
+        f = collectives.group_mean(f, mesh.world)
+        pbar = collectives.group_mean(pbar, mesh.world)
+    elif mesh is not None and mesh.size("data") > 1:
         f = collectives.group_mean(f, mesh.groups["data"])
         pbar = collectives.group_mean(pbar, mesh.groups["data"])
     return out, cfg.moe.router_aux_weight * E * (f * pbar).sum()
@@ -308,16 +322,20 @@ def moe_block_schema(cfg: ModelConfig, G: int) -> Dict[str, PSpec]:
 
 
 def apply_moe_block(cfg: ModelConfig, p, x, *, mode, positions, cache, pos,
-                    shared, extras=None, mesh=None):
+                    shared, extras=None, mesh=None, par=None):
     """Attention sub-block, then the routed MLP.  -> (x, new_cache); in
     train the second item is ``{"aux": the load-balance aux loss}``, which
-    serving never computes.  ``mesh`` (train only) is ``moe_mlp``'s."""
+    serving never computes.  ``mesh`` (train only) is ``moe_mlp``'s; under
+    sequence parallelism (``par``) the routed MLP takes the attention
+    block's output slice as it stands."""
     from repro_torch.models.transformer import attention_part
     x, new_cache = attention_part(cfg, p, x, window=None, mode=mode,
-                                  positions=positions, cache=cache, pos=pos)
+                                  positions=positions, cache=cache, pos=pos,
+                                  mesh=mesh, par=par)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if mode == "train":
-        out, aux = moe_mlp(cfg, p, h, train=True, mesh=mesh)
+        out, aux = moe_mlp(cfg, p, h, train=True, mesh=mesh,
+                           sp=sequence_parallel(mesh, par))
         new_cache = {"aux": aux}
     else:
         out = _routed(cfg, p, h)[0]

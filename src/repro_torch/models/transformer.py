@@ -40,7 +40,15 @@ cross-entropy (through the fused xent kernel) unless the vocab and
 sequence divide 16 and the layout is not pure-FSDP.  Across ranks
 (``mesh=``, a ``launch.mesh.RankMesh``) ``loss_fn`` gathers the top-level
 leaves, the train forward ZeRO-gathers each layer group's inside its
-remat scope, and the MoE kind gets the mesh (``MESH_KINDS``).
+remat scope, and the kinds of ``MESH_KINDS`` get the mesh and the
+``ParallelConfig``.  Under tensor and sequence parallelism on ``model``
+(``layers.sequence_parallel``, the reference's default layout) the stream
+between layers is this rank's sequence slice: each block gathers it
+(``collectives.sp_gather``), computes this rank's heads and ff columns
+(``_tp_blocks`` cuts them from the rank's blocks, gathering over
+``model`` a leaf whose split the compute cannot use), and reduce-scatters
+its row-parallel output back onto the slice (``collectives.sp_scatter``);
+the loss is each rank's rows' mean, averaged over ``model``.
 """
 from __future__ import annotations
 
@@ -53,15 +61,15 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import losses
 from repro_torch.models.layers import (compute_dtype, embed_tokens, rms_norm,
-                                       swiglu, unembed)
+                                       sequence_parallel, swiglu, unembed)
 from repro_torch.models.params import PSpec, tree_map_schema
 from repro_torch.sharding import collectives, specs
 
 # kind -> {"schema": (cfg, G) -> {name: PSpec},
 #          "cache": (cfg, B, S, G) -> {name: PSpec or dict},
 #          "apply": (cfg, p, x, *, mode, positions, cache, pos, shared,
-#                    extras[, mesh]) -> (x, new_cache)}; the kinds of
-#          ``MESH_KINDS`` take ``mesh`` (train across ranks)
+#                    extras[, mesh, par]) -> (x, new_cache)}; the kinds of
+#          ``MESH_KINDS`` take ``mesh`` and ``par`` (train across ranks)
 KINDS: Dict[str, Dict[str, Callable]] = {}
 
 
@@ -164,11 +172,21 @@ def insert_kv(cache, k, v, pos) -> None:
 
 
 def attention_part(cfg: ModelConfig, p, x, *, window, mode, positions,
-                   cache, pos):
+                   cache, pos, mesh=None, par=None):
     """Pre-norm attention sub-block shared by the dense and hybrid kinds.
     Returns (x, new_cache): prefill's k/v, decode's cache (written in place)
-    or {} in train."""
+    or {} in train.
+
+    Under sequence parallelism (``layers.sequence_parallel(mesh, par)``)
+    ``x`` is this rank's sequence slice and ``p`` holds its heads'
+    projections (``_tp_blocks``): the normed slices are gathered, this
+    rank's heads attend over the whole sequence (``positions`` covers it),
+    and the output projection's partial sums are reduce-scattered back
+    onto the slice."""
+    sp = sequence_parallel(mesh, par)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if sp:
+        h = collectives.sp_gather(h, 1, mesh.groups["model"])
     q, k, v = attn_mod.qkv_proj(cfg, p, h, positions)
     new_cache = {}
     if mode == "decode":
@@ -185,14 +203,24 @@ def attention_part(cfg: ModelConfig, p, x, *, window, mode, positions,
             q, k, v, window=window, logit_softcap=cfg.attn.logit_softcap)
         new_cache = {"k": k, "v": v}
     out = attn_mod.attn_out(cfg, p, out)
+    if sp:
+        out = collectives.sp_scatter(out, 1, mesh.groups["model"])
     if cfg.post_norm:
         out = rms_norm(out, p["ln1_post"], cfg.norm_eps)
     return x + out, new_cache
 
 
-def mlp_part(cfg: ModelConfig, p, x):
+def mlp_part(cfg: ModelConfig, p, x, mesh=None, par=None):
+    """Pre-norm SwiGLU sub-block; under sequence parallelism column-parallel
+    ``wg``/``wu`` and row-parallel ``wo_mlp`` on this rank's ff columns,
+    between the gather and the reduce-scatter of ``attention_part``."""
+    sp = sequence_parallel(mesh, par)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if sp:
+        h = collectives.sp_gather(h, 1, mesh.groups["model"])
     out = swiglu(cfg, {"wg": p["wg"], "wu": p["wu"], "wo": p["wo_mlp"]}, h)
+    if sp:
+        out = collectives.sp_scatter(out, 1, mesh.groups["model"])
     if cfg.post_norm:
         out = rms_norm(out, p["ln2_post"], cfg.norm_eps)
     return x + out
@@ -200,11 +228,11 @@ def mlp_part(cfg: ModelConfig, p, x):
 
 def _make_attn_apply(window_of: Callable[[ModelConfig], Optional[int]]):
     def apply(cfg, p, x, *, mode, positions, cache, pos, shared,
-              extras=None, mesh=None):
+              extras=None, mesh=None, par=None):
         x, new_cache = attention_part(
             cfg, p, x, window=window_of(cfg), mode=mode, positions=positions,
-            cache=cache, pos=pos)
-        return mlp_part(cfg, p, x), new_cache
+            cache=cache, pos=pos, mesh=mesh, par=par)
+        return mlp_part(cfg, p, x, mesh, par), new_cache
     return apply
 
 
@@ -230,8 +258,73 @@ def _stack(trees: list):
 
 
 # the kinds a train step runs on a mesh: each layer's leaves ZeRO-gathered,
-# the dense part replicated over ``model``, the experts split over it
+# the experts split over ``model``, the dense part replicated over it or,
+# under tensor parallelism, cut into heads and ff columns (``_tp_blocks``)
 MESH_KINDS = ("attn", "global", "local", "moe")
+
+# under tensor parallelism, the dimension of a layer's leaf (its stacked
+# leaf's less the layers axis) of which a rank computes a block, and what
+# the block holds: column-parallel q/k/v and gate/up, row-parallel wo and
+# wo_mlp
+_TP_COMPUTE = {"wq": (1, "heads"), "bq": (0, "heads"), "wo": (0, "heads"),
+               "wk": (1, "kv_heads"), "wv": (1, "kv_heads"),
+               "bk": (0, "kv_heads"), "bv": (0, "kv_heads"),
+               "wg": (1, "ff"), "wu": (1, "ff"), "wo_mlp": (0, "ff")}
+
+
+def tp_range(cfg: ModelConfig, what: str, tp: int, r: int):
+    """[start, stop) of model rank ``r``'s block of ``what`` on a model
+    axis of ``tp``: its H / tp query heads (the reference's ``"heads"``
+    strategy), the KV heads they read (query head h reads ``h // (H /
+    KV)``: KV / tp of them where tp divides KV, else the one KV head the
+    reference's repeat of K/V up to H gives this rank's heads), or its
+    d_ff / tp columns."""
+    if what == "ff":
+        n = cfg.d_ff // tp
+        return r * n, (r + 1) * n
+    H = cfg.num_heads
+    h0, h1 = r * H // tp, (r + 1) * H // tp
+    if what == "heads":
+        return h0, h1
+    g = H // cfg.num_kv_heads
+    return h0 // g, (h1 - 1) // g + 1
+
+
+def _tp_blocks(cfg: ModelConfig, gp, model_dims, mesh):
+    """A layer group's leaves (ZeRO-gathered over ``data``) -> the blocks
+    this rank computes with under tensor parallelism: a leaf of
+    ``_TP_COMPUTE`` split over ``model`` along its compute dimension is
+    the rank's block as it stands; one split along another dimension
+    (wq/wk/wv/wo on head_dim: split-half RoPE pairs dims i and i + dh/2,
+    which a contiguous half of head_dim does not hold) is gathered over
+    ``model`` (``zero_gather``: its gradient reduce-scattered) and cut; one
+    replicated over ``model`` is cut (its gradient, zero outside the cut,
+    is summed over ``model`` in ``runtime.steps``).  Every other leaf (the
+    norms, the router: replicated; the experts: split) stays whole."""
+    group = mesh.groups["model"]
+    tp, r = mesh.size("model"), mesh.coords["model"]
+    out = {}
+    for key, grp in gp.items():
+        blk = {}
+        for name, leaf in grp.items():
+            md = model_dims[key][name]
+            if name in _TP_COMPUTE:
+                cd, what = _TP_COMPUTE[name]
+                a, b = tp_range(cfg, what, tp, r)
+                if md != cd:
+                    if md is not None:
+                        leaf = collectives.zero_gather(leaf, md, group)
+                    leaf = leaf.narrow(cd, a, b - a)
+            blk[name] = leaf
+        out[key] = blk
+    return out
+
+
+def _seq_slice(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This ``model`` rank's slice of the sequence (dim 1) of ``t``."""
+    tp, r = mesh.size("model"), mesh.coords["model"]
+    n = t.shape[1] // tp
+    return t[:, r * n:(r + 1) * n]
 
 
 def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
@@ -242,12 +335,18 @@ def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
     blocks, whose ``data``-split leaves each layer group gathers inside its
     remat scope (``collectives.zero_gather``), so the gathered weights of
     one group at a time live beyond the shards; the top-level leaves come
-    whole (``loss_fn`` gathers them).  The MoE kind gets the mesh.
+    whole (``loss_fn`` gathers them).  The kinds get the mesh and ``par``.
+    Under sequence parallelism the rank embeds its slice of ``tokens``,
+    cuts each group's heads and ff columns inside the same remat scope
+    (``_tp_blocks``), and returns its slice's hidden states.
     """
     for kind in cfg.block_pattern:
         _kind(kind)
-    x = embed_tokens(cfg, params["embed"], tokens)
+    sp = sequence_parallel(mesh, par)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    if sp:
+        tokens = _seq_slice(tokens, mesh)
+    x = embed_tokens(cfg, params["embed"], tokens)
     # one unbind per stacked leaf: backward stacks its per-group grads in
     # one op, where indexing each group would add a full-size zero tensor
     # per group
@@ -258,15 +357,15 @@ def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     kw = {}
     if mesh is not None:
-        kw["mesh"] = mesh
-        # a layer slice's dims are its stacked leaf's less the layers axis
-        dims = {key: {name: None if d is None else d - 1
-                      for name, d in grp.items()}
-                for key, grp in _data_dims(cfg, par, mesh)["blocks"].items()}
+        kw = {"mesh": mesh, "par": par}
+        dims = _layer_dims(_axis_dims(cfg, par, mesh, "data"))
+        model_dims = _layer_dims(_axis_dims(cfg, par, mesh, "model"))
 
     def body(x, aux, gp):
         if mesh is not None:
             gp = collectives.zero_gather_tree(gp, dims, mesh.groups["data"])
+        if sp:
+            gp = _tp_blocks(cfg, gp, model_dims, mesh)
         for i, kind in enumerate(cfg.block_pattern):
             x, out = KINDS[kind]["apply"](
                 cfg, gp[f"{i}_{kind}"], x, mode="train", positions=positions,
@@ -286,22 +385,37 @@ def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
-def _data_dims(cfg: ModelConfig, par: ParallelConfig, mesh):
-    """Each leaf's dimension split over ``data`` on ``mesh``, or None."""
+def _axis_dims(cfg: ModelConfig, par: ParallelConfig, mesh, axis: str):
+    """Each leaf's dimension split over mesh axis ``axis`` on ``mesh``, or
+    None."""
     rules = specs.logical_rules(par)
     return tree_map_schema(
         lambda _path, p: specs.axis_dim(
-            specs.spec_for(p.shape, p.axes, mesh.mesh, rules), "data"),
+            specs.spec_for(p.shape, p.axes, mesh.mesh, rules), axis),
         lm_schema(cfg))
+
+
+def _layer_dims(dims):
+    """The blocks' entries of ``_axis_dims`` on a layer's slice: its
+    stacked leaf's dimensions less the layers axis."""
+    return {key: {name: None if d is None else d - 1
+                  for name, d in grp.items()}
+            for key, grp in dims["blocks"].items()}
 
 
 def _gather_top(cfg: ModelConfig, par: ParallelConfig, params, mesh):
     """``params`` with its top-level leaves (embedding, head, final norm)
-    ZeRO-gathered and its blocks as they are."""
-    dims = _data_dims(cfg, par, mesh)
+    ZeRO-gathered and its blocks as they are.  Under sequence parallelism
+    a top-level leaf split over ``model`` (the vocab of the embedding and
+    head) is gathered over it too: the lookup and the loss take the whole
+    vocab on each rank's rows."""
     top = {k: v for k, v in params.items() if k != "blocks"}
-    top = collectives.zero_gather_tree(
-        top, {k: dims[k] for k in top}, mesh.groups["data"])
+    for axis in ("data", "model"):
+        if axis == "model" and not sequence_parallel(mesh, par):
+            continue
+        dims = _axis_dims(cfg, par, mesh, axis)
+        top = collectives.zero_gather_tree(
+            top, {k: dims[k] for k in top}, mesh.groups[axis])
     return {**top, "blocks": params["blocks"]}
 
 
@@ -361,12 +475,21 @@ def loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch,
     """Mean token NLL of ``batch`` ({"tokens", "labels"}: (B,S) int, and
     the VLM's "extras") plus the MoE blocks' aux loss.  On ``mesh`` (a
     ``launch.mesh.RankMesh``) ``params`` and ``batch`` are this rank's:
-    the NLL is the mean over its rows, the aux loss the global one."""
+    the NLL is the mean over its rows (under sequence parallelism over
+    the ``model`` group's, ``losses.sequence_parallel_cross_entropy``),
+    the aux loss the global one."""
     if mesh is not None:
         params = _gather_top(cfg, par, params, mesh)
     x, aux = _train_forward(cfg, par, params, batch["tokens"],
                             batch.get("extras"), mesh)
     head = lm_head(cfg, params).to(compute_dtype(cfg))
+    if sequence_parallel(mesh, par):
+        # both of the reference's losses (below) compute mean(lse - gold)
+        # over the whole vocab; here each rank's rows go through the xent
+        # kernel with the head whole on the rank
+        return losses.sequence_parallel_cross_entropy(
+            x, _seq_slice(batch["labels"], mesh), head,
+            mesh.groups["model"], softcap=cfg.final_logit_softcap) + aux
     S = x.shape[1]
     # the reference's rule: the sharded head needs the vocab on the model
     # axis, which pure-FSDP gives to the batch

@@ -41,19 +41,26 @@ in place and return them.  Train steps take ``device=`` (default
 
 Across ranks (``train_step`` / ``train_chunk`` given ``mesh=``, a
 ``launch.mesh.RankMesh`` of one process a rank, ``launch.ranks``) the
-layout is the reference's rules for ``ParallelConfig(tensor_parallel=False,
-sequence_parallel=False)`` on a ``("data", "model")`` mesh: the batch
-split over ``data``, each leaf's ``fsdp`` axis over ``data`` (ZeRO-3:
-``collectives.zero_gather`` a layer group at a time, the gradients
-reduce-scattered and averaged), the MoE leaves' ``expert`` axis over
-``model`` (``models.moe``'s exchange), everything else replicated.
-``shard_params`` / ``init_opt_state(mesh=)`` give a rank its blocks
+layout is the reference's rules on a ``("data", "model")`` mesh, in one of
+two forms.  Both split the batch over ``data``, each leaf's ``fsdp`` axis
+over ``data`` (ZeRO-3: ``collectives.zero_gather`` a layer group at a
+time, the gradients reduce-scattered and averaged) and the MoE leaves'
+``expert`` axis over ``model`` (``models.moe``'s exchange).  Under
+``ParallelConfig(tensor_parallel=False, sequence_parallel=False)``
+everything else is replicated over ``model``.  Under both flags on (the
+reference's default) the heads, KV heads, ff columns and vocab split over
+``model`` as ``sharding.specs`` lays them out, the stream between layers
+is each rank's sequence slice (``models.layers.sequence_parallel``), and
+a leaf replicated over ``model`` gets each rank's partial gradient, summed
+over ``model`` here (``_reduce_grads``).  ``shard_params`` /
+``init_opt_state(mesh=)`` give a rank its blocks
 (``sharding.specs.local_shard``), and ``check_layout`` raises
 ``NotImplementedError`` for what asks for more.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -63,6 +70,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import mesh_num_chips
 from repro_torch.models import params as pr
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import sequence_parallel
 from repro_torch.optim import adamw
 from repro_torch.sharding import collectives, specs
 
@@ -320,29 +328,45 @@ def init_opt_state(cfg: ModelConfig, ocfg: OptimizerConfig, device="cuda",
 
 
 def check_layout(cfg: ModelConfig, par: ParallelConfig,
-                 ocfg: OptimizerConfig, mesh) -> None:
+                 ocfg: OptimizerConfig, mesh, seq: Optional[int] = None
+                 ) -> None:
     """Raise ``NotImplementedError`` naming the missing rule where a train
-    step on ``mesh`` (a ``launch.mesh.Mesh``) would need a layout the port
-    does not run: tensor or sequence parallelism or pure FSDP on a
-    ``model`` axis larger than 1, experts not split over it, the int8 or
-    factored moments on more than one rank, kinds other than the dense and
-    MoE ones, a ``pod`` axis.  Nothing falls back."""
+    step on ``mesh`` (a ``launch.mesh.Mesh``) over sequences of ``seq``
+    tokens (None: not checked) would need a layout the port does not run.
+
+    On a ``model`` axis larger than 1 the port runs the experts split over
+    it with either both of tensor and sequence parallelism off or both on
+    (the reference's default).  It refuses one without the other, pure
+    FSDP, experts not split over ``model``, and under tensor parallelism
+    the reference's ``"seq"`` attention strategy (heads that do not split
+    over ``model``), a sequence that does not, KV heads whose blocks do
+    not line up with the query heads', and d_ff that does not split.  On
+    more than one rank it refuses the int8 and factored moments, kinds
+    other than the dense and MoE ones, and a ``pod`` axis.  Nothing falls
+    back."""
     if tuple(mesh.axis_names) != ("data", "model"):
         raise NotImplementedError(
             f"a train step across ranks runs on a ('data', 'model') mesh, "
             f"not {mesh.axis_names}")
     tp = mesh.shape["model"]
     if tp > 1:
-        for flag, rule in (("tensor_parallel", "the tp_* rules: heads, ffn, "
-                            "vocab and activations on 'model'"),
-                           ("sequence_parallel", "act_seq_sharded on "
-                            "'model'"),
-                           ("pure_fsdp", "batch over ('data', 'model') and "
-                            "weights ZeRO-3 over both")):
-            if getattr(par, flag):
-                raise NotImplementedError(
-                    f"ParallelConfig({flag}=True) on a model axis of {tp}: "
-                    f"{rule} is not ported (ROADMAP queue A)")
+        if par.pure_fsdp:
+            raise NotImplementedError(
+                f"ParallelConfig(pure_fsdp=True) on a model axis of {tp}: "
+                f"batch over ('data', 'model') and weights ZeRO-3 over both "
+                f"is not ported (ROADMAP queue A, R7)")
+        if par.tensor_parallel != par.sequence_parallel:
+            on, off = (("tensor_parallel", "sequence_parallel")
+                       if par.tensor_parallel else
+                       ("sequence_parallel", "tensor_parallel"))
+            raise NotImplementedError(
+                f"ParallelConfig({on}=True, {off}=False) on a model axis "
+                f"of {tp}: the port runs tensor and sequence parallelism "
+                f"together (the tp_* rules with act_seq_sharded on "
+                f"'model') or neither; one without the other is not "
+                f"ported (ROADMAP queue A)")
+        if par.tensor_parallel:
+            _check_tp(cfg, tp, seq)
         if cfg.moe is not None and not par.expert_parallel:
             raise NotImplementedError(
                 f"experts replicated over a model axis of {tp} "
@@ -364,6 +388,31 @@ def check_layout(cfg: ModelConfig, par: ParallelConfig,
             f"{cfg.name}: a train step across ranks runs the dense and MoE "
             f"kinds {tfm.MESH_KINDS}, not {sorted(kinds) or cfg.family!r} "
             f"(ROADMAP queue A)")
+
+
+def _check_tp(cfg: ModelConfig, tp: int, seq: Optional[int]) -> None:
+    """``check_layout``'s rules for tensor and sequence parallelism on a
+    ``model`` axis of ``tp``."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if seq is not None and seq % tp:
+        raise NotImplementedError(
+            f"a sequence of {seq} does not split over a model axis of {tp}: "
+            f"sequence parallelism (act_seq_sharded on 'model') needs it to")
+    if H % tp:
+        raise NotImplementedError(
+            f"{H} heads on a model axis of {tp}: the reference's 'seq' "
+            f"attention strategy (queries sequence-sharded, K/V gathered; "
+            f"attention.py attn_strategy) is not ported, only 'heads'")
+    if KV % tp and tp % KV:
+        raise NotImplementedError(
+            f"{KV} KV heads on a model axis of {tp}: a rank's {H // tp} "
+            f"query heads read KV heads that neither split over it nor "
+            f"repeat onto it")
+    if any(k in ("attn", "global", "local") for k in cfg.block_pattern) \
+            and cfg.d_ff % tp:
+        raise NotImplementedError(
+            f"d_ff {cfg.d_ff} does not split over a model axis of {tp} "
+            f"(tp_ff)")
 
 
 def shard_params(cfg: ModelConfig, par: ParallelConfig, params, mesh):
@@ -396,15 +445,29 @@ def _rank_rows(batch, mesh, accum: int):
 def _reduce_grads(cfg: ModelConfig, par: ParallelConfig, grads, mesh):
     """Mean over ``data`` of each rank's grads, in place: a leaf split over
     ``data`` was summed by its gather's reduce-scatter, every other one is
-    summed here."""
+    summed here.
+
+    Under sequence parallelism every collective's backward is its exact
+    transpose, so a rank's grads are those of the sum of every rank's
+    copy of the loss, tp times each data group's: a leaf split over
+    ``model`` (or gathered over it) has its sum already, one replicated
+    over ``model`` holds only this rank's part (its sequence slice's, its
+    heads' or ff columns') and is summed over ``model`` here, and every
+    leaf is divided by dp * tp."""
     dp = mesh.size("data")
+    tp = mesh.size("model") if sequence_parallel(mesh, par) else 1
     spec_tree = specs.leaf_specs(_model_module(cfg).lm_schema(cfg),
                                  mesh.mesh, specs.logical_rules(par))
 
     def mean(g, spec):
-        if dp > 1 and specs.axis_dim(spec, "data") is None:
-            collectives.all_reduce_(g, mesh.groups["data"])
-        return g.div_(dp)
+        data = dp > 1 and specs.axis_dim(spec, "data") is None
+        model = tp > 1 and specs.axis_dim(spec, "model") is None
+        if data and model:
+            collectives.all_reduce_(g, mesh.world)
+        elif data or model:
+            collectives.all_reduce_(
+                g, mesh.groups["data" if data else "model"])
+        return g.div_(dp * tp)
     return _map(mean, grads, spec_tree)
 
 
@@ -500,7 +563,8 @@ def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
         par = train_par(par)
     else:
         par = train_par(par, global_batch=B, chips=mesh.world_size)
-        check_layout(cfg, par, ocfg, mesh.mesh)
+        check_layout(cfg, par, ocfg, mesh.mesh,
+                     seq=batch["tokens"].shape[1])
         if loss is not None:
             raise NotImplementedError(
                 "a train step across ranks takes the family's loss_fn; "

@@ -18,13 +18,29 @@ the same gradient on each of them.
                      rank's slice of the gradient backward (every
                      ``model`` rank holds the same upstream gradient, so a
                      summing backward would multiply it by the group size);
+                     ``seq_split`` and ``seq_gather`` serve the layout
+                     without tensor parallelism, where the dense part is
+                     replicated over ``model``;
+  * ``sp_gather``    Megatron sequence parallelism: the ``model`` ranks'
+                     sequence slices gathered before a block's
+                     column-parallel products, all-gather forward,
+                     reduce-scatter (sum) backward (each rank's heads or
+                     ff columns give a different partial gradient of the
+                     gathered input, and the slice's gradient is their
+                     sum); the same Function as ``zero_gather``, which
+                     also gathers, over ``model``, a leaf whose split the
+                     compute cannot use (a head_dim split, the vocab);
+  * ``sp_scatter``   a row-parallel product's partial sums reduce-scattered
+                     (sum) onto this rank's sequence slice forward,
+                     all-gather of the slices' gradients backward;
   * ``all_to_all``   equal splits along dim 0 forward, the inverse
                      exchange (the same call) backward;
   * ``group_mean``   a mean across a group, whose backward is the mean of
                      the upstream gradients (each rank's loss holds the
                      mean, and the data ranks' gradients are averaged
                      afterwards): the MoE aux loss's global ``f`` and
-                     ``pbar``;
+                     ``pbar``, and under sequence parallelism the loss over
+                     the ``model`` ranks' slices;
   * ``all_reduce_``  a plain in-place sum (no gradient): the grads of
                      leaves no rank splits over ``data``, the loss
                      metric, the global grad norm.
@@ -37,10 +53,17 @@ tensors takes each collective used here (``all_gather``,
 ``all_to_all`` it refuses, and nothing here calls it), so no collective
 goes through host memory: NCCL and gloo run the same calls.
 
+Under sequence parallelism every Function above is the exact transpose
+of its forward, so each rank's gradient is that of the sum of every
+rank's copy of the loss: ``runtime.steps`` then sums each leaf over the
+axes that do not split it and divides by the number of ranks.
+
 ``bytes_sent`` counts, per collective, the bytes this rank handed the
 backend since ``reset_counts()`` (an all-gather's shard, a
 reduce-scatter's whole input, an all-to-all's send buffer, an
-all-reduce's tensor), forward and backward alike.
+all-reduce's tensor), forward and backward alike: ``sp_gather`` sends an
+all-gather forward and a reduce-scatter backward, ``sp_scatter`` the
+reverse.
 """
 from __future__ import annotations
 
@@ -142,6 +165,17 @@ class _SeqGather(torch.autograd.Function):
         return _slice(g, ctx.dim, ctx.group), None, None
 
 
+class _SpScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
@@ -179,6 +213,19 @@ def seq_split(t: torch.Tensor, dim: int, group) -> torch.Tensor:
 def seq_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """``group``'s slices along ``dim`` put back together, in rank order."""
     return _SeqGather.apply(t, dim, group)
+
+
+def sp_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ``group`` ranks' sequence slices along ``dim`` put together;
+    the gradient of the whole is summed back onto each slice."""
+    return _ZeroGather.apply(t, dim, group)
+
+
+def sp_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over ``group`` of each rank's ``t`` (a row-parallel
+    product's partial sums), of which this rank keeps its slice along
+    ``dim``."""
+    return _SpScatter.apply(t, dim, group)
 
 
 def all_to_all(t: torch.Tensor, group) -> torch.Tensor:

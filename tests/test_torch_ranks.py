@@ -36,7 +36,9 @@ Held, in f32:
     ``NamedSharding.shard_shape``: the bytes the dry run counts.
 
 Also: a mesh larger than the cards raises without ``devices=``, the
-layouts and recipes the port does not run raise ``NotImplementedError``,
+layouts and recipes the port does not run raise ``NotImplementedError``
+(tensor and sequence parallelism, which it runs, are held in
+tests/test_torch_ranks_tp.py),
 and two ``run_ranks`` calls at once do not collide.  Each rank runs one
 torch thread.
 """
@@ -377,12 +379,17 @@ def test_more_ranks_than_cards_raise_without_devices(monkeypatch):
      "int8"),
     (ParallelConfig(**PAR), OptimizerConfig(second_moment="factored"),
      (1, 2), "factored"),
+    # tensor and sequence parallelism: 4 heads on 8 ranks take the
+    # reference's "seq" strategy; 32 tokens do not split over 3
+    (ParallelConfig(), OptimizerConfig(), (1, 8), "'seq' attention strategy"),
+    (ParallelConfig(), OptimizerConfig(), (1, 3), "a sequence of 32"),
 ])
 def test_unported_layouts_and_recipes_raise(par, ocfg, shape, match):
     cfg = _cfg(TRAIN_CF, 0.01)
     with pytest.raises(NotImplementedError, match=match):
         tsteps.check_layout(cfg, par, ocfg, make_mesh(shape,
-                                                      ("data", "model")))
+                                                      ("data", "model")),
+                            seq=S)
 
 
 def test_ported_layouts_pass_and_other_kinds_raise():
@@ -390,9 +397,12 @@ def test_ported_layouts_pass_and_other_kinds_raise():
     for shape in ((1, 1), (2, 1), (1, 2), (2, 2)):
         tsteps.check_layout(cfg, ParallelConfig(**PAR), OptimizerConfig(),
                             make_mesh(shape, ("data", "model")))
-    # tensor parallelism on a model axis of 1 lays nothing out on it
-    tsteps.check_layout(cfg, ParallelConfig(), OptimizerConfig(),
-                        make_mesh((2, 1), ("data", "model")))
+    # tensor parallelism on a model axis of 1 lays nothing out on it;
+    # with sequence parallelism on one larger (the reference's default)
+    # it runs (tests/test_torch_ranks_tp.py)
+    for shape in ((2, 1), (1, 2), (2, 2), (1, 4)):
+        tsteps.check_layout(cfg, ParallelConfig(), OptimizerConfig(),
+                            make_mesh(shape, ("data", "model")), seq=S)
     # one rank keeps every recipe
     tsteps.check_layout(cfg, ParallelConfig(**PAR),
                         OptimizerConfig(moment_dtype="int8"),
