@@ -269,20 +269,25 @@ Phases (any failure raises and the script exits non-zero):
                phi4, research's smoke TrainJob, an edge kill and a gpu-hub
                brown-out mid-wave, both restored), the grade table printed.
  16. ranks   — training across ranks (``repro_torch.launch.ranks``, one
-               process a rank): granite-moe-1b-a400m at full width and
-               depth (bf16, f32 moments, 2 steps of 2 x 1024 tokens) on
-               mesh (1, 1) over NCCL, then as two ranks sharing the card
-               over gloo (NCCL takes one card a rank) on (1, 2), its
-               experts and their all_to_all on ``model``, and (2, 1),
-               ZeRO-3 on ``data``: every rank's losses and grad norms
-               finite and equal (the global metrics), its per-step ms,
-               collective bytes and peak memory printed, labeled "two
-               ranks sharing one H100 over gloo" (no multi-card rate), and
-               its gmm, xent and AdamW launches as ``_family_launches``
-               implies; then the two-rank runs at 2 layers and 2 x 128
-               tokens in f32 on the card against the same on the CPU
-               (the plain versions, gloo): losses within 1e-4, grad norms
-               within 1e-4 relative, every param block within 2e-4.
+               process a rank): granite-moe-1b-a400m at full width and 8
+               of its 24 layers (bf16, f32 moments, 2 steps of 2 x 1024
+               tokens) on mesh (1, 1) over NCCL, then as two ranks
+               sharing the card over gloo (NCCL takes one card a rank) on
+               (1, 2), its experts and their all_to_all on ``model``, and
+               (2, 1), ZeRO-3 on ``data``, and on (1, 2) under its own
+               ``ParallelConfig()`` (tensor and sequence parallelism);
+               phi4-mini-3.8b at full width and 4 layers on (1, 2) under
+               its own layout, pure FSDP, its bytes against the leaf
+               shapes' count and its losses against one device's: every
+               rank's losses and grad norms finite and equal (the global
+               metrics), its per-step ms, collective bytes and peak
+               memory printed, labeled "two ranks sharing one H100 over
+               gloo" (no multi-card rate), and its gmm, xent and AdamW
+               launches as ``_family_launches`` implies; then the
+               two-rank runs at 2 layers and 2 x 128 tokens in f32 on the
+               card against the same on the CPU (the plain versions,
+               gloo): losses within 1e-4, grad norms within 1e-4
+               relative, every param block within 2e-4.
 The phases that write checkpoints (elastic, rl, session) print the bytes
 they wrote and left on disk, and connect, fabric and tenant the bytes
 their runs wrote.  Then it prints a ``{"kernels": [...]}`` line, a
@@ -4911,21 +4916,58 @@ def phase_tenant(smi: str, phi4_run):
 
 
 RANKS_MESHES = ((1, 2), (2, 1))
-RANKS_LAYERS = 24         # granite's full depth
+# granite cut to 8 of its 24 layers (0.48 B of 1.335 B params): beside
+# phi4's pure-FSDP runs, the phase at full depth took 447 s of a 1,115 s
+# script (its limit 1,200 s) on an H100 80GB HBM3 with a slow host
+RANKS_LAYERS = 8
 RANKS_STEPS = 2
 RANKS_CHECK = (2, 128)    # (c): layers and tokens a row, f32, card vs CPU
 RANKS_LABEL = "two ranks sharing one H100 over gloo"
 RANKS_KERNELS = ("moe_gmm", "xent_fwd", "xent_bwd", "adamw_update")
 RANKS_TP_MESH = (1, 2)    # (d), (e): granite's own ParallelConfig()
+# (f), (g): phi4's own layout, pure FSDP on (1, 2) (the batch of 2 divides
+# the two ranks), cut to 4 of 32 layers (1.02 B params, 0.61 B of them the
+# embedding) to keep the phase near its earlier length
+RANKS_FSDP_MESH = (1, 2)
+RANKS_FSDP_LAYERS = 4
+# (f) against one device's steps on the same weights and batches, in
+# bf16: the two ranks' products run on one row each, one device's on
+# both, so cuBLAS may round them otherwise
+RANKS_ONE_DEVICE_RTOL = {"loss": 2e-3, "grad_norm": 1e-2}
+
+
+def _one_device_steps(cfg, par, ocfg, batches) -> list:
+    """``steps.train_step`` on this process's card from
+    ``ranks.seeded_params(cfg, 0)``, one step a batch -> per step loss,
+    grad norm and ms; the card's memory freed after."""
+    from repro_torch.launch import ranks
+    from repro_torch.runtime import steps
+    params = steps._map(lambda t: t.cuda(), ranks.seeded_params(cfg, 0))
+    opt = steps.init_opt_state(cfg, ocfg, "cuda")
+    out = []
+    for j in range(batches["tokens"].shape[0]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = steps.train_step(
+            cfg, par, ocfg, params, opt,
+            {k: v[j] for k, v in batches.items()}, device="cuda")
+        m = {k: float(v) for k, v in m.items()}
+        out.append({"loss": m["loss"], "grad_norm": m["grad_norm"],
+                    "ms": (time.perf_counter() - t0) * 1e3})
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _ranks_run(label, shape, cfg, ocfg, batches, want, smi, par=None,
-               **kw):
+               bytes_want=None, **kw):
     """``train_ranks`` on ``shape`` through ``run_ranks`` under ``par``
     (default ``RANK_PARALLEL``): each rank's per-step loss, ms, collective
     bytes and peak memory printed; every loss and grad norm finite and
     equal on every rank (the global metrics); each rank's kernel launches
-    ``want`` (None: none)."""
+    ``want`` (None: none) and, where given, each step's collective bytes
+    ``bytes_want``."""
     from repro_torch.launch import ranks
     par = par or ranks.RANK_PARALLEL
     t0 = time.perf_counter()
@@ -4955,9 +4997,21 @@ def _ranks_run(label, shape, cfg, ocfg, batches, want, smi, par=None,
         if ran != expect:
             raise AssertionError(f"[ranks] {label} {shape} rank {r['rank']} "
                                  f"launches {ran} != {expect}")
-    return res, {"mesh": list(shape), "label": label, "wall_s": wall,
+        if bytes_want is not None and any(row["bytes"] != bytes_want
+                                          for row in r["steps"]):
+            raise AssertionError(
+                f"[ranks] {label} {shape} rank {r['rank']} bytes "
+                f"{[row['bytes'] for row in r['steps']]} != {bytes_want} "
+                f"(the leaf shapes' prediction)")
+    if bytes_want is not None:
+        log(f"[ranks] {label} mesh {shape}: every rank's bytes a step equal "
+            f"the leaf shapes' prediction {bytes_want}")
+    return res, {"mesh": list(shape), "label": label, "arch": cfg.name,
+                 "layers": cfg.num_layers, "wall_s": wall,
                  "parallel": {"tensor_parallel": par.tensor_parallel,
-                              "sequence_parallel": par.sequence_parallel},
+                              "sequence_parallel": par.sequence_parallel,
+                              "pure_fsdp_train": par.pure_fsdp_train},
+                 "bytes_predicted": bytes_want,
                  "ranks": [{"rank": r["rank"], "coords": r["coords"],
                             "steps": r["steps"], "launches": r["launches"]}
                            for r in res], "card": smi}
@@ -4983,7 +5037,15 @@ def phase_ranks(smi: str):
     are (b) and (c) on ``RANKS_TP_MESH`` under granite's own layout,
     ``registry.get_parallel`` (``ParallelConfig()``: tensor and sequence
     parallelism on ``model`` besides the experts), whose xent kernels
-    take each rank's sequence slice.  -> (rows, each run's rank-0
+    take each rank's sequence slice.  (f) and (g) are (b) and (c) for
+    phi4-mini-3.8b at full width under its own layout on
+    ``RANKS_FSDP_MESH``, pure FSDP (the batch and every leaf over
+    ``("data", "model")``), (f) cut to ``RANKS_FSDP_LAYERS`` layers; its
+    xent kernels take each rank's rows, AdamW each rank's blocks, and
+    each rank's collective bytes a step must equal
+    ``ranks.fsdp_step_bytes``' count from the leaf shapes, and its
+    losses and grad norms one device's steps (``_one_device_steps``)
+    within ``RANKS_ONE_DEVICE_RTOL``.  -> (rows, each run's rank-0
     launches by label)."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import OptimizerConfig
@@ -4994,61 +5056,105 @@ def phase_ranks(smi: str):
     gc.collect()
     torch.cuda.empty_cache()
     t_start = time.perf_counter()
-    base = registry.get_config(GRANITE)
+    bases = {GRANITE: registry.get_config(GRANITE),
+             ARCH: registry.get_config(ARCH)}
 
-    def cut(layers, dtype):
-        return base.replace(num_layers=layers, param_dtype=dtype,
-                            compute_dtype=dtype)
+    def cut(arch, layers, dtype):
+        return bases[arch].replace(num_layers=layers, param_dtype=dtype,
+                                   compute_dtype=dtype)
 
     own = registry.get_parallel(GRANITE)
+    phi4_own = registry.get_parallel(ARCH)
+    fsdp = steps.train_par(phi4_own, global_batch=TRAIN_BATCH,
+                           chips=math.prod(RANKS_FSDP_MESH))
+    if not fsdp.pure_fsdp:
+        raise AssertionError(f"[ranks] {ARCH}'s own layout on "
+                             f"{RANKS_FSDP_MESH}: not pure FSDP")
 
     def expected(cfg, seq, par=ranks.RANK_PARALLEL, tp=1):
         # under sequence parallelism a rank's loss runs over seq / tp
         # positions a row: granite's vocab takes the chunked loss either
-        # way, one xent launch a 512-position chunk
+        # way, one xent launch a 512-position chunk; pure FSDP runs the
+        # chunked loss over each rank's rows, the whole sequence
         n = len(pr.leaves(steps._model_module(cfg).lm_schema(cfg)))
         w = _family_launches(cfg, par, n, RANKS_STEPS, seq // tp)
         return {k: w[k] for k in RANKS_KERNELS}
 
     rows, launches = {}, {}
-    cfg = cut(RANKS_LAYERS, "bfloat16")
+    cfg = cut(GRANITE, RANKS_LAYERS, "bfloat16")
+    phi4 = cut(ARCH, RANKS_FSDP_LAYERS, "bfloat16")
     ocfg = OptimizerConfig(warmup_steps=2)
-    batches = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
-                            seed=0).chunk(0, RANKS_STEPS)
+    batches = {arch: TokenPipeline(c.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                   seed=0).chunk(0, RANKS_STEPS)
+               for arch, c in ((GRANITE, cfg), (ARCH, phi4))}
     want = expected(cfg, TRAIN_SEQ)
     shared = {"devices": ["cuda:0", "cuda:0"], "backend": "gloo"}
     tp = RANKS_TP_MESH[1]
-    runs = [("(a) nccl", (1, 1), {}, want)] + [
-        (f"(b) {RANKS_LABEL}", shape, shared, want)
+    runs = [("(a) nccl", (1, 1), cfg, {}, want)] + [
+        (f"(b) {RANKS_LABEL}", shape, cfg, shared, want)
         for shape in RANKS_MESHES] + [
-        (f"(d) ParallelConfig(), {RANKS_LABEL}", RANKS_TP_MESH,
-         {**shared, "par": own}, expected(cfg, TRAIN_SEQ, own, tp))]
-    for label, shape, kw, want in runs:
-        _, row = _ranks_run(label, shape, cfg, ocfg, batches, want, smi,
-                            **kw)
-        key = f"{GRANITE} ranks {label.split()[0]} {shape}"
-        rows[key] = row
-        launches[key] = row["ranks"][0]["launches"]
+        (f"(d) ParallelConfig(), {RANKS_LABEL}", RANKS_TP_MESH, cfg,
+         {**shared, "par": own}, expected(cfg, TRAIN_SEQ, own, tp)),
+        (f"(f) pure FSDP, {RANKS_LABEL}", RANKS_FSDP_MESH, phi4,
+         {**shared, "par": phi4_own,
+          "bytes_want": ranks.fsdp_step_bytes(phi4, fsdp, RANKS_FSDP_MESH)},
+         expected(phi4, TRAIN_SEQ, phi4_own))]
     layers, seq = RANKS_CHECK
-    small = cut(layers, "float32")
-    ocfg = OptimizerConfig(warmup_steps=1, decay_steps=100)
-    batches = TokenPipeline(small.vocab_size, seq, TRAIN_BATCH,
-                            seed=1).chunk(0, RANKS_STEPS)
-    # the six runs of (c) and (e) at once: two ranks on the card, two on
-    # the CPU (two threads each), for each mesh and layout
-    checks = [("(c)", shape, ranks.RANK_PARALLEL, 1) for shape in
-              RANKS_MESHES] + [("(e)", RANKS_TP_MESH, own, tp)]
-    with ThreadPoolExecutor(max_workers=6) as pool:
-        jobs = {(tag, shape, where): pool.submit(
-            _ranks_run, f"{tag} {label}", shape, small, ocfg, batches, want,
-            smi, par=par, kwargs={"keep": True}, **kw)
-            for tag, shape, par, n in checks
-            for where, label, want, kw in (
-                ("card", f"card, {RANKS_LABEL}",
-                 expected(small, seq, par, n), shared),
-                ("cpu", "cpu", None, {"device": "cpu", "threads": 2}))}
-        done = {key: job.result() for key, job in jobs.items()}
-    for tag, shape, _, _ in checks:
+    small = {arch: cut(arch, layers, "float32") for arch in bases}
+    small_ocfg = OptimizerConfig(warmup_steps=1, decay_steps=100)
+    small_batches = {arch: TokenPipeline(c.vocab_size, seq, TRAIN_BATCH,
+                                         seed=1).chunk(0, RANKS_STEPS)
+                     for arch, c in small.items()}
+    # (c), (e) and (g): each two ranks on the card and two on the CPU (two
+    # threads each), for each mesh and layout
+    checks = [("(c)", GRANITE, shape, ranks.RANK_PARALLEL, 1) for shape in
+              RANKS_MESHES] + [("(e)", GRANITE, RANKS_TP_MESH, own, tp),
+                               ("(g)", ARCH, RANKS_FSDP_MESH, phi4_own, 1)]
+
+    def check(tag, arch, shape, par, n, where):
+        label, want, kw = (
+            (f"card, {RANKS_LABEL}", expected(small[arch], seq, par, n),
+             shared) if where == "card" else
+            ("cpu", None, {"device": "cpu", "threads": 2}))
+        return _ranks_run(f"{tag} {label}", shape, small[arch], small_ocfg,
+                          small_batches[arch], want, smi, par=par,
+                          kwargs={"keep": True}, **kw)
+
+    # phi4's CPU half of (g), the phase's longest run (full width: the
+    # 200,064-word head on the CPU), runs beside (a)-(f) on the host's
+    # other cores; then the other seven of (c), (e) and (g) at once
+    with ThreadPoolExecutor(max_workers=1) as beside:
+        g_cpu = beside.submit(check, *checks[-1], "cpu")
+        for label, shape, c, kw, want in runs:
+            _, row = _ranks_run(label, shape, c, ocfg, batches[c.name], want,
+                                smi, **kw)
+            key = f"{c.name} ranks {label.split()[0]} {shape}"
+            rows[key] = row
+            launches[key] = row["ranks"][0]["launches"]
+        one = _one_device_steps(phi4, phi4_own, ocfg, batches[ARCH])
+        got = rows[f"{ARCH} ranks (f) {RANKS_FSDP_MESH}"]["ranks"][0]["steps"]
+        errs = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got, one))
+                for k in RANKS_ONE_DEVICE_RTOL}
+        log(f"[ranks] (f) {ARCH} one device, {RANKS_FSDP_LAYERS} layers: "
+            + "; ".join(f"step {j + 1} loss {o['loss']:.6f} grad norm "
+                        f"{o['grad_norm']:.6f} {o['ms']:.1f} ms"
+                        for j, o in enumerate(one))
+            + f"; the ranks' rel err {errs} (tolerances "
+              f"{RANKS_ONE_DEVICE_RTOL})")
+        if any(errs[k] > tol for k, tol in RANKS_ONE_DEVICE_RTOL.items()):
+            raise AssertionError(f"[ranks] (f): the ranks disagree with one "
+                                 f"device: {errs}")
+        rows[f"{ARCH} ranks (f) {RANKS_FSDP_MESH}"].update(
+            one_device=one, one_device_rel_err=errs)
+        with ThreadPoolExecutor(max_workers=2 * len(checks) - 1) as pool:
+            jobs = {(tag, shape, where): pool.submit(
+                check, tag, arch, shape, par, n, where)
+                for tag, arch, shape, par, n in checks
+                for where in ("card", "cpu")
+                if (tag, where) != ("(g)", "cpu")}
+            done = {key: job.result() for key, job in jobs.items()}
+        done["(g)", RANKS_FSDP_MESH, "cpu"] = g_cpu.result()
+    for tag, arch, shape, _, _ in checks:
         (card, row), (cpu, _) = (done[tag, shape, "card"],
                                  done[tag, shape, "cpu"])
         loss_err = norm_err = param_err = 0.0
@@ -5061,17 +5167,20 @@ def phase_ranks(smi: str):
             param_err = max(param_err, max(
                 float(abs(pa[k].astype("float64") - pb[k]).max())
                 for k in pb))
-        log(f"[ranks] {tag} {shape} f32, {layers} layers, {TRAIN_BATCH} x "
-            f"{seq} tokens, {RANKS_STEPS} steps, card vs cpu: loss max_abs_err "
-            f"{loss_err:.3g} (tolerance 1e-4), grad norm rel err "
-            f"{norm_err:.3g} (1e-4), param blocks max_abs_err {param_err:.3g} "
-            f"(2e-4)")
+        log(f"[ranks] {tag} {arch} {shape} f32, {layers} layers, "
+            f"{TRAIN_BATCH} x {seq} tokens, {RANKS_STEPS} steps, card vs "
+            f"cpu: loss max_abs_err {loss_err:.3g} (tolerance 1e-4), grad "
+            f"norm rel err {norm_err:.3g} (1e-4), param blocks max_abs_err "
+            f"{param_err:.3g} (2e-4)")
         if not (loss_err <= 1e-4 and norm_err <= 1e-4 and param_err <= 2e-4):
             raise AssertionError(f"[ranks] {tag} {shape}: the card "
                                  f"disagrees with the CPU")
-        rows[f"{GRANITE} ranks {tag} {shape}"] = {
+        key = f"{arch} ranks {tag} {shape}"
+        rows[key] = {
             **row, "loss_max_abs_err": loss_err, "grad_norm_rel_err":
             norm_err, "param_max_abs_err": param_err}
+        if tag == "(g)":
+            launches[f"{key} f32 card"] = row["ranks"][0]["launches"]
     log(f"[ranks] phase {time.perf_counter() - t_start:.1f} s")
     return rows, launches
 

@@ -99,6 +99,21 @@ class RankMesh:
     def world_size(self) -> int:
         return mesh_num_chips(self.mesh)
 
+    def group_of(self, axes: Tuple[str, ...]):
+        """The group of the ranks that differ from this one along ``axes``
+        alone, in the order of a dimension split over ``axes`` (major to
+        minor, ``sharding.specs.shard_slices``): one axis's subgroup, or
+        the world for every axis in the mesh's order, whose row-major
+        ranks are the blocks' indices."""
+        axes = tuple(axes)
+        if len(axes) == 1:
+            return self.groups[axes[0]]
+        if axes == tuple(self.mesh.axis_names):
+            return self.world
+        raise NotImplementedError(
+            f"a dimension split over {axes} on a mesh of "
+            f"{self.mesh.axis_names}: no one group holds its blocks")
+
 
 def make_rank_mesh(shape: Tuple[int, ...], device,
                    axes: Tuple[str, ...] = ("data", "model")) -> RankMesh:

@@ -18,15 +18,21 @@ ranks on one card (``devices=["cuda:0", "cuda:0"]``) run over gloo.
     python -m repro_torch.launch.ranks --arch granite-moe-1b-a400m \\
         --mesh 1,2 --steps 2 --layers 4 --devices cuda:0,cuda:0 \\
         --backend gloo
+    python -m repro_torch.launch.ranks --arch phi4-mini-3.8b --mesh 1,2 \\
+        --layers 4 --devices cuda:0,cuda:0 --backend gloo
     python -m repro_torch.launch.ranks --smoke --mesh 2,2 --steps 2 \\
         --device cpu
 
 trains under the arch's own ``ParallelConfig`` (``registry.get_parallel``:
-tensor and sequence parallelism on ``model`` for granite-moe), or with
-``--layout ep`` under ``RANK_PARALLEL``; an arch whose layout
-``steps.check_layout`` refuses on the mesh raises.  It prints each step's
-loss, ms and collective bytes per rank and each rank's peak memory
-(``--device cpu``: none; the CPU has no allocator counter).
+tensor and sequence parallelism on ``model`` for granite-moe; for phi4,
+gemma2, codeqwen and deepseek pure FSDP wherever ``--batch`` divides the
+mesh, ``steps.train_par``, and their tensor- and sequence-parallel
+defaults where it does not), with ``--layout ep`` under ``RANK_PARALLEL``,
+or with ``--layout fsdp`` under ``ParallelConfig(pure_fsdp=True)``; an
+arch whose layout ``steps.check_layout`` refuses on the mesh raises
+before any rank starts.  It prints each step's loss, ms and collective
+bytes per rank and each rank's peak memory (``--device cpu``: none; the
+CPU has no allocator counter).
 """
 from __future__ import annotations
 
@@ -53,13 +59,15 @@ from repro_torch.launch.mesh import RankMesh, make_mesh, make_rank_mesh
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pr
 from repro_torch.runtime import steps
-from repro_torch.sharding import collectives
+from repro_torch.sharding import collectives, specs
 
 # the expert-parallel-only layout across ranks: the reference's rules with
 # ZeRO-3 on data and experts on model, tensor and sequence parallelism off
 # (the dense part replicated over model); ``main``'s ``--layout ep``.  An
 # arch's own layout is ``registry.get_parallel(arch)``: for granite-moe
-# and kimi ``ParallelConfig()``, with both on
+# and kimi ``ParallelConfig()``, with both on; for phi4, gemma2, codeqwen
+# and deepseek ``ParallelConfig(pure_fsdp_train=True)``, pure FSDP on a
+# train step whose global batch divides the ranks
 RANK_PARALLEL = ParallelConfig(tensor_parallel=False, sequence_parallel=False)
 
 
@@ -159,6 +167,40 @@ def _shapes(tree, path=""):
     return {path: tuple(tree.shape)}
 
 
+def fsdp_step_bytes(cfg: ModelConfig, par: ParallelConfig, shape,
+                    accum: int = 1) -> dict:
+    """The bytes ``collectives.bytes_sent`` counts on every rank in one
+    pure-FSDP train step (``par.pure_fsdp``) on a ``("data", "model")``
+    mesh of ``shape``, from the leaf shapes alone: per microbatch each
+    split leaf's block is all-gathered (a layer's twice under remat: the
+    forward and its recompute) and its whole gradient reduce-scattered,
+    in the param dtype; per step a leaf that some axis of more than one
+    rank does not split has its block's gradient all-reduced over it (in
+    f32 when ``accum`` > 1 sums the microbatches' grads), and so do the
+    loss metric and the squared norm (4 bytes each)."""
+    if not par.pure_fsdp:
+        raise ValueError("fsdp_step_bytes counts the pure-FSDP layout")
+    mesh = make_mesh(tuple(shape), ("data", "model"))
+    rules = specs.logical_rules(par)
+    item = torch.empty((), dtype=pr.torch_dtype(cfg.param_dtype)
+                       ).element_size()
+    grad_item = 4 if accum > 1 else item
+    out = {"all_gather": 0, "reduce_scatter": 0, "all_to_all": 0,
+           "all_reduce": 8}
+    for path, p in pr.leaves(steps._model_module(cfg).lm_schema(cfg)):
+        spec = specs.spec_for(p.shape, p.axes, mesh, rules)
+        whole = math.prod(p.shape)
+        block = math.prod(specs.shard_shape(p.shape, spec, mesh))
+        if block < whole:
+            gathers = 2 if par.remat and path.startswith("blocks/") else 1
+            out["all_gather"] += block * item * gathers * accum
+            out["reduce_scatter"] += whole * item * accum
+        if any(mesh.shape[a] > 1 and specs.axis_dim(spec, a) is None
+               for a in mesh.axis_names):
+            out["all_reduce"] += block * grad_item
+    return out
+
+
 def train_ranks(rm: RankMesh, cfg: ModelConfig, par: ParallelConfig,
                 ocfg: OptimizerConfig, batches, *, params=None,
                 seed: int = 0, keep: bool = False) -> dict:
@@ -171,6 +213,12 @@ def train_ranks(rm: RankMesh, cfg: ModelConfig, par: ParallelConfig,
     and moment block's shape, "params": the blocks as numpy where
     ``keep``}."""
     dev = rm.device
+    # the blocks are laid out as the step will run: under pure FSDP
+    # wherever ``par`` asks for it on train steps and the batch divides
+    # the ranks (the reference's ``_train_pieces`` switches before it
+    # lays out its shardings)
+    par = steps.train_par(par, global_batch=batches["tokens"].shape[1],
+                          chips=rm.world_size)
     whole = (seeded_params(cfg, seed) if params is None
              else bridge.to_torch(params, device="cpu"))
     local = steps._map(lambda t: t.to(dev),
@@ -257,9 +305,11 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
                          "cuda:0,cuda:0 (several ranks a card need gloo)")
     ap.add_argument("--backend", default=None, choices=["nccl", "gloo"])
     ap.add_argument("--threads", type=int, default=None)
-    ap.add_argument("--layout", default="own", choices=["own", "ep"],
+    ap.add_argument("--layout", default="own",
+                    choices=["own", "ep", "fsdp"],
                     help="own: the arch's ParallelConfig; ep: "
-                         "RANK_PARALLEL (experts on model, nothing else)")
+                         "RANK_PARALLEL (experts on model, nothing else); "
+                         "fsdp: ParallelConfig(pure_fsdp=True)")
     args = ap.parse_args(argv)
     shape = tuple(int(n) for n in args.mesh.split(","))
     cfg = (registry.get_smoke if args.smoke else registry.get_config)(
@@ -270,8 +320,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     ocfg = OptimizerConfig(warmup_steps=2)
     batches = TokenPipeline(cfg.vocab_size, args.seq, args.batch,
                             seed=args.seed).chunk(0, args.steps)
-    par = (registry.get_parallel(args.arch) if args.layout == "own"
-           else RANK_PARALLEL)
+    par = {"own": registry.get_parallel(args.arch), "ep": RANK_PARALLEL,
+           "fsdp": ParallelConfig(pure_fsdp=True)}[args.layout]
     # refuse an unported layout here, before any rank starts
     steps.check_layout(cfg, steps.train_par(par, global_batch=args.batch,
                                             chips=math.prod(shape)),

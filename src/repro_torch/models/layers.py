@@ -26,9 +26,11 @@ def sequence_parallel(mesh, par: Optional[ParallelConfig]) -> bool:
     None) runs tensor and sequence parallelism on its ``model`` axis: the
     stream between layers holds this rank's sequence slice, each block
     gathers it (``collectives.sp_gather``) before its column-parallel
-    products and reduce-scatters its row-parallel output back onto it."""
+    products and reduce-scatters its row-parallel output back onto it.
+    Pure FSDP gives ``model`` to the batch and runs neither."""
     return (mesh is not None and par is not None and mesh.size("model") > 1
-            and par.tensor_parallel and par.sequence_parallel)
+            and par.tensor_parallel and par.sequence_parallel
+            and not par.pure_fsdp)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

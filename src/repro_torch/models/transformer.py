@@ -48,7 +48,12 @@ between layers is this rank's sequence slice: each block gathers it
 (``_tp_blocks`` cuts them from the rank's blocks, gathering over
 ``model`` a leaf whose split the compute cannot use), and reduce-scatters
 its row-parallel output back onto the slice (``collectives.sp_scatter``);
-the loss is each rank's rows' mean, averaged over ``model``.
+the loss is each rank's rows' mean, averaged over ``model``.  Under pure
+FSDP (``par.pure_fsdp``) each rank holds its own rows and every leaf's
+blocks split over ``("data", "model")`` (or, where that does not divide,
+over ``model`` alone): each leaf is gathered whole from its spec
+(``_gathers``), a dimension split over both axes once over the world
+group, and the loss is the chunked cross entropy over the rank's rows.
 """
 from __future__ import annotations
 
@@ -332,11 +337,12 @@ def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
     """-> (final hidden states, the blocks' aux loss summed in f32).
 
     ``mesh`` (a ``launch.mesh.RankMesh``): ``params`` holds this rank's
-    blocks, whose ``data``-split leaves each layer group gathers inside its
-    remat scope (``collectives.zero_gather``), so the gathered weights of
-    one group at a time live beyond the shards; the top-level leaves come
-    whole (``loss_fn`` gathers them).  The kinds get the mesh and ``par``.
-    Under sequence parallelism the rank embeds its slice of ``tokens``,
+    blocks, whose ``data``-split leaves (under pure FSDP every split leaf,
+    ``_zero_axes``) each layer group gathers inside its remat scope
+    (``collectives.zero_gather``, ``_gathers``), so the gathered weights
+    of one group at a time live beyond the shards; the top-level leaves
+    come whole (``loss_fn`` gathers them).  The kinds get the mesh and
+    ``par``.  Under sequence parallelism the rank embeds its slice of ``tokens``,
     cuts each group's heads and ff columns inside the same remat scope
     (``_tp_blocks``), and returns its slice's hidden states.
     """
@@ -358,12 +364,14 @@ def _train_forward(cfg: ModelConfig, par: ParallelConfig, params,
     kw = {}
     if mesh is not None:
         kw = {"mesh": mesh, "par": par}
-        dims = _layer_dims(_axis_dims(cfg, par, mesh, "data"))
-        model_dims = _layer_dims(_axis_dims(cfg, par, mesh, "model"))
+        plans = _layer_plans(_gathers(cfg, par, mesh,
+                                      _zero_axes(par, mesh)))
+        if sp:
+            model_dims = _layer_dims(_axis_dims(cfg, par, mesh, "model"))
 
     def body(x, aux, gp):
         if mesh is not None:
-            gp = collectives.zero_gather_tree(gp, dims, mesh.groups["data"])
+            gp = collectives.zero_gather_tree(gp, plans)
         if sp:
             gp = _tp_blocks(cfg, gp, model_dims, mesh)
         for i, kind in enumerate(cfg.block_pattern):
@@ -403,19 +411,51 @@ def _layer_dims(dims):
             for key, grp in dims["blocks"].items()}
 
 
+def _gathers(cfg: ModelConfig, par: ParallelConfig, mesh, axes):
+    """Each leaf's gathers over the mesh axes among ``axes``, from its
+    spec: a (dim, group) for each dimension split over those axes alone,
+    ``group`` the ranks that hold its blocks in order
+    (``RankMesh.group_of``: a dimension split over ``("data", "model")``
+    is gathered once, over the world group).  Its gradient, the gather's
+    reduce-scatter, is summed over the same group."""
+    rules = specs.logical_rules(par)
+
+    def plan(_path, p):
+        spec = specs.spec_for(p.shape, p.axes, mesh.mesh, rules)
+        return [(dim, mesh.group_of(over))
+                for dim, over in specs.split_axes(spec).items()
+                if set(over) <= set(axes)]
+    return tree_map_schema(plan, lm_schema(cfg))
+
+
+def _zero_axes(par: ParallelConfig, mesh):
+    """The mesh axes over which the train forward gathers a leaf whole:
+    the ``fsdp`` rule's, ``data`` (ZeRO-3) or under pure FSDP ``("data",
+    "model")``; the experts' and, under tensor parallelism, the heads'
+    and ff columns' ``model`` splits stay."""
+    return specs.rule_axes(specs.logical_rules(par), "fsdp", mesh.mesh)
+
+
+def _layer_plans(plans):
+    """The blocks' entries of ``_gathers`` on a layer's slice."""
+    return {key: {name: [(d - 1, g) for d, g in plan]
+                  for name, plan in grp.items()}
+            for key, grp in plans["blocks"].items()}
+
+
 def _gather_top(cfg: ModelConfig, par: ParallelConfig, params, mesh):
     """``params`` with its top-level leaves (embedding, head, final norm)
-    ZeRO-gathered and its blocks as they are.  Under sequence parallelism
-    a top-level leaf split over ``model`` (the vocab of the embedding and
-    head) is gathered over it too: the lookup and the loss take the whole
-    vocab on each rank's rows."""
+    gathered whole and its blocks as they are: over ``data`` (under pure
+    FSDP over ``("data", "model")``, ``_zero_axes``), and under sequence
+    parallelism then over ``model`` (the vocab of the embedding and head):
+    the lookup and the loss take the whole vocab on each rank's rows."""
     top = {k: v for k, v in params.items() if k != "blocks"}
-    for axis in ("data", "model"):
-        if axis == "model" and not sequence_parallel(mesh, par):
-            continue
-        dims = _axis_dims(cfg, par, mesh, axis)
-        top = collectives.zero_gather_tree(
-            top, {k: dims[k] for k in top}, mesh.groups[axis])
+    passes = [_zero_axes(par, mesh)]
+    if sequence_parallel(mesh, par):
+        passes.append(("model",))
+    for axes in passes:
+        plans = _gathers(cfg, par, mesh, axes)
+        top = collectives.zero_gather_tree(top, {k: plans[k] for k in top})
     return {**top, "blocks": params["blocks"]}
 
 

@@ -42,7 +42,12 @@ in place and return them.  Train steps take ``device=`` (default
 Across ranks (``train_step`` / ``train_chunk`` given ``mesh=``, a
 ``launch.mesh.RankMesh`` of one process a rank, ``launch.ranks``) the
 layout is the reference's rules on a ``("data", "model")`` mesh, in one of
-two forms.  Both split the batch over ``data``, each leaf's ``fsdp`` axis
+three forms.  Under pure FSDP (``train_par``'s switch: phi4, gemma2,
+codeqwen and deepseek train so wherever the global batch divides the
+ranks) the batch and each leaf's ``fsdp`` axis split over ``("data",
+"model")`` (over ``model`` alone where that does not divide), every leaf
+is gathered whole a layer group at a time and nothing else moves.  The
+other two split the batch over ``data``, each leaf's ``fsdp`` axis
 over ``data`` (ZeRO-3: ``collectives.zero_gather`` a layer group at a
 time, the gradients reduce-scattered and averaged) and the MoE leaves'
 ``expert`` axis over ``model`` (``models.moe``'s exchange).  Under
@@ -60,6 +65,7 @@ over ``model`` here (``_reduce_grads``).  ``shard_params`` /
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -334,27 +340,31 @@ def check_layout(cfg: ModelConfig, par: ParallelConfig,
     step on ``mesh`` (a ``launch.mesh.Mesh``) over sequences of ``seq``
     tokens (None: not checked) would need a layout the port does not run.
 
-    On a ``model`` axis larger than 1 the port runs the experts split over
-    it with either both of tensor and sequence parallelism off or both on
-    (the reference's default).  It refuses one without the other, pure
-    FSDP, experts not split over ``model``, and under tensor parallelism
-    the reference's ``"seq"`` attention strategy (heads that do not split
-    over ``model``), a sequence that does not, KV heads whose blocks do
-    not line up with the query heads', and d_ff that does not split.  On
-    more than one rank it refuses the int8 and factored moments, kinds
-    other than the dense and MoE ones, and a ``pod`` axis.  Nothing falls
-    back."""
+    On a ``model`` axis larger than 1 the port runs pure FSDP (the batch
+    and every leaf over ``("data", "model")``) for the dense kinds, and
+    the experts split over ``model`` with either both of tensor and
+    sequence parallelism off or both on (the reference's default).  It
+    refuses MoE blocks under pure FSDP, one of tensor and sequence
+    parallelism without the other, experts not split over ``model``, and
+    under tensor parallelism the reference's ``"seq"`` attention strategy
+    (heads that do not split over ``model``), a sequence that does not,
+    KV heads whose blocks do not line up with the query heads', and d_ff
+    that does not split.  On more than one rank it refuses the int8 and
+    factored moments, kinds other than the dense and MoE ones, and a
+    ``pod`` axis.  Nothing falls back."""
     if tuple(mesh.axis_names) != ("data", "model"):
         raise NotImplementedError(
             f"a train step across ranks runs on a ('data', 'model') mesh, "
             f"not {mesh.axis_names}")
     tp = mesh.shape["model"]
-    if tp > 1:
-        if par.pure_fsdp:
+    if tp > 1 and par.pure_fsdp:
+        if cfg.moe is not None:
             raise NotImplementedError(
-                f"ParallelConfig(pure_fsdp=True) on a model axis of {tp}: "
-                f"batch over ('data', 'model') and weights ZeRO-3 over both "
-                f"is not ported (ROADMAP queue A, R7)")
+                f"ParallelConfig(pure_fsdp=True) with MoE blocks on a model "
+                f"axis of {tp}: the reference splits the experts over "
+                f"'model' inside its shard_map and reshards the pure-FSDP "
+                f"batch into it, which is not ported (ROADMAP queue A)")
+    elif tp > 1:
         if par.tensor_parallel != par.sequence_parallel:
             on, off = (("tensor_parallel", "sequence_parallel")
                        if par.tensor_parallel else
@@ -425,18 +435,29 @@ def shard_params(cfg: ModelConfig, par: ParallelConfig, params, mesh):
                 params, spec_tree)
 
 
-def _rank_rows(batch, mesh, accum: int):
+def _batch_axes(par: ParallelConfig, mesh):
+    """The mesh axes a train step splits the batch over, the reference's
+    ``"batch"`` rule: ``data``, or under pure FSDP ``("data", "model")``."""
+    return specs.rule_axes(specs.logical_rules(par), "batch", mesh.mesh)
+
+
+def _rank_rows(batch, mesh, accum: int, par: ParallelConfig):
     """This rank's rows of a global batch: of each of the ``accum``
-    microbatches, the reference's split over ``data`` (rows i*mb + d*r ..
-    i*mb + (d+1)*r, r = mb / dp), so its microbatches hold the tokens the
-    reference's do."""
+    microbatches (rows i*mb .. (i+1)*mb, as the reference reshapes its
+    batch into (accum, B / accum)), the reference's split over the batch
+    axes (``_batch_axes``: block k = the rank's index along them, major to
+    minor, rows i*mb + k*r .. i*mb + (k+1)*r, r = mb / n), so its
+    microbatches hold the tokens the reference's do."""
     B = batch["tokens"].shape[0]
-    dp, d = mesh.size("data"), mesh.coords["data"]
-    if B % (accum * dp):
+    axes = _batch_axes(par, mesh)
+    n, k = 1, 0
+    for a in axes:
+        n, k = n * mesh.size(a), k * mesh.size(a) + mesh.coords[a]
+    if B % (accum * n):
         raise ValueError(f"the batch {B} does not split into {accum} "
-                         f"microbatches over a data axis of {dp}")
-    mb, r = B // accum, B // (accum * dp)
-    rows = torch.tensor([i * mb + d * r + j for i in range(accum)
+                         f"microbatches over the {n} ranks of {axes}")
+    mb, r = B // accum, B // (accum * n)
+    rows = torch.tensor([i * mb + k * r + j for i in range(accum)
                          for j in range(r)],
                         device=batch["tokens"].device)
     return _map(lambda v: v.index_select(0, rows.to(v.device)), batch)
@@ -447,15 +468,20 @@ def _reduce_grads(cfg: ModelConfig, par: ParallelConfig, grads, mesh):
     ``data`` was summed by its gather's reduce-scatter, every other one is
     summed here.
 
-    Under sequence parallelism every collective's backward is its exact
-    transpose, so a rank's grads are those of the sum of every rank's
-    copy of the loss, tp times each data group's: a leaf split over
-    ``model`` (or gathered over it) has its sum already, one replicated
-    over ``model`` holds only this rank's part (its sequence slice's, its
-    heads' or ff columns') and is summed over ``model`` here, and every
-    leaf is divided by dp * tp."""
+    Under sequence parallelism and under pure FSDP every collective's
+    backward is its exact transpose, so a rank's grads are those of the
+    sum of every rank's copy of the loss, tp times each data group's: a
+    leaf split over ``model`` (or gathered over it) has its sum already,
+    one replicated over ``model`` holds only this rank's part (its
+    sequence slice's, its heads' or ff columns', under pure FSDP its
+    rows') and is summed over ``model`` here, and every leaf is divided
+    by dp * tp.  Under pure FSDP a leaf split over ``("data", "model")``
+    was summed over every rank by its gather over the world group, one
+    split over ``model`` alone (``specs.spec_for``'s fallback) is summed
+    over ``data`` here, and a replicated one (the norms) over both."""
     dp = mesh.size("data")
-    tp = mesh.size("model") if sequence_parallel(mesh, par) else 1
+    tp = mesh.size("model") if (sequence_parallel(mesh, par)
+                                or par.pure_fsdp) else 1
     spec_tree = specs.leaf_specs(_model_module(cfg).lm_schema(cfg),
                                  mesh.mesh, specs.logical_rules(par))
 
@@ -469,6 +495,18 @@ def _reduce_grads(cfg: ModelConfig, par: ParallelConfig, grads, mesh):
                 g, mesh.groups["data" if data else "model"])
         return g.div_(dp * tp)
     return _map(mean, grads, spec_tree)
+
+
+def _loss_metric(value: torch.Tensor, mesh, par: ParallelConfig
+                 ) -> torch.Tensor:
+    """The global loss on every rank: the mean of the ranks' losses over
+    the batch axes (``_batch_axes``), each over an equal share of the rows
+    (under sequence parallelism the loss is the model group's mean
+    already)."""
+    axes = _batch_axes(par, mesh)
+    return collectives.all_reduce_(
+        value.to(torch.float32).clone(), mesh.group_of(axes)) / \
+        math.prod(mesh.size(a) for a in axes)
 
 
 def _loss_of(cfg: ModelConfig, attr: str):
@@ -546,9 +584,11 @@ def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
     ``mesh`` (a ``launch.mesh.RankMesh``): ``params`` and ``opt_state``
     are this rank's blocks (``shard_params``, ``init_opt_state(mesh=)``)
     and ``batch`` the global one, of which the rank takes its rows
-    (``_rank_rows``); the grads are averaged over ``data`` and the update
-    clips by the global norm, so ``metrics`` are the reference's global
-    ones on every rank.  ``check_layout`` says what it refuses.
+    (``_rank_rows``: over ``data``, under pure FSDP over ``("data",
+    "model")``); the grads are averaged over the ranks that hold different
+    rows and the update clips by the global norm, so ``metrics`` are the
+    reference's global ones on every rank.  ``check_layout`` says what it
+    refuses.
     """
     dev = resolve_device(device)
     batch = _batch_on(cfg, batch, dev, keys)
@@ -569,7 +609,7 @@ def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
             raise NotImplementedError(
                 "a train step across ranks takes the family's loss_fn; "
                 "the RL loss's global mask sum is not ported")
-        batch = _rank_rows(batch, mesh, accum)
+        batch = _rank_rows(batch, mesh, accum, par)
         B = batch["tokens"].shape[0]
     if accum == 1:
         value, grads = _value_and_grad(cfg, par, params, batch, loss, mesh)
@@ -589,9 +629,7 @@ def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
     replicas = None
     if mesh is not None:
         grads = _reduce_grads(cfg, par, grads, mesh)
-        value = collectives.all_reduce_(
-            value.to(torch.float32).clone(), mesh.groups["data"]) / \
-            mesh.size("data")
+        value = _loss_metric(value, mesh, par)
         rules = specs.logical_rules(par)
         replicas = {path: specs.replicas(
             specs.spec_for(p.shape, p.axes, mesh.mesh, rules), mesh.mesh)

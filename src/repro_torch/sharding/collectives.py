@@ -9,8 +9,10 @@ that every rank of a ``model`` group computes alike (the dense part of a
 layer, replicated over ``model`` as the reference replicates it) must get
 the same gradient on each of them.
 
-  * ``zero_gather``  ZeRO-3 over ``data``: all-gather forward,
-                     reduce-scatter (sum) backward;
+  * ``zero_gather``  ZeRO-3 over ``data``, or under pure FSDP over the
+                     world group (a dimension split over ``("data",
+                     "model")``, whose blocks are in rank order):
+                     all-gather forward, reduce-scatter (sum) backward;
   * ``seq_split``    a rank's sequence slice over ``model``: slice
                      forward, all-gather of the slices' gradients
                      backward;
@@ -53,10 +55,12 @@ tensors takes each collective used here (``all_gather``,
 ``all_to_all`` it refuses, and nothing here calls it), so no collective
 goes through host memory: NCCL and gloo run the same calls.
 
-Under sequence parallelism every Function above is the exact transpose
-of its forward, so each rank's gradient is that of the sum of every
-rank's copy of the loss: ``runtime.steps`` then sums each leaf over the
-axes that do not split it and divides by the number of ranks.
+Under sequence parallelism and under pure FSDP (every rank its own rows,
+every leaf gathered whole from its blocks) every Function above is the
+exact transpose of its forward, so each rank's gradient is that of the
+sum of every rank's copy of the loss: ``runtime.steps`` then sums each
+leaf over the axes that do not split it and divides by the number of
+ranks.
 
 ``bytes_sent`` counts, per collective, the bytes this rank handed the
 backend since ``reset_counts()`` (an all-gather's shard, a
@@ -239,14 +243,14 @@ def group_mean(t: torch.Tensor, group) -> torch.Tensor:
     return _GroupMean.apply(t, group)
 
 
-def zero_gather_tree(tree, dims, group):
-    """A nested dict of shards -> the same of whole leaves: each leaf whose
-    entry in ``dims`` (the same structure) is a dimension is gathered
-    along it, a leaf whose entry is None stays as it is, and so does
-    every leaf where ``group`` is this rank alone."""
-    if dist.get_world_size(group) == 1:
-        return tree
+def zero_gather_tree(tree, plans):
+    """A nested dict of shards -> the same of whole leaves: each leaf is
+    gathered along each (dim, group) of its entry in ``plans`` (the same
+    structure, a list each) in turn, skipping a group of this rank
+    alone."""
     if isinstance(tree, dict):
-        return {k: zero_gather_tree(v, dims[k], group)
-                for k, v in tree.items()}
-    return tree if dims is None else zero_gather(tree, dims, group)
+        return {k: zero_gather_tree(v, plans[k]) for k, v in tree.items()}
+    for dim, group in plans:
+        if dist.get_world_size(group) > 1:
+            tree = zero_gather(tree, dim, group)
+    return tree

@@ -194,6 +194,19 @@ def axis_dim(spec: Spec, axis: str) -> Optional[int]:
     return None
 
 
+def rule_axes(rules: Dict[str, Axis], name: str, mesh: Mesh
+              ) -> Tuple[str, ...]:
+    """The mesh axes logical axis ``name`` maps to on ``mesh``, major to
+    minor (the batch over ``("data", "model")`` under pure FSDP)."""
+    return _flat(_present(mesh, rules.get(name)))
+
+
+def split_axes(spec: Spec) -> Dict[int, Tuple[str, ...]]:
+    """Each dimension ``spec`` splits, and the mesh axes it splits it
+    over, major to minor."""
+    return {i: _flat(entry) for i, entry in enumerate(spec) if entry}
+
+
 def replicas(spec: Spec, mesh: Mesh) -> int:
     """How many devices of ``mesh`` hold each block under ``spec``."""
     split = 1

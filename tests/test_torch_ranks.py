@@ -200,7 +200,11 @@ def _reference(out_dir: str) -> None:
 def ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("ranks_reference")
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               XLA_FLAGS=("--xla_force_host_platform_device_count=4 "
+                          # one XLA thread: the suite runs beside timing
+                          # tests (the fair-share makespan bound)
+                          "--xla_cpu_multi_thread_eigen=false "
+                          "intra_op_parallelism_threads=1"),
                PYTHONPATH=os.pathsep.join(
                    [str(SRC), os.environ.get("PYTHONPATH", "")]))
     run = subprocess.run([sys.executable, __file__, str(out)], env=env,

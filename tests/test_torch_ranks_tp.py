@@ -279,7 +279,11 @@ def runs(tmp_path_factory):
         np.savez(out / f"batches_{name}.npz", **batches)
         inputs[name] = (cfg, init, batches)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               XLA_FLAGS=("--xla_force_host_platform_device_count=4 "
+                          # one XLA thread: the suite runs beside timing
+                          # tests (the fair-share makespan bound)
+                          "--xla_cpu_multi_thread_eigen=false "
+                          "intra_op_parallelism_threads=1"),
                PYTHONPATH=os.pathsep.join(
                    [str(SRC), os.environ.get("PYTHONPATH", "")]))
     # the reference's cases in REF_PROCS subprocesses (its time is mostly
@@ -485,14 +489,46 @@ def test_tp_range_gives_each_rank_its_heads_and_their_kv_heads(H, KV, tp,
 def test_cli_takes_the_archs_own_layout_and_refuses_unported_ones():
     """``main`` trains under ``registry.get_parallel(arch)``: granite's is
     ``ParallelConfig()``, which ``check_layout`` admits on (1, 2); phi4's
-    turns pure FSDP on, which it refuses before any rank starts."""
+    turns pure FSDP on where ``--batch`` divides the mesh, and its ranks
+    on (1, 2) take the losses and grad norms of one device's
+    ``train_step``, moving only the bytes the leaf shapes give.  MoE
+    under pure FSDP (``--layout fsdp``) it refuses before any rank
+    starts."""
+    from repro_torch.data.tokens import TokenPipeline
     assert treg.get_parallel(GRANITE) == ParallelConfig()
     tsteps.check_layout(treg.get_smoke(GRANITE), ParallelConfig(),
                         OptimizerConfig(), make_mesh((1, 2), ("data", "model")),
                         seq=S)
+    batch = 2
+    results = ranks.main(["--arch", PHI4, "--smoke", "--mesh", "1,2",
+                          "--seq", str(S), "--batch", str(batch),
+                          "--steps", str(STEPS), "--device", "cpu",
+                          "--threads", "1"])
+    cfg = treg.get_smoke(PHI4).replace(param_dtype="float32",
+                                       compute_dtype="float32")
+    ocfg = OptimizerConfig(warmup_steps=2)
+    own = treg.get_parallel(PHI4)
+    par = tsteps.train_par(own, global_batch=batch, chips=2)
+    assert par.pure_fsdp
+    batches = TokenPipeline(cfg.vocab_size, S, batch, seed=0).chunk(0, STEPS)
+    params = ranks.seeded_params(cfg, 0)
+    opt = tsteps.init_opt_state(cfg, ocfg, "cpu")
+    want = []
+    for j in range(STEPS):
+        params, opt, m = tsteps.train_step(
+            cfg, own, ocfg, params, opt,
+            {k: v[j] for k, v in batches.items()}, device="cpu")
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+    assert len(results) == 2
+    for res in results:
+        got = [(row["loss"], row["grad_norm"]) for row in res["steps"]]
+        np.testing.assert_allclose(got, want, rtol=LOSS_RTOL, atol=0)
+        for row in res["steps"]:
+            assert row["bytes"] == ranks.fsdp_step_bytes(cfg, par, (1, 2))
     with pytest.raises(NotImplementedError, match="pure_fsdp"):
-        ranks.main(["--arch", PHI4, "--smoke", "--mesh", "1,2", "--seq",
-                    str(S), "--batch", str(B), "--device", "cpu"])
+        ranks.main(["--arch", GRANITE, "--layout", "fsdp", "--smoke",
+                    "--mesh", "1,2", "--seq", str(S), "--batch", str(B),
+                    "--device", "cpu"])
 
 
 if __name__ == "__main__":
