@@ -169,8 +169,8 @@ Phases (any failure raises and the script exits non-zero):
                skips the masked tiles) and the model-FLOPs share of 989
                TFLOP/s, with the card's name and power limit
                (information, not a limit); a ``{"dryrun": ...}`` line;
- 9. elastic — phi4-mini-3.8b in bf16 at full width with depth cut to 4
-               layers (1.017 B params, a 10.2 GB checkpoint) trains 8 steps
+ 9. elastic — phi4-mini-3.8b in bf16 at full width with depth cut to 2
+               layers (an 8.15 GB checkpoint) trains 8 steps
                of 2 x 1024 tokens through ``ElasticTrainer`` on a one-card
                ``Cluster``, in chunks of 2, checkpointing every 4 steps into
                a temporary directory, with one crash injected before step 7:
@@ -269,7 +269,7 @@ Phases (any failure raises and the script exits non-zero):
                phi4, research's smoke TrainJob, an edge kill and a gpu-hub
                brown-out mid-wave, both restored), the grade table printed.
  16. ranks   — training across ranks (``repro_torch.launch.ranks``, one
-               process a rank): granite-moe-1b-a400m at full width and 8
+               process a rank): granite-moe-1b-a400m at full width and 4
                of its 24 layers (bf16, f32 moments, 2 steps of 2 x 1024
                tokens) on mesh (1, 1) over NCCL, then as two ranks
                sharing the card over gloo (NCCL takes one card a rank) on
@@ -288,7 +288,25 @@ Phases (any failure raises and the script exits non-zero):
                card against the same on the CPU (the plain versions,
                gloo): losses within 1e-4, grad norms within 1e-4
                relative, every param block within 2e-4.
-The phases that write checkpoints (elastic, rl, session) print the bytes
+ 17. elastic ranks — ``ElasticTrainer`` on a cluster of 4 slots that are
+               ranks sharing the card over gloo: granite-moe-1b-a400m at
+               full width and 2 of its 24 layers (bf16, f32 moments,
+               ``ParallelConfig()``), 6 steps of 2 x 1024 tokens, a
+               checkpoint every 3 (about 1.57 GB): (2, 2) -> 2 slots fail
+               -> (1, 2) at accum 2 -> they rejoin -> (2, 2); the
+               outcomes node-failure, preempted, done; every rank's blocks
+               after each restore, and before each save, equal bit for bit
+               (sha256) the cut of the checkpoint's whole leaves for its
+               mesh, so a restore onto (1, 2) holds the cut of what the
+               (2, 2) saver held; losses finite and within
+               ``ELASTIC_RANKS_RTOL`` of an uninterrupted one-device run's;
+               xent, AdamW and gmm launches on every rank of every segment
+               as ``_family_launches`` implies; per segment the mesh,
+               accum, rank start-up, ``t_first_s``, save and restore
+               seconds and bytes and each rank's peak memory; no rank
+               process left.
+The phases that write checkpoints (elastic, rl, session, elastic ranks)
+print the bytes
 they wrote and left on disk, and connect, fabric and tenant the bytes
 their runs wrote.  Then it prints a ``{"kernels": [...]}`` line, a
 ``{"serve": {...}}`` line with one entry per arch, a ``{"train": {...}}``
@@ -297,8 +315,9 @@ line, a ``{"kimi": {...}}`` line, a ``{"dryrun": {...}}`` line, an
 ...}`` line, an ``{"rl": {...}}`` line, one ``{"session": {...}}`` line a
 workload (apply -> Running and wall seconds, tok/s beside the direct
 engine's, ms a step, events, peak GB, the card), a ``{"connect": {...}}``,
-a ``{"fabric": {...}}``, a ``{"tenant": {...}}`` and a ``{"ranks":
-{...}}`` line (each with the card), the card's name and power limit, and
+a ``{"fabric": {...}}``, a ``{"tenant": {...}}``, a ``{"ranks": {...}}``
+and an ``{"elastic_ranks": {...}}`` line (each with the card), the card's
+name and power limit, and
 as its last line ``{"ok":
 true, "device": {...}}``.
 """
@@ -337,8 +356,11 @@ ZAMBA_ATTN = (1, 32, 32, PROMPT, PROMPT, 80)   # zamba2's shared attention
 GRANITE_ATTN = (1, 16, 8, PROMPT, PROMPT, 64)  # granite-moe's attention
 COLD_BYTES = 150e6        # cold timing: > 2x a prefill bucket, > 3x a decode
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_K = 2, 1024, 6, 3
-# elastic: full width, depth cut to 4 layers (a 10.2 GB checkpoint; 38.4 GB
-# at 32), 8 steps in chunks of 2, saves at steps 3 and 7, a crash before 7
+# elastic: full width, depth cut to 2 layers (an 8.15 GB checkpoint, 10.2
+# GB at 4, 38.4 GB at 32: 4 GB of disk writes go to the ranks' elastic
+# phase), 8 steps in chunks of 2, saves at steps 3 and 7, a crash before 7.
+# The rl and session phases train phi4 at ELASTIC_LAYERS.
+ELASTIC_PHASE_LAYERS = 2
 ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_K = 4, 8, 2
 ELASTIC_CKPT_EVERY, ELASTIC_FAIL_AT, ELASTIC_RESTORED = 4, 7, 3
 GRAD_RTOL = 0.05          # bf16 vs f32 first-batch grad norm, per leaf
@@ -3217,7 +3239,7 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def phase_elastic(smi: str):
-    """phi4 at full width and 4 layers in bf16 trains through the elastic
+    """phi4 at full width and 2 layers in bf16 trains through the elastic
     trainer, crashes once, restores its step-3 checkpoint and finishes."""
     import tempfile
 
@@ -3233,7 +3255,7 @@ def phase_elastic(smi: str):
     from repro_torch.models import transformer as tfm
 
     torch.cuda.empty_cache()
-    cfg = registry.get_config(ARCH).replace(num_layers=ELASTIC_LAYERS)
+    cfg = registry.get_config(ARCH).replace(num_layers=ELASTIC_PHASE_LAYERS)
     par = registry.get_parallel(ARCH)
     # the train CLI's recipe: lr 1e-3, warmup steps/20, cosine over the run
     ocfg = OptimizerConfig(lr=1e-3, warmup_steps=max(ELASTIC_STEPS // 20, 1),
@@ -3305,7 +3327,7 @@ def phase_elastic(smi: str):
     executed = rep.steps_executed
     wall = rep.total_wall_s
     result = {
-        "arch": ARCH, "layers": ELASTIC_LAYERS, "params_b": n_params / 1e9,
+        "arch": ARCH, "layers": ELASTIC_PHASE_LAYERS, "params_b": n_params / 1e9,
         "dtype": "bfloat16", "steps": ELASTIC_STEPS, "batch": TRAIN_BATCH,
         "seq": TRAIN_SEQ, "device_steps": ELASTIC_K,
         "ckpt_every": ELASTIC_CKPT_EVERY, "fail_at": ELASTIC_FAIL_AT,
@@ -3331,7 +3353,7 @@ def phase_elastic(smi: str):
         "clean_spread": spread,
         "disk_written_gb": sum(r["bytes"] for r in ck.saves) / 1e9,
         "on_disk_gb": on_disk / 1e9, "card": smi}
-    log(f"[elastic] {ARCH} at {ELASTIC_LAYERS} layers ({n_params / 1e9:.3f} B "
+    log(f"[elastic] {ARCH} at {ELASTIC_PHASE_LAYERS} layers ({n_params / 1e9:.3f} B "
         f"params, bf16): outcomes {result['outcomes']} segments "
         f"{result['segments']}; restored step {result['restored_step']} "
         f"(bit exact: {result['restore_bit_exact']}); steps lost "
@@ -4916,10 +4938,12 @@ def phase_tenant(smi: str, phi4_run):
 
 
 RANKS_MESHES = ((1, 2), (2, 1))
-# granite cut to 8 of its 24 layers (0.48 B of 1.335 B params): beside
+# granite cut to 4 of its 24 layers (0.264 B of 1.335 B params): beside
 # phi4's pure-FSDP runs, the phase at full depth took 447 s of a 1,115 s
-# script (its limit 1,200 s) on an H100 80GB HBM3 with a slow host
-RANKS_LAYERS = 8
+# script (its limit 1,200 s) on an H100 80GB HBM3 with a slow host; at 8
+# layers 271 s of 809 s, and the elastic ranks phase after it adds about
+# 160 s
+RANKS_LAYERS = 4
 RANKS_STEPS = 2
 RANKS_CHECK = (2, 128)    # (c): layers and tokens a row, f32, card vs CPU
 RANKS_LABEL = "two ranks sharing one H100 over gloo"
@@ -5185,6 +5209,252 @@ def phase_ranks(smi: str):
     return rows, launches
 
 
+# elastic on ranks: granite-moe at full width and 2 of 24 layers (bf16, f32
+# moments: about 1.57 GB a checkpoint), its own ParallelConfig(), 4 slots
+# as ranks sharing the card over gloo; 6 steps, a checkpoint every 3; 2
+# slots fail once step 2 is done and rejoin once the (1, 2) segment has
+# taken a step: saves at 2, at the (1, 2) segment's graceful exit and at 5
+ELASTIC_RANKS_ARCH = GRANITE
+ELASTIC_RANKS_LAYERS, ELASTIC_RANKS_STEPS, ELASTIC_RANKS_CKPT = 2, 6, 3
+ELASTIC_RANKS_SLOTS, ELASTIC_RANKS_FAIL_AFTER = 4, 2
+# the churned run's losses against one device's uninterrupted run, bf16:
+# on (2, 2) granite's ParallelConfig() caps each expert's entries per model
+# group, as the reference does, where one device caps them over the batch
+# (in f32 at smoke size 2e-6 apart at the first step, 1.4e-3 by the
+# fifth), and bf16 sums in another order: 1.5e-3 apart by the third step,
+# before any churn, and 2.5e-3 at most over the run on an H100 80GB HBM3
+# at 700 W (phi4's pure FSDP in phase_ranks: 1.20e-4 over 2 steps)
+ELASTIC_RANKS_RTOL = 1e-2
+
+
+def _digests_hold(store, trainer, cfg, par, ocfg) -> dict:
+    """Every probe record of ``trainer``'s rank segments (``digest_probe``:
+    each rank's blocks after a restore and before a save) against the cut
+    of the checkpoint's whole leaves for that segment's mesh -> {"checked":
+    blocks compared, "unequal": [(segment, event, step, rank, key)]}."""
+    import itertools
+
+    from repro_torch.checkpoint.checkpoint import (Checkpointer,
+                                                   flatten_with_paths)
+    from repro_torch.elastic.segment import block_digest
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import params as pr
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    from repro_torch.sharding import specs
+    schema = steps._model_module(cfg).lm_schema(cfg)
+    opt_schema = adamw.opt_state_schema(schema, ocfg)
+    abstract = {"params": pr.abstract_params(schema, cfg.param_dtype),
+                "opt": pr.abstract_params(opt_schema, "float32")}
+    ck = Checkpointer(store, keep=None)
+    by_step = {}
+    for i, rec in enumerate(trainer.rank_segments):
+        for r, probes in enumerate(rec.get("probes", [])):
+            for event, step, digests in probes:
+                by_step.setdefault(step, []).append((i, rec, r, event,
+                                                     digests))
+    checked, unequal = 0, []
+    for step, entries in sorted(by_step.items()):
+        whole = dict(flatten_with_paths(ck.restore(step, abstract, "cpu")))
+        for i, rec, r, event, digests in entries:
+            mesh = make_mesh(rec["mesh"], ("data", "model"))
+            rules = specs.logical_rules(steps.train_par(
+                par, global_batch=TRAIN_BATCH, chips=math.prod(rec["mesh"])))
+            coords = dict(zip(mesh.axis_names, list(itertools.product(
+                *(range(n) for n in mesh.sizes)))[r]))
+            for key, p in flatten_with_paths({"params": schema,
+                                              "opt": opt_schema}):
+                spec = specs.spec_for(p.shape, p.axes, mesh, rules)
+                checked += 1
+                if block_digest(specs.local_shard(
+                        whole[key], spec, mesh, coords)) != digests[key]:
+                    unequal.append((i, event, step, r, key))
+        del whole
+    return {"checked": checked, "unequal": unequal}
+
+
+def phase_elastic_ranks(smi: str):
+    """Elastic training segments on ranks: ``ELASTIC_RANKS_ARCH`` at full
+    width and ``ELASTIC_RANKS_LAYERS`` layers under its own layout through
+    ``ElasticTrainer`` on ``ELASTIC_RANKS_SLOTS`` slots that are ranks
+    sharing the card over gloo ("4 ranks sharing one H100 over gloo": no
+    figure here is a multi-card rate), churned (2, 2) -> (1, 2) -> (2, 2);
+    checked as the module docstring's phase 17 says.  -> (row, rank 0's
+    launches over the run)."""
+    import tempfile
+    import threading
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.core.orchestrator import Cluster
+    from repro_torch.data.objectstore import ObjectStore
+    from repro_torch.elastic import ElasticTrainer, ElasticTrainSpec
+    from repro_torch.models import params as pr
+    from repro_torch.runtime import steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    arch = ELASTIC_RANKS_ARCH
+    cfg = registry.get_config(arch).replace(num_layers=ELASTIC_RANKS_LAYERS)
+    par = registry.get_parallel(arch)
+    # the train CLI's recipe: lr 1e-3, warmup steps/20, cosine over the run
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=1,
+                           decay_steps=ELASTIC_RANKS_STEPS)
+    schema = steps._model_module(cfg).lm_schema(cfg)
+    n_params, n_leaves = pr.param_count(schema), len(pr.leaves(schema))
+    card = torch.device("cuda", 0)
+    slots = [f"slot{i}" for i in range(ELASTIC_RANKS_SLOTS)]
+    label = f"{len(slots)} ranks sharing one H100 over gloo"
+
+    def spec(**kw):
+        return ElasticTrainSpec(
+            cfg, par, ocfg, steps=ELASTIC_RANKS_STEPS, seq_len=TRAIN_SEQ,
+            global_batch=TRAIN_BATCH, device_steps=1, keep=None,
+            log_every=1, seed=0, name="chip-smoke-elastic-ranks",
+            device=card, rejoin_timeout_s=600.0, **kw)
+
+    # the uninterrupted run: one device, the same weights (drawn on the
+    # card's generator from the seed), no checkpoint
+    t0 = time.perf_counter()
+    one = ElasticTrainer(Cluster(devices=[card]), spec(
+        base_shape=(1, 1), max_data=1, ckpt_every=0)).run()
+    one_losses, one_wall = one["losses"], time.perf_counter() - t0
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-elastic-ranks-") as \
+            root:
+        cluster = Cluster(devices=slots, compute=card,
+                          ranks={s: str(card) for s in slots})
+        trainer = ElasticTrainer(
+            cluster, spec(base_shape=(2, 2), max_data=None,
+                          ckpt_every=ELASTIC_RANKS_CKPT, ranks=cluster.ranks),
+            store=ObjectStore(root),
+            probe="repro_torch.elastic.segment:digest_probe")
+        victims = slots[len(slots) // 2:]
+        done = threading.Event()
+
+        def churn():
+            # 2 slots fail once step FAIL_AFTER is done; they rejoin once
+            # the (1, 2) segment has taken a step of its own
+            while trainer.progress < ELASTIC_RANKS_FAIL_AFTER and \
+                    not done.is_set():
+                time.sleep(0.005)
+            for d in victims:
+                cluster.fail_node(d)
+            while not done.is_set():
+                segs = trainer.rank_segments
+                if len(segs) >= 2 and segs[1].get("last", -1) >= \
+                        segs[1].get("start", ELASTIC_RANKS_STEPS):
+                    break
+                time.sleep(0.005)
+            for d in victims:
+                cluster.join_node(d)
+
+        watcher = threading.Thread(target=churn, daemon=True)
+        watcher.start()
+        try:
+            out = trainer.run()
+        finally:
+            done.set()
+            watcher.join(timeout=60)
+        held = _digests_hold(ObjectStore(root), trainer, cfg, par, ocfg)
+        del out["params"], out["opt"]
+    rep, losses = out["report"], out["losses"]
+    segs = trainer.rank_segments
+    tp = 2
+    per = _family_launches(cfg, par, n_leaves, 1, TRAIN_SEQ // tp)
+    rows, launches = [], dict.fromkeys(RANKS_KERNELS, 0)
+    for seg, rec in zip(rep.segments, segs):
+        n = seg.steps_run
+        want = {"xent_fwd": per["xent_fwd"] * n * rec["accum"],
+                "xent_bwd": per["xent_bwd"] * n * rec["accum"],
+                "moe_gmm": per["moe_gmm"] * n * rec["accum"],
+                "adamw_update": n_leaves * n}
+        for r, ran in enumerate(rec["launches"]):
+            got = {k: ran[k] for k in RANKS_KERNELS}
+            if got != want:
+                raise AssertionError(f"[elastic-ranks] segment {seg.index} "
+                                     f"rank {r} launches {got} != {want}")
+        for k in RANKS_KERNELS:
+            launches[k] += rec["launches"][0][k]
+        row = {"mesh": list(rec["mesh"]), "accum": rec["accum"],
+               "outcome": seg.outcome, "steps": [seg.start, seg.end],
+               "backend": rec["backend"],
+               "rank_start_s": rec.get("rank_start_s"),
+               "t_first_s": seg.t_first_s, "wall_s": seg.wall_s,
+               "saves": rec["saves"], "restores": rec["restores"][0],
+               "peak_gb": [b / 1e9 for b in rec["peak_bytes"]],
+               "launches_rank0": rec["launches"][0]}
+        rows.append(row)
+        log(f"[elastic-ranks] segment {seg.index} mesh {tuple(rec['mesh'])} "
+            f"accum {rec['accum']} ({label}): {seg.outcome}, steps "
+            f"{seg.start}..{seg.end}; rank start-up "
+            f"{row['rank_start_s']:.2f} s, t_first_s {seg.t_first_s:.2f}, "
+            f"wall {seg.wall_s:.2f} s; saves "
+            + ", ".join(f"step {v['step']}: gather {v['snapshot_s']:.2f} s "
+                        f"write {v['write_s']:.2f} s {v['bytes'] / 1e9:.3f} GB"
+                        for v in rec["saves"])
+            + "; restores (rank 0) "
+            + ", ".join(f"step {v['step']}: {v['seconds']:.2f} s "
+                        f"{v['bytes'] / 1e9:.3f} GB"
+                        for v in rec["restores"][0])
+            + f"; peak GB a rank {[round(g, 3) for g in row['peak_gb']]}; "
+              f"launches a rank {rec['launches'][0]}")
+    alive = [pid for pids in trainer.rank_pids for pid in pids
+             if Path(f"/proc/{pid}").exists()]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+    written = sum(v["bytes"] for rec in segs for v in rec["saves"])
+    result = {
+        "arch": arch, "layers": ELASTIC_RANKS_LAYERS,
+        "params_b": n_params / 1e9, "dtype": "bfloat16",
+        "parallel": "ParallelConfig()", "ranks": label,
+        "steps": ELASTIC_RANKS_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "ckpt_every": ELASTIC_RANKS_CKPT, "segments": rows,
+        "outcomes": [s.outcome for s in rep.segments],
+        "recoveries": rep.recoveries, "steps_lost": rep.steps_lost,
+        "recovery_s": rep.recovery_s, "total_wall_s": rep.total_wall_s,
+        "global_batch_constant": rep.global_batch_constant,
+        "restore_digests": held, "losses": losses,
+        "one_device_losses": one_losses, "one_device_wall_s": one_wall,
+        "loss_rel_err": gap, "loss_rtol": ELASTIC_RANKS_RTOL,
+        "launches_rank0": launches, "disk_written_gb": written / 1e9,
+        "phase_s": time.perf_counter() - t_start, "card": smi}
+    log(f"[elastic-ranks] {arch} at {ELASTIC_RANKS_LAYERS} layers "
+        f"({n_params / 1e9:.3f} B params, bf16, ParallelConfig()), {label}: "
+        f"outcomes {result['outcomes']}; recoveries {rep.recoveries}, steps "
+        f"lost {rep.steps_lost}, recovery_s {rep.recovery_s}; "
+        f"{held['checked']} blocks after restores and before saves equal "
+        f"to the checkpoints' cut ({len(held['unequal'])} unequal); losses "
+        f"{losses}; one device {one_losses}; rel err {gap:.3g} (tolerance "
+        f"{ELASTIC_RANKS_RTOL}); disk written {written / 1e9:.2f} GB; "
+        f"{result['phase_s']:.1f} s; {smi}")
+    shapes = [tuple(s.mesh_shape) for s in rep.segments]
+    if shapes != [(2, 2), (1, 2), (2, 2)] or result["outcomes"] != [
+            "node-failure", "preempted", "done"]:
+        raise AssertionError(f"[elastic-ranks] segments {rep.to_json()}")
+    if {tuple(r["mesh"]): r["accum"] for r in rows} != {(2, 2): 1, (1, 2): 2} \
+            or not rep.global_batch_constant or rep.recoveries < 1 or \
+            rep.steps_lost > ELASTIC_RANKS_CKPT:
+        raise AssertionError(f"[elastic-ranks] report {rep.to_json()}")
+    if any(s.steps_run < 1 for s in rep.segments[1:]):
+        raise AssertionError(f"[elastic-ranks] a segment after the churn "
+                             f"took no step: {rep.to_json()}")
+    restored_onto_12 = [p for r in segs[1]["probes"] for p in r
+                        if p[0] == "restore"]
+    if held["unequal"] or len(restored_onto_12) != 2 or not held["checked"]:
+        raise AssertionError(f"[elastic-ranks] restore/save blocks: {held}, "
+                             f"(1, 2) restores {len(restored_onto_12)}")
+    if not all(math.isfinite(x) for x in losses) or \
+            len(losses) != ELASTIC_RANKS_STEPS or gap > ELASTIC_RANKS_RTOL:
+        raise AssertionError(f"[elastic-ranks] losses {losses} against one "
+                             f"device's {one_losses}: rel err {gap:.3g}")
+    if alive:
+        raise AssertionError(f"[elastic-ranks] rank processes alive: {alive}")
+    return result, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5284,6 +5554,11 @@ def main() -> int:
     written += tenant["bytes_written"] / 1e9
     log(f"[disk] written so far {written:.2f} GB")
     ranks, ranks_launches = phase_ranks(smi)
+    elastic_ranks, elastic_ranks_launches = phase_elastic_ranks(smi)
+    written += elastic_ranks["disk_written_gb"]
+    log(f"[disk] written so far {written:.2f} GB")
+    ranks_launches[f"{GRANITE} elastic ranks (2, 2) -> (1, 2) -> (2, 2)"] = \
+        elastic_ranks_launches
     flash["launches_by_path"].update({
         f"{ARCH} serve router": ran_router["router"],
         f"{ARCH} serve static": ran_router["static"],
@@ -5345,6 +5620,7 @@ def main() -> int:
     print(json.dumps({"fabric": fabric}))
     print(json.dumps({"tenant": tenant}))
     print(json.dumps({"ranks": ranks}))
+    print(json.dumps({"elastic_ranks": elastic_ranks}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

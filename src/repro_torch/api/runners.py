@@ -97,8 +97,9 @@ def rl_pieces(job: RLJob):
 
 
 def elastic_spec(job: TrainJob, *, namespace: Optional[str] = None,
-                 device="cuda"):
-    """The ElasticTrainSpec a TrainJob declares, training on ``device``."""
+                 device="cuda", ranks: Any = False):
+    """The ElasticTrainSpec a TrainJob declares, training on ``device``
+    (on ranks where the cluster declares its slots ranks: ``ranks``)."""
     from repro_torch.elastic.trainer import ElasticTrainSpec
     cfg, par, ocfg = train_pieces(job)
     kw: Dict[str, Any] = {}
@@ -112,7 +113,7 @@ def elastic_spec(job: TrainJob, *, namespace: Optional[str] = None,
         device_steps=job.device_steps, seed=job.seed,
         data_seed=job.data_seed, fail_at=job.fail_at,
         rejoin_timeout_s=job.rejoin_timeout_s, verbose=job.verbose,
-        device=device, **kw)
+        device=device, ranks=ranks, **kw)
 
 
 def trainer_probe(handle: Handle):
@@ -411,7 +412,8 @@ class ClusterBackend:
     def run_train(self, handle: Handle, job: TrainJob):
         from repro_torch.elastic.trainer import ElasticTrainer
         handle._transition(WorkloadState.PLACING)
-        tspec = elastic_spec(job, device=self.device)
+        tspec = elastic_spec(job, device=self.device,
+                             ranks=self.cluster.ranks)
         store = ObjectStore(job.ckpt_dir) if job.ckpt_dir else None
         stop = threading.Event()
         trainer = ElasticTrainer(self.cluster, tspec, store=store,

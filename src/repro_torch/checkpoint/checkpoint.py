@@ -20,10 +20,27 @@ can stop under one stack and resume under the other:
   * GC: ``keep=N`` keeps the newest N, ``keep=0`` none, ``keep=None``
     turns GC off.
 
+Across ranks (``mesh=``, a ``launch.mesh.RankMesh``; ``par``, the layout;
+``schema``, the state's ``PSpec`` tree, whose logical axes ``par``'s
+rules lay out) the files stay the same: one whole leaf a ``shard0.npy``,
+readable by the JAX package.  A save gathers each leaf's blocks over the
+world, one leaf at a time, and rank 0 puts it back together
+(``sharding.specs.assemble``) and copies it to the host: the gather is
+the synchronous snapshot; rank 0 alone writes, in its background thread
+under ``save_async``, and alone runs GC.  ``wait`` on every rank returns
+only after rank 0's manifest has committed (and raises on every rank if
+its write failed), so no rank can pick a step that has not.  A restore
+onto any mesh, the counterpart of the reference's ``device_put`` onto
+shardings of a mesh other than the saver's, reads the manifest and each
+whole leaf on every rank and keeps the block ``specs.local_shard`` cuts
+for the rank, on its device; ``restore_latest`` takes the step rank 0
+picks, on every rank.
+
 ``saves`` and ``restores`` record each call's seconds and bytes.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -33,6 +50,7 @@ import torch
 
 from repro_torch.data.objectstore import ObjectStore
 from repro_torch.device import resolve_device
+from repro_torch.sharding import specs
 
 _UINT = {1: np.uint8, 2: np.uint16, 4: np.uint32}
 _INT = {1: np.int8, 2: np.int16, 4: np.int32}
@@ -79,6 +97,51 @@ def _host_leaf(leaf) -> Tuple[np.ndarray, str]:
     return arr, name
 
 
+def _layout(mesh, par, schema) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
+    """key -> (whole shape, spec) of every leaf of ``schema`` as ``par``'s
+    rules lay it out on ``mesh`` (a ``launch.mesh.RankMesh``)."""
+    if par is None or schema is None:
+        raise ValueError("a checkpoint across ranks takes the layout (par) "
+                         "and the state's schema")
+    rules = specs.logical_rules(par)
+    return {key: (tuple(p.shape),
+                  specs.spec_for(p.shape, p.axes, mesh.mesh, rules))
+            for key, p in flatten_with_paths(schema)}
+
+
+def _whole(block: torch.Tensor, shape, spec, mesh) -> Optional[torch.Tensor]:
+    """The whole leaf from every rank's ``block`` of it, on rank 0 (None
+    elsewhere): an all-gather of the blocks' bytes over the world, which
+    NCCL and gloo take on the card and gloo on the CPU."""
+    import torch.distributed as dist
+    if tuple(block.shape) == tuple(shape):          # not split: every rank
+        return block if mesh.rank == 0 else None    # holds it whole
+    block = block.detach().contiguous()
+    parts = [torch.empty_like(block) for _ in range(mesh.world_size)]
+    dist.all_gather([p.reshape(-1).view(torch.uint8) for p in parts],
+                    block.reshape(-1).view(torch.uint8), group=mesh.world)
+    if mesh.rank != 0:
+        return None
+    # rank r sits at the r-th coordinates in row-major order
+    everyone = itertools.product(*(range(n) for n in mesh.mesh.sizes))
+    return specs.assemble(dict(zip(everyone, parts)), shape, spec, mesh.mesh)
+
+
+def gather_whole(tree: Any, mesh, par, schema) -> Optional[Any]:
+    """Every rank's blocks of ``tree`` put back together, leaf by leaf, as
+    whole tensors on the CPU on rank 0 (None on the other ranks); every
+    rank calls it."""
+    layout = _layout(mesh, par, schema)
+    out = {}
+    for key, block in flatten_with_paths(tree):
+        whole = _whole(block, *layout[key], mesh)
+        if whole is not None:
+            out[key] = whole.to("cpu", copy=True)
+    if mesh.rank != 0:
+        return None
+    return _unflatten(tree, lambda key, _leaf: out[key])
+
+
 def _to_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     """The stored array as a tensor of its true dtype (bit exact)."""
     true = getattr(torch, dtype_name)
@@ -101,6 +164,7 @@ class Checkpointer:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = None                 # the ranks of the save in flight
         # one entry a committed save: step, snapshot_s (the host copy),
         # write_s (files, manifest and GC), bytes
         self.saves: List[Dict[str, float]] = []
@@ -112,10 +176,21 @@ class Checkpointer:
         return f"{self.prefix}/step_{step:010d}"
 
     @staticmethod
-    def _snapshot(tree: Any):
+    def _snapshot(tree: Any, mesh=None, par=None, schema=None):
+        """(key, host array, dtype name) of every leaf (on rank 0 alone
+        across ranks; an empty list elsewhere), and the seconds taken."""
         t0 = time.perf_counter()
-        leaves = [(key, *_host_leaf(leaf))
-                  for key, leaf in flatten_with_paths(tree)]
+        if mesh is None:
+            leaves = [(key, *_host_leaf(leaf))
+                      for key, leaf in flatten_with_paths(tree)]
+            return leaves, time.perf_counter() - t0
+        layout = _layout(mesh, par, schema)
+        leaves = []
+        for key, block in flatten_with_paths(tree):
+            whole = _whole(block, *layout[key], mesh)
+            if whole is not None:
+                leaves.append((key, *_host_leaf(whole)))
+            del whole
         return leaves, time.perf_counter() - t0
 
     def _write(self, step: int, leaves, extra: Optional[Dict],
@@ -137,16 +212,23 @@ class Checkpointer:
             "write_s": time.perf_counter() - t0,
             "bytes": sum(arr.nbytes for _, arr, _ in leaves)})
 
-    def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> None:
-        """Synchronous save + atomic manifest commit + GC."""
-        leaves, snapshot_s = self._snapshot(tree)
-        self._write(step, leaves, extra, snapshot_s)
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None, *,
+             mesh=None, par=None, schema=None) -> None:
+        """Synchronous save + atomic manifest commit + GC (across ranks:
+        every rank calls it with its blocks; rank 0 writes)."""
+        self.save_async(step, tree, extra, mesh=mesh, par=par, schema=schema)
+        self.wait()
 
     def save_async(self, step: int, tree: Any,
-                   extra: Optional[Dict] = None) -> None:
-        """Copy every leaf to the host now; write in the background."""
+                   extra: Optional[Dict] = None, *, mesh=None, par=None,
+                   schema=None) -> None:
+        """Copy every leaf to the host now (across ranks: gather it to rank
+        0); write in the background."""
         self.wait()
-        leaves, snapshot_s = self._snapshot(tree)
+        leaves, snapshot_s = self._snapshot(tree, mesh, par, schema)
+        self._mesh = mesh
+        if mesh is not None and mesh.rank != 0:
+            return
 
         def work():
             try:
@@ -158,12 +240,21 @@ class Checkpointer:
         self._thread.start()
 
     def wait(self) -> None:
+        """Let the save in flight commit.  Across ranks every rank waits
+        for rank 0's commit, and every rank raises if its write failed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        mesh, self._mesh = self._mesh, None
+        err, self._error = self._error, None
+        failed = err is not None
+        if mesh is not None:
+            failed = bool(mesh.from_rank0([failed])[0])
+        if err is not None:
             raise err
+        if failed:
+            raise RuntimeError(f"rank 0's checkpoint write under "
+                               f"{self.prefix!r} failed")
 
     def _gc(self) -> None:
         if self.keep is None:
@@ -211,11 +302,14 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, abstract_tree: Any, device="cuda") -> Any:
+    def restore(self, step: int, abstract_tree: Any, device="cuda", *,
+                mesh=None, par=None, schema=None) -> Any:
         """Rebuild ``abstract_tree``-shaped state (leaves with a torch
         ``dtype``: tensors, or ``meta`` tensors), each leaf cast to its
-        abstract leaf's dtype and placed on ``device``."""
-        dev = resolve_device(device)
+        abstract leaf's dtype and placed on ``device``; across ranks
+        (``mesh``) each rank's block of it, on the rank's device."""
+        dev = mesh.device if mesh is not None else resolve_device(device)
+        layout = _layout(mesh, par, schema) if mesh is not None else None
         t0 = time.perf_counter()
         manifest = self.store.get_json(f"{self._step_dir(step)}/MANIFEST.json")
         by_key = {entry["key"]: entry for entry in manifest["leaves"]}
@@ -226,8 +320,14 @@ class Checkpointer:
             entry = by_key[key]
             arr = self.store.get_array(entry["shards"][0])
             nbytes += arr.nbytes
-            return _to_tensor(arr, entry["dtype"]).to(device=dev,
-                                                      dtype=ab.dtype)
+            t = _to_tensor(arr, entry["dtype"]).to(dtype=ab.dtype)
+            if layout is not None:
+                shape, spec = layout[key]
+                if tuple(t.shape) != shape:
+                    raise ValueError(f"{key}: stored {tuple(t.shape)}, the "
+                                     f"layout's {shape}")
+                t = specs.local_shard(t, spec, mesh.mesh, mesh.coords)
+            return t.to(device=dev)
         out = _unflatten(abstract_tree, load)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -236,26 +336,37 @@ class Checkpointer:
         return out
 
     def restore_latest(self, abstract_tree: Any, device="cuda", *,
-                       retries: int = 4):
+                       retries: int = 4, mesh=None, par=None, schema=None):
         """Restore the newest checkpoint, tolerating a concurrent writer.
 
         A reader whose restore spans a GC pass can lose the step it picked:
         on FileNotFound it re-lists and retries on whatever is newest then.
         An EMPTY listing can be transient too (``list`` walks directory by
         directory, racing save + GC), so ``(None, None)`` is returned only
-        after the whole retry budget agrees the store is empty."""
+        after the whole retry budget agrees the store is empty.  Across
+        ranks rank 0 lists and every rank restores the step it picked; a
+        rank that loses a GC race makes every rank retry."""
         err: Optional[BaseException] = None
         for _ in range(retries + 1):
-            step = self.latest_step()
+            step = self.latest_step() if mesh is None or mesh.rank == 0 \
+                else None
+            if mesh is not None:
+                step = mesh.from_rank0([0 if step is None else step + 1])[0]
+                step = step - 1 if step else None
             if step is None:
                 continue                     # possibly a racing re-list
             try:
                 manifest = self.store.get_json(
                     f"{self._step_dir(step)}/MANIFEST.json")
-                return self.restore(step, abstract_tree, device), \
-                    {"step": step, **manifest.get("extra", {})}
+                tree = self.restore(step, abstract_tree, device, mesh=mesh,
+                                    par=par, schema=schema)
+                lost = False
             except FileNotFoundError as e:   # lost a GC race; re-list
-                err = e
+                err, lost = e, True
+            if mesh is not None:
+                lost = mesh.any_rank(lost)   # any rank's loss: all retry
+            if not lost:
+                return tree, {"step": step, **manifest.get("extra", {})}
         if err is not None:
             raise err
         return None, None

@@ -4,17 +4,28 @@ CHASE-CI §V: "nodes can join and leave the cluster at any time ... if a node
 is taken offline the pods on that node will be rescheduled on another node".
 A copy of ``RescalePlan`` and ``rescale_plan`` from the JAX package's
 ``core/elastic.py``: the data axis absorbs the change, every other axis
-stays.  The port has no mesh (``make_elastic_mesh`` and ``reshard`` have no
-counterpart): a training segment runs on one device, and the plan's data
-axis only sets gradient accumulation through ``elastic.batch.BatchPlan``,
-so a mesh change becomes an accumulation rescale.
+stays.  ``make_elastic_mesh`` is the counterpart of the reference's: a
+plan over the leased slots gives the plan's ``launch.mesh.Mesh`` and one
+rank device a slot, rank r at the r-th slot in row-major order, as
+``np.array(devs[:n]).reshape(shape)`` lays the reference's devices out.
+A segment of the elastic trainer on ranks runs one process a slot on that
+mesh and restores the newest checkpoint onto it (the checkpointer is
+mesh-agnostic), so a lost node costs one restore onto a reshaped mesh.
+On one device (a cluster whose slots are not ranks) the plan's data axis
+only sets gradient accumulation through ``elastic.batch.BatchPlan``.
+``reshard`` has no counterpart: it moves arrays between shardings within
+one process, and the trainer never calls it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import Mesh, make_mesh
 
 
 @dataclass(frozen=True)
@@ -56,3 +67,45 @@ def rescale_plan(axes: Tuple[str, ...], old_shape: Tuple[int, ...],
     used = fixed * new_data
     return RescalePlan(tuple(old_shape), new_shape, tuple(axes),
                        used, n_devices - used)
+
+
+def _names_device(slot) -> bool:
+    return isinstance(slot, torch.device) or (
+        isinstance(slot, str) and slot.split(":")[0] in ("cuda", "cpu"))
+
+
+def make_elastic_mesh(plan: RescalePlan, devices: Sequence[Any], *,
+                      compute="cuda",
+                      named: Optional[Mapping[Any, Any]] = None
+                      ) -> Tuple[Mesh, List[str]]:
+    """The plan's mesh over the first ``prod(plan.new_shape)`` leased slots
+    ``devices`` and the device of each one's rank, in slot order (rank r
+    on slot r, row-major).  A slot's device is ``named[slot]`` where the
+    caller names it, else the slot itself where it names a CUDA or CPU
+    device; a logical slot (``"slot3"``) ranks on ``compute``: the CPU,
+    or card r for rank r, which raises where the ranks outnumber the
+    cards (name the devices to put several ranks on one card)."""
+    n = int(np.prod(plan.new_shape))
+    slots = list(devices)[:n]
+    if len(slots) < n:
+        raise ValueError(f"a mesh of {plan.new_shape} needs {n} slots, "
+                         f"{len(slots)} are leased")
+    kind = resolve_device(compute).type
+    out = []
+    for r, slot in enumerate(slots):
+        if named is not None and slot in named:
+            dev = torch.device(named[slot])
+        elif _names_device(slot):
+            dev = torch.device(slot)
+        elif kind == "cpu":
+            dev = torch.device("cpu")
+        else:
+            cards = torch.cuda.device_count()
+            if r >= cards:
+                raise RuntimeError(
+                    f"a mesh of {plan.new_shape} needs {n} cards, this host "
+                    f"has {cards}; name each slot's device to put several "
+                    f"ranks on one card (over gloo)")
+            dev = torch.device("cuda", r)
+        out.append(str(dev))
+    return make_mesh(plan.new_shape, plan.axes), out

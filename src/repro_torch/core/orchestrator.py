@@ -7,7 +7,8 @@ where JAX took ``jax.devices()``.  Tests and the federation pass logical slots
 (``devices=[0, 1, ...]``): the orchestrator only leases names.  Work
 computes on ``Cluster.compute_device``: the ``compute`` device a cluster
 of logical slots was built with (a fabric site's), else its first online
-CUDA or CPU device.
+CUDA or CPU device.  A cluster built with ``ranks=`` declares its slots
+ranks: the elastic trainer runs a segment as one process a leased slot.
 
 Kubernetes semantics reproduced:
   * declarative jobs: you specify *what* (replicas, work), the controller
@@ -157,17 +158,23 @@ class Cluster:
     A standalone cluster is the degenerate single-site case ("local");
     ``repro_torch.fabric`` wires many site-tagged clusters into one
     fabric.  ``compute`` is where a cluster of logical slots computes.
+    ``ranks`` declares the slots ranks: an elastic training segment then
+    runs one process a leased slot on the plan's mesh (True: each slot's
+    own device where it names one, else the CPU, or card r for rank r;
+    or a mapping naming each slot's device, e.g. several slots on
+    ``"cuda:0"``); False trains on ``compute_device`` alone.
     """
 
     def __init__(self, devices: Optional[List[Any]] = None,
                  metrics: Optional[Registry] = None, site: str = "local",
-                 compute=None):
+                 compute=None, ranks: Any = False):
         if devices is None:
             resolve_device("cuda")          # raises without a card
             devices = [torch.device("cuda", i)
                        for i in range(torch.cuda.device_count())]
         self.site = site
         self.compute = None if compute is None else resolve_device(compute)
+        self.ranks = ranks
         self._lock = threading.Lock()
         self.devices = list(devices)
         self.offline: set = set()

@@ -20,22 +20,32 @@ training, with no human in the loop:
     |              rescaled so batch x accum stays constant         |
     +---------------------------------------------------------------+
 
-Each *segment* is one pod: it restores the newest checkpoint onto the
-trainer's device (``spec.device``) and steps until it finishes, is
-preempted (scale-up), or is drained (node failure).  The port has no
-mesh: the cluster's devices are leased as names (the card, or logical
-slots in tests), and the plan's data axis only sets the accumulation
-(``BatchPlan``), so a mesh change becomes an accumulation rescale.  The
-data pipeline is stateless (batch i is a pure function of
-``spec.data_seed``), so a restored segment re-sees exactly the batches the
-lost one saw, and the trajectory is the uninterrupted one, modulo steps
-re-executed since the last checkpoint (``steps_lost`` in the report).
+Each *segment* is one pod: it restores the newest checkpoint and steps
+until it finishes, is preempted (scale-up), or is drained (node failure).
+Where the cluster's slots are ranks (``Cluster(..., ranks=...)``, handed
+to ``spec.ranks``), a segment runs the plan's ``("data", "model")`` mesh
+as one process a leased slot (``core.elastic.make_elastic_mesh``,
+``launch.ranks.run_ranks``, ``elastic.segment``): it restores the newest
+checkpoint onto that mesh's blocks and checkpoints from the ranks in the
+reference's format, so a lost node costs one restore onto a reshaped
+mesh, as in the reference; ``steps.check_layout`` refuses an unported
+layout before any rank spawns.  Otherwise the segment trains on the
+trainer's one device (``spec.device``): the cluster's slots are leased as
+names (the card, or logical slots in tests), and the plan's data axis
+only sets the accumulation (``BatchPlan``), so a mesh change becomes an
+accumulation rescale.  The data pipeline is stateless (batch i is a pure
+function of ``spec.data_seed``), so a restored segment re-sees exactly the
+batches the lost one saw, and the trajectory is the uninterrupted one,
+modulo steps re-executed since the last checkpoint (``steps_lost`` in the
+report).
 
 Each chunk of ``spec.device_steps`` optimizer steps is one
 ``runtime.steps.train_chunk`` call (xent and AdamW kernels on the card);
 its losses stay on the device until a checkpoint or log cadence flushes
-them with one copy.  Every family whose batches are tokens alone trains
-here (the dense kinds, MoE, the recurrent kinds).  Whisper and the VLM
+them with one copy (on ranks, rank 0 sends each chunk's losses to the
+trainer, whose ``progress`` moves with them).  Every family whose batches
+are tokens alone trains here (the dense kinds, MoE, the recurrent kinds;
+on ranks the kinds ``check_layout`` admits).  Whisper and the VLM
 train only on batches that carry their ``extras`` (``runtime.steps``),
 which the trainer's ``TokenPipeline`` does not make: the JAX trainer
 builds its chunk step with the extras in its batch specs, feeds it those
@@ -55,13 +65,14 @@ import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.checkpoint.checkpoint import Checkpointer
 from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
                                       ParallelConfig)
+from repro_torch.core.elastic import make_elastic_mesh
 from repro_torch.core.metrics import Registry
 from repro_torch.core.orchestrator import Cluster, JobSpec, Pod, PodState
 from repro_torch.data.objectstore import ObjectStore
@@ -69,6 +80,7 @@ from repro_torch.data.tokens import ChunkPrefetcher, TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.elastic.batch import BatchPlan
 from repro_torch.elastic.controller import ChurnController, Decision
+from repro_torch.launch.mesh import mesh_num_chips
 from repro_torch.models import params as pr
 from repro_torch.optim import adamw
 from repro_torch.runtime import steps as steps_mod
@@ -108,6 +120,10 @@ class ElasticTrainSpec:
     join_timeout_s: float = 120.0
     verbose: bool = True
     device: Any = "cuda"                   # where every segment trains
+    # the cluster's slots are ranks: False (one device), True (each slot's
+    # own device, else the CPU or card r for rank r) or {slot: device}
+    # naming each one's (several ranks on one card)
+    ranks: Any = False
 
     def __post_init__(self):
         resolve_device(self.device)        # raises without a card
@@ -252,7 +268,8 @@ class ElasticTrainer:
                  store: Optional[ObjectStore] = None,
                  metrics: Optional[Registry] = None,
                  report: Optional[ElasticRunReport] = None,
-                 stop: Optional[threading.Event] = None):
+                 stop: Optional[threading.Event] = None,
+                 probe: Optional[str] = None):
         self.cluster = cluster
         self.spec = spec
         self.device = resolve_device(spec.device)
@@ -283,6 +300,13 @@ class ElasticTrainer:
         self._final: Dict[str, Any] = {}
         self._fatal: Optional[NotImplementedError] = None
         self._saves_logged = 0
+        # on ranks: "module:function" each rank calls on its blocks after a
+        # restore and before a save (``elastic.segment``); each segment's
+        # rank pids, and its mesh, start-up, checkpoint, memory, launch
+        # and probe records
+        self.probe = probe
+        self.rank_pids: List[List[int]] = []
+        self.rank_segments: List[Dict[str, Any]] = []
 
     def _log(self, msg: str) -> None:
         if self.spec.verbose:
@@ -304,14 +328,7 @@ class ElasticTrainer:
                                              self.cfg.param_dtype),
                 "opt": pr.abstract_params(self.opt_schema, "float32")}
 
-    def _train_segment(self, ctx, plan, bplan: BatchPlan,
-                       graceful: threading.Event) -> _SegmentResult:
-        """One pod: restore, run CHUNKS of ``spec.device_steps`` optimizer
-        steps, checkpoint at boundaries.  Chunk k+1's batches are built by
-        a background thread while chunk k runs, and the host syncs (loss
-        flush, checkpoint, log, stop/fail checks) only at chunk
-        boundaries, so preemption latency is bounded by one chunk."""
-        spec, dev = self.spec, self.device
+    def _refuse_extras(self) -> None:
         if steps_mod.extras_specs(self.cfg, 1) is not None:
             raise NotImplementedError(
                 f"the {self.cfg.family!r} family ({self.cfg.name}) trains on "
@@ -320,7 +337,20 @@ class ElasticTrainer:
                 f"trainer feeds it those batches all the same and fails on "
                 f"the batch's structure; train it through "
                 f"runtime.steps.train_chunk with extras")
+
+    def _train_segment(self, ctx, plan, bplan: BatchPlan,
+                       graceful: threading.Event) -> _SegmentResult:
+        """One pod: restore, run CHUNKS of ``spec.device_steps`` optimizer
+        steps, checkpoint at boundaries.  Chunk k+1's batches are built by
+        a background thread while chunk k runs, and the host syncs (loss
+        flush, checkpoint, log, stop/fail checks) only at chunk
+        boundaries, so preemption latency is bounded by one chunk."""
+        spec, dev = self.spec, self.device
+        self._refuse_extras()
+        if spec.ranks:
+            return self._train_segment_ranks(ctx, plan, bplan, graceful)
         t0 = time.perf_counter()
+
         if dev.type == "cuda":
             # one segment's state on the card at a time: a dead segment's
             # tensors held only by reference cycles go before this one
@@ -447,6 +477,109 @@ class ElasticTrainer:
                               host_syncs=host_syncs,
                               t_first_s=(t_first - t0)
                               if t_first is not None else 0.0)
+
+    def _train_segment_ranks(self, ctx, plan, bplan: BatchPlan,
+                             graceful: threading.Event) -> _SegmentResult:
+        """One pod as one process a leased slot on the plan's mesh
+        (``elastic.segment.train_segment``).  Rank 0's reports move
+        ``progress`` and the loss log live; the pod's drain or preempt
+        stops every rank at the same chunk boundary, saving on the way
+        out as ``_train_segment`` does; a rank's exception is the
+        segment's failure.  ``t_first_s`` counts from before the ranks
+        spawn, so it holds their start-up, which is logged beside it."""
+        from repro_torch.elastic.segment import train_segment
+        from repro_torch.launch.ranks import Channel, run_ranks
+        spec = self.spec
+        t0 = time.perf_counter()
+        named = spec.ranks if isinstance(spec.ranks, Mapping) else None
+        mesh, devices = make_elastic_mesh(plan, ctx.devices,
+                                          compute=self.device, named=named)
+        n = mesh_num_chips(mesh)
+        ocfg = dataclasses.replace(spec.ocfg, accum_steps=bplan.accum_steps)
+        par = steps_mod.train_par(spec.par, global_batch=spec.global_batch,
+                                  chips=n)
+        # an unported layout ends the run here, before any rank spawns
+        steps_mod.check_layout(self.cfg, par, ocfg, mesh, seq=spec.seq_len)
+        backend = "nccl" if self.device.type == "cuda" and \
+            len(set(devices)) == n else "gloo"
+        self._wait_ckpt()
+        seen: Dict[str, Optional[float]] = {"up": None, "first": None}
+
+        def on_report(msg):
+            now = time.perf_counter()
+            if "started" in msg:
+                seen["up"] = now
+            if "start" in msg:
+                self._seg_start = record["start"] = msg["start"]
+                self._seg_last = record["last"] = msg["start"] - 1
+            if "last" in msg:
+                self._losses.update(msg["losses"])
+                self.progress = self._seg_last = record["last"] = msg["last"]
+                if seen["first"] is None:
+                    seen["first"] = now
+
+        def stop_when():
+            # a drain, a graceful (scale-up) or a scheduler preempt: the
+            # last two always save on the way out, a drain only where the
+            # spec pretends the node survived
+            if not ctx.should_stop():
+                return None
+            return graceful.is_set() or ctx.preempt.is_set() or \
+                spec.save_on_drain
+
+        channel = Channel()
+        # what the segment's ranks did; "start" and "last" move live
+        record: Dict[str, Any] = {"mesh": mesh.sizes,
+                                  "accum": bplan.accum_steps,
+                                  "devices": devices, "backend": backend}
+        self.rank_segments.append(record)
+        try:
+            results = run_ranks(
+                train_segment, mesh.sizes, kwargs=dict(
+                    spec=spec, accum=bplan.accum_steps,
+                    store_root=str(self.store.root),
+                    fail_at=-1 if self._injected else spec.fail_at,
+                    ephemeral=self._ephemeral_store, probe=self.probe),
+                device=self.device, devices=devices, backend=backend,
+                threads=max(1, torch.get_num_threads() // n),
+                channel=channel, on_report=on_report, stop_when=stop_when)
+        except RuntimeError as e:
+            if f"injected failure at step {spec.fail_at}" in str(e):
+                self._injected = True
+            raise
+        finally:
+            self.rank_pids.append(channel.pids)
+            if seen["up"] is not None:
+                record["rank_start_s"] = seen["up"] - t0
+        r0 = results[0]
+        wall = time.perf_counter() - t0
+        t_first_s = seen["first"] - t0 if seen["first"] is not None else 0.0
+        record.update(
+            t_first_s=t_first_s, wall_s=wall, saves=r0["saves"],
+            restores=[r["restores"] for r in results],
+            peak_bytes=[r["peak_bytes"] for r in results],
+            launches=[r["launches"] for r in results],
+            probes=[r["probes"] for r in results])
+        self._log(f"[elastic] segment on {n} ranks ({backend}) mesh "
+                  f"{mesh.sizes} accum {bplan.accum_steps}: ranks started "
+                  f"in {record.get('rank_start_s', 0.0):.2f} s, t_first_s "
+                  f"{t_first_s:.2f}, steps {r0['start']}..{r0['last']}")
+        self.report.host_syncs += r0["host_syncs"]
+        self.ckpt.saves.extend(r0["saves"])
+        self.ckpt.restores.extend(r0["restores"])
+        self._wait_ckpt()                       # logs the ranks' saves
+        if r0["done"]:
+            final = r0["final"]
+            if final is None:           # its last step is a kept checkpoint
+                final = self.ckpt.restore(r0["last"], self._abstract(),
+                                          "cpu")
+                self.ckpt.restores.pop()
+            self._final = final
+        return _SegmentResult(start=r0["start"], last=r0["last"],
+                              done=r0["done"], preempted=r0["preempted"],
+                              t_first_done=seen["first"], wall_s=wall,
+                              host_syncs=r0["host_syncs"],
+                              t_first_s=t_first_s)
 
     def _supervise(self, idx: int, decision: Decision) -> Pod:
         """Submit one segment Job and watch it + the cluster until it ends."""

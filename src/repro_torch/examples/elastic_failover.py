@@ -2,15 +2,19 @@
 and leave the cluster at any time").
 
     PYTHONPATH=src python -m repro_torch.examples.elastic_failover \\
-        [--fast] [--device cpu]
+        [--fast] [--ranks] [--device cpu]
 
 The twin of ``examples/elastic_failover.py``.  All the control lives in
 the platform: a ``TrainJob`` declared through ``repro_torch.api.Session``
 runs as a supervised elastic workload, and this script only injects a
 churn schedule against the cluster, as an unplugged appliance would.  The
-cluster holds 8 logical slots computing on one device (the card unless
-``--device cpu``); the port has no mesh, so a mesh shape is the trainer's
-plan over the slots and its data axis sets the gradient accumulation:
+cluster holds 8 logical slots (the card unless ``--device cpu``).  With
+``--ranks`` the slots are ranks, as the reference's 8 devices are: each
+segment runs its mesh as one process a slot (gloo on the CPU; on a card
+the slots name the host's cards in turn, so several ranks share one over
+gloo) and restores the newest checkpoint onto that mesh.  Without it the
+slots compute on one device, and a mesh shape is the trainer's plan over
+them whose data axis sets the gradient accumulation:
 
   1. training starts on the (4 data, 2 model) plan over the 8 slots;
   2. two slots FAIL mid-run: the cluster drains their pod, the trainer
@@ -29,8 +33,11 @@ import json
 import threading
 import time
 
+import torch
+
 from repro_torch.api import Session, TrainJob
 from repro_torch.core.orchestrator import Cluster
+from repro_torch.device import resolve_device
 
 SLOTS = 8
 
@@ -41,13 +48,19 @@ def main(argv=None):
                     help="shorter run (CI churn smoke)")
     ap.add_argument("--steps", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ranks", action="store_true",
+                    help="one process a slot on each segment's mesh")
     args = ap.parse_args(argv)
     steps = args.steps or (24 if args.fast else 45)
     fail_after = steps // 4          # churn points, in completed steps
     rejoin_after = steps // 2
 
-    cluster = Cluster(devices=[f"slot{i}" for i in range(SLOTS)],
-                      compute=args.device)
+    slots = [f"slot{i}" for i in range(SLOTS)]
+    ranks = args.ranks
+    if ranks and resolve_device(args.device).type == "cuda":
+        cards = torch.cuda.device_count()
+        ranks = {s: f"cuda:{i % cards}" for i, s in enumerate(slots)}
+    cluster = Cluster(devices=slots, compute=args.device, ranks=ranks)
     session = Session(cluster=cluster)
     handle = session.apply(TrainJob(
         name="elastic-demo", steps=steps, seq_len=64, global_batch=16,

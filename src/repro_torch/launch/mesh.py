@@ -11,7 +11,8 @@ the port counts bytes on the description alone, which starts no process.
 row-major over the axes, as ``np.array(jax.devices()).reshape(shape)``
 lays out the reference's devices, and builds this rank's subgroup along
 each axis (``groups["data"]``: the ranks that differ from it in the data
-coordinate alone).
+coordinate alone).  ``RankMesh.from_rank0`` hands rank 0's few integers
+to every rank (the step a restore picks, a segment's stop).
 
     make_production_mesh().shape       # {"data": 16, "model": 16}
     make_production_mesh(multi_pod=True).shape
@@ -113,6 +114,26 @@ class RankMesh:
         raise NotImplementedError(
             f"a dimension split over {axes} on a mesh of "
             f"{self.mesh.axis_names}: no one group holds its blocks")
+
+    def from_rank0(self, values) -> list:
+        """Rank 0's ``values`` (non-negative ints) on every rank: one
+        all-reduce over the world on this rank's device, which NCCL and
+        gloo both take (a control message, never counted in
+        ``sharding.collectives.bytes_sent``)."""
+        import torch.distributed as dist
+        t = torch.tensor(list(values) if self.rank == 0 else
+                         [0] * len(values), dtype=torch.int64,
+                         device=self.device)
+        dist.all_reduce(t, group=self.world)
+        return [int(v) for v in t.tolist()]
+
+    def any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on any rank (every rank calls it)."""
+        import torch.distributed as dist
+        t = torch.tensor([int(bool(flag))], dtype=torch.int64,
+                         device=self.device)
+        dist.all_reduce(t, group=self.world)
+        return bool(t.item())
 
 
 def make_rank_mesh(shape: Tuple[int, ...], device,

@@ -15,6 +15,24 @@ one.  Rank r takes ``cuda:r``: a mesh larger than the cards raises unless
 the caller passes ``devices=`` itself.  NCCL takes one card a rank; two
 ranks on one card (``devices=["cuda:0", "cuda:0"]``) run over gloo.
 
+A segment of the elastic trainer (``elastic.segment``) runs through
+``run_ranks(..., channel=Channel(), on_report=, stop_when=)``, which hands
+``fn`` the channel as ``channel=`` and keeps two channels open while the
+ranks run:
+
+  * progress, rank 0 to the parent: ``channel.report(rm, **msg)`` on rank
+    0 reaches ``on_report(msg)`` in the parent as it happens (a chunk's
+    last step and losses, so the trainer's ``progress`` moves live);
+  * stop, the parent to every rank: the parent polls ``stop_when()``
+    (None: go on; True or False: stop, saving on the way out or not) and
+    sets the channel's stop; ``channel.stopped(rm)`` reads it on rank 0
+    at a chunk boundary and hands it to every rank, so all break at the
+    same boundary.
+
+A rank's exception ends the call with a ``RuntimeError`` holding the
+rank's traceback; the other ranks are terminated first.  No rank process
+outlives the call, however it ends (``channel.pids`` names them).
+
     python -m repro_torch.launch.ranks --arch granite-moe-1b-a400m \\
         --mesh 1,2 --steps 2 --layers 4 --devices cuda:0,cuda:0 \\
         --backend gloo
@@ -40,12 +58,14 @@ import argparse
 import math
 import os
 import pickle
+import queue
 import tempfile
 import time
-from typing import Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.multiprocessing.spawn import ProcessException
 
 from repro_torch import bridge
 from repro_torch.configs import registry
@@ -69,6 +89,8 @@ from repro_torch.sharding import collectives, specs
 # and deepseek ``ParallelConfig(pure_fsdp_train=True)``, pure FSDP on a
 # train step whose global batch divides the ranks
 RANK_PARALLEL = ParallelConfig(tensor_parallel=False, sequence_parallel=False)
+# how often the parent of a segment's ranks serves its channels (seconds)
+POLL_S = 0.01
 
 
 def _worker(rank: int, fn, shape, devices, backend: str, threads: int,
@@ -88,10 +110,62 @@ def _worker(rank: int, fn, shape, devices, backend: str, threads: int,
         dist.destroy_process_group()
 
 
+class Channel:
+    """A segment's progress and stop channels between the parent of
+    ``run_ranks`` and its ranks (see the module docstring).  Made in the
+    parent before the call; it reaches the ranks as they spawn."""
+
+    def __init__(self):
+        ctx = torch.multiprocessing.get_context("spawn")
+        self._queue = ctx.Queue()
+        self._stop = ctx.Event()
+        self._save = ctx.Event()
+        self.pids: List[int] = []          # the parent's record of its ranks
+
+    # ------------------------------------------------------------- parent
+    def stop(self, save: bool) -> None:
+        if save:
+            self._save.set()
+        self._stop.set()
+
+    @property
+    def stopping(self) -> bool:
+        return self._stop.is_set()
+
+    def drain(self, timeout: float = 0.0) -> list:
+        """The messages rank 0 sent since the last call (waiting up to
+        ``timeout`` seconds for the first)."""
+        out = []
+        try:
+            out.append(self._queue.get(timeout=timeout) if timeout
+                       else self._queue.get_nowait())
+            while True:
+                out.append(self._queue.get_nowait())
+        except queue.Empty:
+            pass
+        return out
+
+    # -------------------------------------------------------------- ranks
+    def report(self, rm: RankMesh, **msg) -> None:
+        """Rank 0's message to the parent (other ranks send nothing)."""
+        if rm.rank == 0:
+            self._queue.put(msg)
+
+    def stopped(self, rm: RankMesh):
+        """(stop, save) as rank 0 reads them, on every rank: every rank
+        calls it at the same boundary."""
+        stop, save = rm.from_rank0([self._stop.is_set(), self._save.is_set()])
+        return bool(stop), bool(save)
+
+
 def run_ranks(fn, mesh_shape: Sequence[int], *, args=(), kwargs=None,
               device="cuda", backend: Optional[str] = None,
               devices: Optional[Sequence[str]] = None,
-              threads: Optional[int] = None) -> list:
+              threads: Optional[int] = None,
+              channel: Optional[Channel] = None,
+              on_report: Optional[Callable[[dict], None]] = None,
+              stop_when: Optional[Callable[[], Optional[bool]]] = None
+              ) -> list:
     """``fn(rank_mesh, *args, **kwargs)`` on one process a rank of a
     ``("data", "model")`` mesh of ``mesh_shape`` -> each rank's result.
 
@@ -99,6 +173,9 @@ def run_ranks(fn, mesh_shape: Sequence[int], *, args=(), kwargs=None,
     a card, or ``"cpu"``); rank r takes ``cuda:r`` unless ``devices``
     names each rank's.  ``threads`` sets each rank's
     ``torch.set_num_threads`` (default: the host's cores over the ranks).
+    ``channel`` (passed to ``fn`` as ``channel=``) carries rank 0's
+    reports to ``on_report`` and the stop ``stop_when`` asks for, every
+    ``POLL_S`` seconds.
     """
     world = math.prod(int(n) for n in mesh_shape)
     kind = resolve_device(device).type
@@ -123,11 +200,26 @@ def run_ranks(fn, mesh_shape: Sequence[int], *, args=(), kwargs=None,
         raise ValueError(f"NCCL takes one card a rank, not {devices}; ranks "
                          f"sharing a card run over gloo")
     threads = threads or max(1, (os.cpu_count() or 1) // world)
+    kwargs = dict(kwargs or {})
+    if channel is not None:
+        kwargs["channel"] = channel
     with tempfile.TemporaryDirectory(prefix="repro-ranks-") as root:
-        torch.multiprocessing.start_processes(
+        ctx = torch.multiprocessing.start_processes(
             _worker, args=(fn, tuple(mesh_shape), devices, backend, threads,
-                           root, tuple(args), dict(kwargs or {})),
-            nprocs=world, join=True, start_method="spawn")
+                           root, tuple(args), kwargs),
+            nprocs=world, join=False, start_method="spawn")
+        if channel is not None:
+            channel.pids = [p.pid for p in ctx.processes]
+        try:
+            _join(ctx, channel, on_report, stop_when)
+        except ProcessException as e:
+            raise RuntimeError(f"a rank of mesh {tuple(mesh_shape)} "
+                               f"failed: {e}") from None
+        finally:
+            for p in ctx.processes:          # no rank outlives the call
+                if p.is_alive():
+                    p.kill()
+                p.join()
         out = []
         for r in range(world):
             with open(f"{root}/rank{r}.pkl", "rb") as f:
@@ -135,11 +227,31 @@ def run_ranks(fn, mesh_shape: Sequence[int], *, args=(), kwargs=None,
     return out
 
 
+def _join(ctx, channel, on_report, stop_when) -> None:
+    """Wait for every rank, serving the segment channels meanwhile."""
+    if channel is None:
+        ctx.join()
+        return
+    while True:
+        done = ctx.join(timeout=0)
+        for msg in channel.drain(timeout=0 if done else POLL_S):
+            if on_report is not None:
+                on_report(msg)
+        if done:
+            return
+        if stop_when is not None and not channel.stopping:
+            save = stop_when()
+            if save is not None:
+                channel.stop(save)
+
+
 # ---------------------------------------------------------------------------
 # what a rank runs
 # ---------------------------------------------------------------------------
 
-def _kernel_counts() -> dict:
+def kernel_counts() -> dict:
+    """This process's launches of the kernels a train step across ranks
+    runs (each wrapper's count)."""
     return {"moe_gmm": moe_gmm.launches, "xent_fwd": xent.fwd_launches,
             "xent_bwd": xent.bwd_launches,
             "adamw_update": adamw_update.launches}
@@ -226,7 +338,7 @@ def train_ranks(rm: RankMesh, cfg: ModelConfig, par: ParallelConfig,
     del whole
     opt = steps.init_opt_state(cfg, ocfg, dev, mesh=rm, par=par)
     cuda = dev.type == "cuda"
-    before = _kernel_counts()
+    before = kernel_counts()
     rows = []
     for j in range(batches["tokens"].shape[0]):
         collectives.reset_counts()
@@ -244,7 +356,7 @@ def train_ranks(rm: RankMesh, cfg: ModelConfig, par: ParallelConfig,
                      "bytes": dict(collectives.bytes_sent),
                      "peak_bytes": (torch.cuda.max_memory_allocated(dev)
                                     if cuda else None)})
-    after = _kernel_counts()
+    after = kernel_counts()
     out = {"rank": rm.rank, "coords": rm.coords, "steps": rows,
            "launches": {k: after[k] - before[k] for k in after},
            "shapes": {"params": _shapes(local), "m": _shapes(opt["m"]),

@@ -171,13 +171,19 @@ def test_fifo_policy_is_arrival_order():
 
 def test_fairness_under_contention():
     """Acceptance: equal-share tenants on a saturated 2-site fabric
-    finish within 20% of each other; FIFO skews >2x."""
+    finish within 20% of each other; FIFO skews >2x.
+
+    Each job runs 0.2 s, long against what a placement adds to it (the
+    0.01 s reconcile tick, the job's own 5 ms polling, a thread's start
+    in a loaded test worker): at 0.04 s those added 20-35 % to every job,
+    a late thread moved one tenant's makespan past 1.2 of the other's and
+    FIFO's skew sat at 2.03-2.14, against 2.33 with none."""
     def run(policy):
         fabric = mk_fabric((2, 2))
         sched = FairShareScheduler(fabric, policy=policy, reconcile_s=0.01)
         tenants = [sched.create_tenant(TenantSpec(n)) for n in ("a", "b")]
         t0 = time.monotonic()
-        jobs = [[vc.submit(JobSpec(f"{vc.name}{i}", timed_fn(0.04),
+        jobs = [[vc.submit(JobSpec(f"{vc.name}{i}", timed_fn(0.2),
                                    devices_per_pod=1)) for i in range(10)]
                 for vc in tenants]
         with sched:
