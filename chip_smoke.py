@@ -4947,7 +4947,8 @@ RANKS_LAYERS = 4
 RANKS_STEPS = 2
 RANKS_CHECK = (2, 128)    # (c): layers and tokens a row, f32, card vs CPU
 RANKS_LABEL = "two ranks sharing one H100 over gloo"
-RANKS_KERNELS = ("moe_gmm", "xent_fwd", "xent_bwd", "adamw_update")
+RANKS_KERNELS = ("moe_gmm", "xent_fwd", "xent_bwd", "adamw_update",
+                 "ssd_scan", "wkv6")
 RANKS_TP_MESH = (1, 2)    # (d), (e): granite's own ParallelConfig()
 # (f), (g): phi4's own layout, pure FSDP on (1, 2) (the batch of 2 divides
 # the two ranks), cut to 4 of 32 layers (1.02 B params, 0.61 B of them the
@@ -4958,6 +4959,26 @@ RANKS_FSDP_LAYERS = 4
 # bf16: the two ranks' products run on one row each, one device's on
 # both, so cuBLAS may round them otherwise
 RANKS_ONE_DEVICE_RTOL = {"loss": 2e-3, "grad_norm": 1e-2}
+# (h), (h'): zamba2 and rwkv6 at full width under their own layout, pure
+# FSDP on RANKS_FSDP_MESH, zamba2 cut to one group of its pattern (6 of 54
+# layers: five mamba and one with the shared attention, 0.66 B params),
+# rwkv6 to 4 of 24 (0.35 B)
+RANKS_SCAN_LAYERS = {ZAMBA: 6, RWKV: 4}
+# (i): the f32 card-vs-CPU check at smoke size, 2 x RANKS_SCAN_CHECK_SEQ
+# tokens: zamba2 at its smoke check's cut (SMOKE_CUTS: one mamba and one
+# mamba_attn layer), rwkv6 at 2 layers, and zamba2's RL loss
+RANKS_SCAN_CHECK_SEQ = 128
+# (h), (h') against one device's steps, bf16: every step's loss and step
+# 1's grad norm (the same weights on both) within RANKS_ONE_DEVICE_RTOL;
+# a later step's grad norm within RANKS_SCAN_LATER_NORM_RTOL.  Adam's
+# first update moves each weight by about the lr whatever its grad's
+# size, so the bf16 rounding of the smallest grads sets the direction of
+# some of those moves, and the recurrent kinds' next grad norm follows
+# them: rwkv6 at 4 layers lay 1.06e-1 from one device's at step 2 with
+# its losses 7.5e-5 apart (an H100 80GB HBM3 at 700 W), and at smoke
+# widths in bf16 on the CPU zamba2's and rwkv6's lay 3e-3 to 1.4e-1
+# apart at steps 2-3 at Adam eps 1e-8 and 1e-5 alike
+RANKS_SCAN_LATER_NORM_RTOL = 0.25
 
 
 def _one_device_steps(cfg, par, ocfg, batches) -> list:
@@ -5205,7 +5226,169 @@ def phase_ranks(smi: str):
             norm_err, "param_max_abs_err": param_err}
         if tag == "(g)":
             launches[f"{key} f32 card"] = row["ranks"][0]["launches"]
+    scan_rows, scan_launches = _ranks_scan(smi)
+    rows.update(scan_rows)
+    launches.update(scan_launches)
     log(f"[ranks] phase {time.perf_counter() - t_start:.1f} s")
+    return rows, launches
+
+
+def _rl_batches(vocab: int, seq: int, seed: int) -> dict:
+    """``RANKS_STEPS`` RL batches of ``TRAIN_BATCH`` rows: tokens and
+    labels, a mask of mixed zeros and ones, signed advantages."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(0, vocab, (RANKS_STEPS, TRAIN_BATCH, seq + 1))
+    return {"tokens": tokens[..., :seq].astype(np.int32),
+            "labels": tokens[..., 1:].astype(np.int32),
+            "mask": (rng.rand(RANKS_STEPS, TRAIN_BATCH, seq) < 0.6).astype(
+                np.float32),
+            "advantages": rng.randn(RANKS_STEPS, TRAIN_BATCH).astype(
+                np.float32)}
+
+
+def _ranks_scan(smi: str):
+    """The recurrent kinds and the RL loss across ranks, ``phase_ranks``'
+    (h), (h') and (i), all at once (each rank run's start-up and first
+    step, 20-30 s, overlap; the ms a step printed are under that
+    contention).  (h) zamba2-2.7b and (h') rwkv6-1.6b at full width
+    under their own layout (``registry.get_parallel``: pure FSDP on
+    ``RANKS_FSDP_MESH``, the batch of 2 dividing the two ranks), cut to
+    ``RANKS_SCAN_LAYERS``, bf16 with f32 moments, 2 steps of 2 x 1024
+    tokens as two ranks sharing the card over gloo: each rank's losses,
+    grad norms, ms, collective bytes (equal to ``ranks.fsdp_step_bytes``),
+    peak memory and launches (the SSD or WKV6 scan on every rank, twice a
+    layer a step, as ``_family_launches`` implies), the losses and step
+    1's grad norm against one device's steps within
+    ``RANKS_ONE_DEVICE_RTOL``, step 2's within
+    ``RANKS_SCAN_LATER_NORM_RTOL``.  (i) the smoke configs in f32 at 2 x
+    ``RANKS_SCAN_CHECK_SEQ`` tokens, two ranks on the card against two on
+    the CPU (the plain versions) within ``phase_small_train``'s
+    tolerances (losses 1e-4, grad norms 1e-4 relative, param blocks
+    2e-4): zamba2 at ``SMOKE_CUTS``' cut, rwkv6 at 2 layers, and zamba2
+    under the RL loss (``train_ranks(..., rl=True)``,
+    ``steps.rl_train_chunk`` across ranks).  -> (rows, each run's rank-0
+    launches by label)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import ranks
+    from repro_torch.models import params as pr
+    from repro_torch.runtime import steps
+    t0 = time.perf_counter()
+    shape = RANKS_FSDP_MESH
+    shared = {"devices": ["cuda:0", "cuda:0"], "backend": "gloo"}
+    rows, launches = {}, {}
+
+    def expected(cfg, par, seq):
+        n = len(pr.leaves(steps._model_module(cfg).lm_schema(cfg)))
+        w = _family_launches(cfg, par, n, RANKS_STEPS, seq)
+        return {k: w[k] for k in RANKS_KERNELS}
+
+    ocfg = OptimizerConfig(warmup_steps=2)
+    full = []
+    for tag, arch in (("(h)", ZAMBA), ("(h')", RWKV)):
+        cfg = registry.get_config(arch).replace(
+            num_layers=RANKS_SCAN_LAYERS[arch], param_dtype="bfloat16",
+            compute_dtype="bfloat16")
+        own = registry.get_parallel(arch)
+        fsdp = steps.train_par(own, global_batch=TRAIN_BATCH,
+                               chips=math.prod(shape))
+        if not fsdp.pure_fsdp:
+            raise AssertionError(f"[ranks] {arch}'s own layout on {shape}: "
+                                 f"not pure FSDP")
+        batches = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                seed=0).chunk(0, RANKS_STEPS)
+        full.append((tag, arch, cfg, own, batches,
+                     ranks.fsdp_step_bytes(cfg, fsdp, shape)))
+
+    seq = RANKS_SCAN_CHECK_SEQ
+    small_ocfg = OptimizerConfig(warmup_steps=1, decay_steps=100)
+    checks = []
+    for tag, arch, rl in (("(i)", ZAMBA, False), ("(i)", RWKV, False),
+                          ("(i) rl", ZAMBA, True)):
+        layers, pattern = SMOKE_CUTS.get(arch, (2, None))
+        cfg = registry.get_smoke(arch).replace(
+            num_layers=layers, param_dtype="float32", compute_dtype="float32",
+            **({} if pattern is None else {"block_pattern": pattern}))
+        batches = (_rl_batches(cfg.vocab_size, seq, 1) if rl else
+                   TokenPipeline(cfg.vocab_size, seq, TRAIN_BATCH,
+                                 seed=1).chunk(0, RANKS_STEPS))
+        checks.append((tag, arch, cfg, rl, batches))
+
+    def check(tag, arch, cfg, rl, batches, where):
+        own = registry.get_parallel(arch)
+        label, want, kw = (
+            (f"card, {RANKS_LABEL}", expected(cfg, own, seq), shared)
+            if where == "card" else
+            ("cpu", None, {"device": "cpu", "threads": 2}))
+        return _ranks_run(f"{tag} {label}", shape, cfg, small_ocfg, batches,
+                          want, smi, par=own,
+                          kwargs={"keep": True, "rl": rl}, **kw)
+
+    with ThreadPoolExecutor(max_workers=len(full) + 2 * len(checks)) as pool:
+        runs = {tag: pool.submit(
+            _ranks_run, f"{tag} pure FSDP, {RANKS_LABEL}", shape, cfg, ocfg,
+            batches, expected(cfg, own, TRAIN_SEQ), smi, par=own,
+            bytes_want=bytes_want, **shared)
+            for tag, _, cfg, own, batches, bytes_want in full}
+        jobs = {(tag, arch, where): pool.submit(check, tag, arch, cfg, rl,
+                                                batches, where)
+                for tag, arch, cfg, rl, batches in checks
+                for where in ("card", "cpu")}
+        runs = {tag: job.result() for tag, job in runs.items()}
+        done = {key: job.result() for key, job in jobs.items()}
+    for tag, arch, cfg, own, batches, _ in full:
+        row = runs[tag][1]
+        one = _one_device_steps(cfg, own, ocfg, batches)
+        got = row["ranks"][0]["steps"]
+        rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm")}
+               for a, b in zip(got, one)]
+        errs = {"loss": max(e["loss"] for e in rel),
+                "grad_norm": rel[0]["grad_norm"],
+                "later_grad_norm": max(e["grad_norm"] for e in rel[1:])}
+        log(f"[ranks] {tag} {arch} one device, {cfg.num_layers} layers: "
+            + "; ".join(f"step {j + 1} loss {o['loss']:.6f} grad norm "
+                        f"{o['grad_norm']:.6f} {o['ms']:.1f} ms"
+                        for j, o in enumerate(one))
+            + f"; the ranks' rel err {errs} (tolerances "
+              f"{RANKS_ONE_DEVICE_RTOL}, later steps' grad norm "
+              f"{RANKS_SCAN_LATER_NORM_RTOL})")
+        if any(errs[k] > tol for k, tol in RANKS_ONE_DEVICE_RTOL.items()) \
+                or errs["later_grad_norm"] > RANKS_SCAN_LATER_NORM_RTOL:
+            raise AssertionError(f"[ranks] {tag}: the ranks disagree with "
+                                 f"one device: {errs}")
+        key = f"{arch} ranks {tag} {shape}"
+        rows[key] = {**row, "one_device": one, "one_device_rel_err": errs}
+        launches[key] = row["ranks"][0]["launches"]
+    for tag, arch, cfg, _, _ in checks:
+        (card, row), (cpu, _) = (done[tag, arch, "card"],
+                                 done[tag, arch, "cpu"])
+        loss_err = norm_err = param_err = 0.0
+        for a, b in zip(card, cpu):
+            for x, y in zip(a["steps"], b["steps"]):
+                loss_err = max(loss_err, abs(x["loss"] - y["loss"]))
+                norm_err = max(norm_err, abs(x["grad_norm"] - y["grad_norm"])
+                               / y["grad_norm"])
+            pa, pb = dict(_named(a["params"])), dict(_named(b["params"]))
+            param_err = max(param_err, max(
+                float(abs(pa[k].astype("float64") - pb[k]).max())
+                for k in pb))
+        log(f"[ranks] {tag} {arch} smoke {shape} f32, {cfg.num_layers} "
+            f"layers {cfg.block_pattern}, {TRAIN_BATCH} x {seq} tokens, "
+            f"{RANKS_STEPS} steps, card vs cpu: loss max_abs_err "
+            f"{loss_err:.3g} (tolerance 1e-4), grad norm rel err "
+            f"{norm_err:.3g} (1e-4), param blocks max_abs_err "
+            f"{param_err:.3g} (2e-4)")
+        if not (loss_err <= 1e-4 and norm_err <= 1e-4 and param_err <= 2e-4):
+            raise AssertionError(f"[ranks] {tag} {arch}: the card disagrees "
+                                 f"with the CPU")
+        key = f"{arch} ranks {tag} {shape}"
+        rows[key] = {**row, "loss_max_abs_err": loss_err,
+                     "grad_norm_rel_err": norm_err,
+                     "param_max_abs_err": param_err}
+        launches[f"{key} f32 card"] = row["ranks"][0]["launches"]
+    log(f"[ranks] (h), (h'), (i) {time.perf_counter() - t0:.1f} s")
     return rows, launches
 
 
@@ -5371,6 +5554,8 @@ def phase_elastic_ranks(smi: str):
         want = {"xent_fwd": per["xent_fwd"] * n * rec["accum"],
                 "xent_bwd": per["xent_bwd"] * n * rec["accum"],
                 "moe_gmm": per["moe_gmm"] * n * rec["accum"],
+                "ssd_scan": per["ssd_scan"] * n * rec["accum"],
+                "wkv6": per["wkv6"] * n * rec["accum"],
                 "adamw_update": n_leaves * n}
         for r, ran in enumerate(rec["launches"]):
             got = {k: ran[k] for k in RANKS_KERNELS}
@@ -5595,7 +5780,7 @@ def main() -> int:
             for arch, ran in family_launches.items()})
         row["launches_by_path"][kimi_train] = ran_kimi_train[row["name"]]
         row["launches_by_path"][kimi_witness] = ran_kimi_witness[row["name"]]
-    for row in (xent_fwd, xent_bwd, adamw, gmm):
+    for row in (xent_fwd, xent_bwd, adamw, gmm, ssd, wkv):
         row["launches_by_path"].update({
             f"{path}, rank 0": ran[row["name"]]
             for path, ran in ranks_launches.items()})

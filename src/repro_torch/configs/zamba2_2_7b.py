@@ -15,5 +15,6 @@ CONFIG = ModelConfig(
 )
 
 # The reference's pure-FSDP training layout (the recurrent blocks cannot
-# shard the sequence).  The port does not train this family yet.
+# shard the sequence).  The port trains this family; runtime.steps.train_par
+# turns the layout on for its train steps, on one device and across ranks.
 PARALLEL = ParallelConfig(pure_fsdp_train=True)

@@ -38,14 +38,17 @@ outlives the call, however it ends (``channel.pids`` names them).
         --backend gloo
     python -m repro_torch.launch.ranks --arch phi4-mini-3.8b --mesh 1,2 \\
         --layers 4 --devices cuda:0,cuda:0 --backend gloo
+    python -m repro_torch.launch.ranks --arch zamba2-2.7b --mesh 1,2 \\
+        --layers 6 --devices cuda:0,cuda:0 --backend gloo
     python -m repro_torch.launch.ranks --smoke --mesh 2,2 --steps 2 \\
         --device cpu
 
 trains under the arch's own ``ParallelConfig`` (``registry.get_parallel``:
 tensor and sequence parallelism on ``model`` for granite-moe; for phi4,
-gemma2, codeqwen and deepseek pure FSDP wherever ``--batch`` divides the
-mesh, ``steps.train_par``, and their tensor- and sequence-parallel
-defaults where it does not), with ``--layout ep`` under ``RANK_PARALLEL``,
+gemma2, codeqwen, deepseek, zamba2 and rwkv6 pure FSDP wherever
+``--batch`` divides the mesh, ``steps.train_par``, and their tensor- and
+sequence-parallel defaults where it does not, which zamba2 and rwkv6 do
+not run), with ``--layout ep`` under ``RANK_PARALLEL``,
 or with ``--layout fsdp`` under ``ParallelConfig(pure_fsdp=True)``; an
 arch whose layout ``steps.check_layout`` refuses on the mesh raises
 before any rank starts.  It prints each step's loss, ms and collective
@@ -74,7 +77,7 @@ from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.grad_check import contracted_attention_init_
-from repro_torch.kernels import adamw_update, moe_gmm, xent
+from repro_torch.kernels import adamw_update, moe_gmm, ssm_scan, wkv6, xent
 from repro_torch.launch.mesh import RankMesh, make_mesh, make_rank_mesh
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pr
@@ -251,10 +254,12 @@ def _join(ctx, channel, on_report, stop_when) -> None:
 
 def kernel_counts() -> dict:
     """This process's launches of the kernels a train step across ranks
-    runs (each wrapper's count)."""
+    runs (each wrapper's count): the grouped matmul, the xent kernels,
+    AdamW and the two scans."""
     return {"moe_gmm": moe_gmm.launches, "xent_fwd": xent.fwd_launches,
             "xent_bwd": xent.bwd_launches,
-            "adamw_update": adamw_update.launches}
+            "adamw_update": adamw_update.launches,
+            "ssd_scan": ssm_scan.launches, "wkv6": wkv6.launches}
 
 
 def seeded_params(cfg: ModelConfig, seed: int):
@@ -280,16 +285,18 @@ def _shapes(tree, path=""):
 
 
 def fsdp_step_bytes(cfg: ModelConfig, par: ParallelConfig, shape,
-                    accum: int = 1) -> dict:
+                    accum: int = 1, rl: bool = False) -> dict:
     """The bytes ``collectives.bytes_sent`` counts on every rank in one
     pure-FSDP train step (``par.pure_fsdp``) on a ``("data", "model")``
     mesh of ``shape``, from the leaf shapes alone: per microbatch each
     split leaf's block is all-gathered (a layer's twice under remat: the
-    forward and its recompute) and its whole gradient reduce-scattered,
+    forward and its recompute; a top-level leaf, zamba2's shared
+    attention among them, once) and its whole gradient reduce-scattered,
     in the param dtype; per step a leaf that some axis of more than one
     rank does not split has its block's gradient all-reduced over it (in
     f32 when ``accum`` > 1 sums the microbatches' grads), and so do the
-    loss metric and the squared norm (4 bytes each)."""
+    loss metric and the squared norm (4 bytes each).  ``rl``: the RL
+    loss also all-reduces its mask sum (4 bytes) a microbatch."""
     if not par.pure_fsdp:
         raise ValueError("fsdp_step_bytes counts the pure-FSDP layout")
     mesh = make_mesh(tuple(shape), ("data", "model"))
@@ -298,7 +305,7 @@ def fsdp_step_bytes(cfg: ModelConfig, par: ParallelConfig, shape,
                        ).element_size()
     grad_item = 4 if accum > 1 else item
     out = {"all_gather": 0, "reduce_scatter": 0, "all_to_all": 0,
-           "all_reduce": 8}
+           "all_reduce": 8 + (4 * accum if rl else 0)}
     for path, p in pr.leaves(steps._model_module(cfg).lm_schema(cfg)):
         spec = specs.spec_for(p.shape, p.axes, mesh, rules)
         whole = math.prod(p.shape)
@@ -315,11 +322,14 @@ def fsdp_step_bytes(cfg: ModelConfig, par: ParallelConfig, shape,
 
 def train_ranks(rm: RankMesh, cfg: ModelConfig, par: ParallelConfig,
                 ocfg: OptimizerConfig, batches, *, params=None,
-                seed: int = 0, keep: bool = False) -> dict:
-    """``steps.train_step`` on this rank for each step of ``batches``
-    ((K, B, S) numpy "tokens" and "labels", the global batch of each step),
-    from whole ``params`` (numpy, as ``bridge.to_numpy`` gives them) or,
-    where None, ``seeded_params(cfg, seed)``.  -> {"rank", "coords",
+                seed: int = 0, keep: bool = False, rl: bool = False) -> dict:
+    """One train step on this rank for each step of ``batches`` ((K, B,
+    S) numpy "tokens" and "labels", the global batch of each step), a
+    one-step ``steps.train_chunk``, or with ``rl`` ``steps.rl_train_chunk``
+    (the RL learner's loss; ``batches`` then also carry "mask" (K, B, S)
+    and "advantages" (K, B)), from whole ``params`` (numpy, as
+    ``bridge.to_numpy`` gives them) or, where None, ``seeded_params(cfg,
+    seed)``.  -> {"rank", "coords",
     "steps": per step loss, grad_norm, lr, ms, collective bytes and peak
     bytes, "launches": the step's kernel launches, "shapes": every param
     and moment block's shape, "params": the blocks as numpy where
@@ -338,6 +348,7 @@ def train_ranks(rm: RankMesh, cfg: ModelConfig, par: ParallelConfig,
     del whole
     opt = steps.init_opt_state(cfg, ocfg, dev, mesh=rm, par=par)
     cuda = dev.type == "cuda"
+    step = steps.rl_train_chunk if rl else steps.train_chunk
     before = kernel_counts()
     rows = []
     for j in range(batches["tokens"].shape[0]):
@@ -346,10 +357,10 @@ def train_ranks(rm: RankMesh, cfg: ModelConfig, par: ParallelConfig,
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        local, opt, m = steps.train_step(
-            cfg, par, ocfg, local, opt, {k: v[j] for k, v in batches.items()},
-            device=dev, mesh=rm)
-        m = {k: float(v) for k, v in m.items()}
+        local, opt, m = step(
+            cfg, par, ocfg, local, opt,
+            {k: v[j:j + 1] for k, v in batches.items()}, device=dev, mesh=rm)
+        m = {k: float(v[0]) for k, v in m.items()}
         if cuda:
             torch.cuda.synchronize(dev)
         rows.append({**m, "ms": (time.perf_counter() - t0) * 1e3,
@@ -407,7 +418,10 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     ap.add_argument("--mesh", default="1,2", help="data,model sizes")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--layers", type=int, default=0,
-                    help="cut the depth to this many layers (0: all)")
+                    help="cut the depth to this many layers (0: all), a "
+                         "multiple of the block pattern's length (6 for "
+                         "zamba2-2.7b: five mamba layers and one with the "
+                         "shared attention)")
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--batch", type=int, default=2, help="global batch")
     ap.add_argument("--seed", type=int, default=0)
@@ -426,6 +440,10 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     shape = tuple(int(n) for n in args.mesh.split(","))
     cfg = (registry.get_smoke if args.smoke else registry.get_config)(
         args.arch)
+    if args.layers % len(cfg.block_pattern):
+        ap.error(f"--layers {args.layers}: {args.arch} stacks its layers in "
+                 f"groups of {len(cfg.block_pattern)} "
+                 f"{cfg.block_pattern}")
     dtype = "float32" if args.smoke else "bfloat16"
     cfg = cfg.replace(param_dtype=dtype, compute_dtype=dtype,
                       num_layers=args.layers or cfg.num_layers)

@@ -17,6 +17,12 @@ JAX package has no backward scan kernel and trains through XLA's autodiff
 of ``_ssd_chunked`` and ``_wkv_chunked``).  Train mode returns no cache.
 zamba2's ``mamba_attn`` trains its shared attention weights, passed in as
 ``shared`` by ``transformer``'s train forward.
+
+Across ranks the three kinds take the train forward's ``mesh`` and ``par``
+and run unchanged: ``runtime.steps.check_layout`` admits them under pure
+FSDP or on a ``model`` axis of 1, where each rank scans its own batch rows
+and every leaf comes to it whole (the shared attention gathered once a
+microbatch with the top-level leaves).
 """
 from __future__ import annotations
 
@@ -95,7 +101,7 @@ def _silu_f32(x, cd):
 
 
 def apply_mamba(cfg: ModelConfig, p, x, *, mode, positions, cache, pos,
-                shared, extras=None):
+                shared, extras=None, mesh=None, par=None):
     d_in, H, hd, N, K = _mamba_dims(cfg)
     cd = compute_dtype(cfg)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -162,7 +168,7 @@ def mamba_attn_cache_schema(cfg: ModelConfig, B: int, S: int, G: int):
 
 
 def apply_mamba_attn(cfg: ModelConfig, p, x, *, mode, positions, cache, pos,
-                     shared, extras=None):
+                     shared, extras=None, mesh=None, par=None):
     """Mamba block followed by the *shared* attention block (zamba2)."""
     from repro_torch.models.transformer import attention_part, mlp_part
     mcache = None if cache is None else {k: cache[k] for k in ("conv", "state")}
@@ -237,7 +243,7 @@ def _token_shift(x, prev):
 
 
 def apply_rwkv(cfg: ModelConfig, p, x, *, mode, positions, cache, pos,
-               shared, extras=None):
+               shared, extras=None, mesh=None, par=None):
     H, hd = _rwkv_dims(cfg)
     cd = compute_dtype(cfg)
     B, S, D = x.shape

@@ -38,10 +38,12 @@ body), so backward keeps one group's input per group and recomputes the
 rest.  ``loss_fn`` follows the reference's routing: the chunked
 cross-entropy (through the fused xent kernel) unless the vocab and
 sequence divide 16 and the layout is not pure-FSDP.  Across ranks
-(``mesh=``, a ``launch.mesh.RankMesh``) ``loss_fn`` gathers the top-level
-leaves, the train forward ZeRO-gathers each layer group's inside its
-remat scope, and the kinds of ``MESH_KINDS`` get the mesh and the
-``ParallelConfig``.  Under tensor and sequence parallelism on ``model``
+(``mesh=``, a ``launch.mesh.RankMesh``) ``loss_fn`` and ``rl_loss_fn``
+gather the top-level leaves (zamba2's shared attention among them: once
+a microbatch, for every ``mamba_attn`` layer and its recompute), the
+train forward ZeRO-gathers each layer group's inside its remat scope,
+and the kinds of ``MESH_KINDS`` get the mesh and the ``ParallelConfig``.
+Under tensor and sequence parallelism on ``model``
 (``layers.sequence_parallel``, the reference's default layout) the stream
 between layers is this rank's sequence slice: each block gathers it
 (``collectives.sp_gather``), computes this rank's heads and ff columns
@@ -264,8 +266,11 @@ def _stack(trees: list):
 
 # the kinds a train step runs on a mesh: each layer's leaves ZeRO-gathered,
 # the experts split over ``model``, the dense part replicated over it or,
-# under tensor parallelism, cut into heads and ff columns (``_tp_blocks``)
-MESH_KINDS = ("attn", "global", "local", "moe")
+# under tensor parallelism, cut into heads and ff columns (``_tp_blocks``);
+# the recurrent kinds (``SCAN_KINDS``) under pure FSDP or on a model axis of
+# 1 alone, where each rank scans its own rows and nothing is cut
+SCAN_KINDS = ("mamba", "mamba_attn", "rwkv")
+MESH_KINDS = ("attn", "global", "local", "moe") + SCAN_KINDS
 
 # under tensor parallelism, the dimension of a layer's leaf (its stacked
 # leaf's less the layers axis) of which a rank computes a block, and what
@@ -444,11 +449,12 @@ def _layer_plans(plans):
 
 
 def _gather_top(cfg: ModelConfig, par: ParallelConfig, params, mesh):
-    """``params`` with its top-level leaves (embedding, head, final norm)
-    gathered whole and its blocks as they are: over ``data`` (under pure
-    FSDP over ``("data", "model")``, ``_zero_axes``), and under sequence
-    parallelism then over ``model`` (the vocab of the embedding and head):
-    the lookup and the loss take the whole vocab on each rank's rows."""
+    """``params`` with its top-level leaves (embedding, head, final norm,
+    zamba2's shared attention) gathered whole and its blocks as they are:
+    over ``data`` (under pure FSDP over ``("data", "model")``,
+    ``_zero_axes``), and under sequence parallelism then over ``model``
+    (the vocab of the embedding and head): the lookup and the loss take
+    the whole vocab on each rank's rows."""
     top = {k: v for k, v in params.items() if k != "blocks"}
     passes = [_zero_axes(par, mesh)]
     if sequence_parallel(mesh, par):
@@ -542,7 +548,38 @@ def loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch,
     return nll + aux
 
 
-def rl_loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
+def _row_ranks(par: ParallelConfig, mesh):
+    """(group, size) of the ranks that hold different rows of a batch: the
+    ``"batch"`` rule's mesh axes, ``data`` or under pure FSDP ``("data",
+    "model")``."""
+    axes = specs.rule_axes(specs.logical_rules(par), "batch", mesh.mesh)
+    n = 1
+    for a in axes:
+        n *= mesh.size(a)
+    return mesh.group_of(axes), n
+
+
+def _rl_denominator(mask: torch.Tensor, par: ParallelConfig, mesh
+                    ) -> torch.Tensor:
+    """The reference's max(sum(mask), 1) over the whole microbatch: the
+    mask sums of the ranks that hold its rows, summed (no gradient)."""
+    total = mask.detach().sum()
+    if mesh is not None:
+        collectives.all_reduce_(total, _row_ranks(par, mesh)[0])
+    return total.clamp_min(1.0)
+
+
+def _rl_rank_scale(par: ParallelConfig, mesh) -> int:
+    """The factor on a rank's share of the RL loss: its rows summed over
+    the whole microbatch's denominator are a part of the reference's loss,
+    and the parts of the n ranks that hold different rows sum to it, where
+    ``runtime.steps`` averages both the grads and the loss metric over
+    those ranks; so each rank's copy is n times its part."""
+    return 1 if mesh is None else _row_ranks(par, mesh)[1]
+
+
+def rl_loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch,
+               mesh=None):
     """Advantage-weighted policy-gradient loss (the RL learner's).
 
     ``batch`` holds tokens/labels (B,S) int as in ``loss_fn``, mask (B,S)
@@ -552,16 +589,32 @@ def rl_loss_fn(cfg: ModelConfig, par: ParallelConfig, params, batch):
     ``losses.weighted_cross_entropy`` and its xent kernel; prompt and pad
     positions weigh 0 and get no gradient.  The MoE blocks' aux loss is
     added, as in ``loss_fn``.
+
+    On ``mesh`` (a ``launch.mesh.RankMesh``) ``params`` and ``batch`` are
+    this rank's, the top-level leaves are gathered as in ``loss_fn``, the
+    denominator is the whole microbatch's (``_rl_denominator``) and the
+    rank's share is scaled by ``_rl_rank_scale``; under sequence
+    parallelism each rank weighs its sequence slice, and the ``model``
+    group's slices are summed (``tp`` times their ``group_mean``).
     """
+    if mesh is not None:
+        params = _gather_top(cfg, par, params, mesh)
     x, aux = _train_forward(cfg, par, params, batch["tokens"],
-                            batch.get("extras"))
+                            batch.get("extras"), mesh)
     head = lm_head(cfg, params).to(compute_dtype(cfg))
     mask = batch["mask"].float()
     w = mask * batch["advantages"].float()[:, None]
-    denom = mask.sum().clamp_min(1.0)
-    return losses.weighted_cross_entropy(
-        x, batch["labels"], head, w, denom=denom,
-        softcap=cfg.final_logit_softcap) + aux
+    labels = batch["labels"]
+    sp = sequence_parallel(mesh, par)
+    if sp:
+        labels, w = _seq_slice(labels, mesh), _seq_slice(w, mesh)
+    pg = losses.weighted_cross_entropy(
+        x, labels, head, w, denom=_rl_denominator(mask, par, mesh),
+        softcap=cfg.final_logit_softcap)
+    if sp:
+        pg = collectives.group_mean(pg, mesh.groups["model"]) * \
+            mesh.size("model")
+    return pg * _rl_rank_scale(par, mesh) + aux
 
 
 # the MoE, recurrent and cross kinds (module imports after the definitions

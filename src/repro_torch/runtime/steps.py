@@ -43,15 +43,15 @@ Across ranks (``train_step`` / ``train_chunk`` given ``mesh=``, a
 ``launch.mesh.RankMesh`` of one process a rank, ``launch.ranks``) the
 layout is the reference's rules on a ``("data", "model")`` mesh, in one of
 three forms.  Under pure FSDP (``train_par``'s switch: phi4, gemma2,
-codeqwen and deepseek train so wherever the global batch divides the
-ranks) the batch and each leaf's ``fsdp`` axis split over ``("data",
-"model")`` (over ``model`` alone where that does not divide), every leaf
-is gathered whole a layer group at a time and nothing else moves.  The
-other two split the batch over ``data``, each leaf's ``fsdp`` axis
-over ``data`` (ZeRO-3: ``collectives.zero_gather`` a layer group at a
-time, the gradients reduce-scattered and averaged) and the MoE leaves'
-``expert`` axis over ``model`` (``models.moe``'s exchange).  Under
-``ParallelConfig(tensor_parallel=False, sequence_parallel=False)``
+codeqwen, deepseek, zamba2 and rwkv6 train so wherever the global batch
+divides the ranks) the batch and each leaf's ``fsdp`` axis split over
+``("data", "model")`` (over ``model`` alone where that does not divide),
+every leaf is gathered whole a layer group at a time and nothing else
+moves.  The other two split the batch over ``data``, each leaf's
+``fsdp`` axis over ``data`` (ZeRO-3: ``collectives.zero_gather`` a layer
+group at a time, the gradients reduce-scattered and averaged) and the
+MoE leaves' ``expert`` axis over ``model`` (``models.moe``'s exchange).
+Under ``ParallelConfig(tensor_parallel=False, sequence_parallel=False)``
 everything else is replicated over ``model``.  Under both flags on (the
 reference's default) the heads, KV heads, ff columns and vocab split over
 ``model`` as ``sharding.specs`` lays them out, the stream between layers
@@ -65,7 +65,6 @@ over ``model`` here (``_reduce_grads``).  ``shard_params`` /
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import torch
@@ -341,17 +340,20 @@ def check_layout(cfg: ModelConfig, par: ParallelConfig,
     tokens (None: not checked) would need a layout the port does not run.
 
     On a ``model`` axis larger than 1 the port runs pure FSDP (the batch
-    and every leaf over ``("data", "model")``) for the dense kinds, and
+    and every leaf over ``("data", "model")``) for the dense and the
+    recurrent kinds (``mamba``, ``mamba_attn``, ``rwkv``: zamba2's and
+    rwkv6's own layout wherever the global batch divides the ranks), and
     the experts split over ``model`` with either both of tensor and
     sequence parallelism off or both on (the reference's default).  It
-    refuses MoE blocks under pure FSDP, one of tensor and sequence
+    refuses MoE blocks under pure FSDP, the recurrent kinds outside it
+    (the reference's ``tp_inner`` rules), one of tensor and sequence
     parallelism without the other, experts not split over ``model``, and
     under tensor parallelism the reference's ``"seq"`` attention strategy
     (heads that do not split over ``model``), a sequence that does not,
     KV heads whose blocks do not line up with the query heads', and d_ff
     that does not split.  On more than one rank it refuses the int8 and
-    factored moments, kinds other than the dense and MoE ones, and a
-    ``pod`` axis.  Nothing falls back."""
+    factored moments, whisper and the VLM's ``cross`` kind, and a ``pod``
+    axis.  Nothing falls back."""
     if tuple(mesh.axis_names) != ("data", "model"):
         raise NotImplementedError(
             f"a train step across ranks runs on a ('data', 'model') mesh, "
@@ -365,6 +367,18 @@ def check_layout(cfg: ModelConfig, par: ParallelConfig,
                 f"'model' inside its shard_map and reshards the pure-FSDP "
                 f"batch into it, which is not ported (ROADMAP queue A)")
     elif tp > 1:
+        scan = sorted(set(cfg.block_pattern) & set(tfm.SCAN_KINDS))
+        if scan:
+            raise NotImplementedError(
+                f"{cfg.name}: the recurrent kinds {scan} train across ranks "
+                f"under pure FSDP or on a model axis of 1, not under "
+                f"ParallelConfig(tensor_parallel={par.tensor_parallel}, "
+                f"sequence_parallel={par.sequence_parallel}) on one of {tp} "
+                f"(pure_fsdp_train falls to it where the global batch does "
+                f"not divide the ranks): the reference splits their inner "
+                f"width by its tp_inner rules (src/repro/models/ssm.py:1-4, "
+                f"src/repro/sharding/specs.py:60-61), which are not ported "
+                f"(ROADMAP R11)")
         if par.tensor_parallel != par.sequence_parallel:
             on, off = (("tensor_parallel", "sequence_parallel")
                        if par.tensor_parallel else
@@ -396,8 +410,8 @@ def check_layout(cfg: ModelConfig, par: ParallelConfig,
     if cfg.family == "audio" or kinds:
         raise NotImplementedError(
             f"{cfg.name}: a train step across ranks runs the dense and MoE "
-            f"kinds {tfm.MESH_KINDS}, not {sorted(kinds) or cfg.family!r} "
-            f"(ROADMAP queue A)")
+            f"kinds and the recurrent ones {tfm.MESH_KINDS}, not "
+            f"{sorted(kinds) or cfg.family!r} (ROADMAP R12)")
 
 
 def _check_tp(cfg: ModelConfig, tp: int, seq: Optional[int]) -> None:
@@ -478,7 +492,11 @@ def _reduce_grads(cfg: ModelConfig, par: ParallelConfig, grads, mesh):
     by dp * tp.  Under pure FSDP a leaf split over ``("data", "model")``
     was summed over every rank by its gather over the world group, one
     split over ``model`` alone (``specs.spec_for``'s fallback) is summed
-    over ``data`` here, and a replicated one (the norms) over both."""
+    over ``data`` here, and a replicated one over both: the norms, and
+    the recurrent kinds' leaves whose ``tp_inner``, ``tp_inner_heads`` and
+    ``conv_k`` axes pure FSDP maps to no mesh axis (mamba's ``conv_w``,
+    ``A_log``, ``dt_bias``, ``D_skip``, ``ln_y``; rwkv's ``mu_*``, ``w0``,
+    ``u``, ``ln_x`` and lora ``wB``)."""
     dp = mesh.size("data")
     tp = mesh.size("model") if (sequence_parallel(mesh, par)
                                 or par.pure_fsdp) else 1
@@ -503,10 +521,9 @@ def _loss_metric(value: torch.Tensor, mesh, par: ParallelConfig
     the batch axes (``_batch_axes``), each over an equal share of the rows
     (under sequence parallelism the loss is the model group's mean
     already)."""
-    axes = _batch_axes(par, mesh)
-    return collectives.all_reduce_(
-        value.to(torch.float32).clone(), mesh.group_of(axes)) / \
-        math.prod(mesh.size(a) for a in axes)
+    group, n = tfm._row_ranks(par, mesh)
+    return collectives.all_reduce_(value.to(torch.float32).clone(),
+                                   group) / n
 
 
 def _loss_of(cfg: ModelConfig, attr: str):
@@ -605,10 +622,6 @@ def train_step(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
         par = train_par(par, global_batch=B, chips=mesh.world_size)
         check_layout(cfg, par, ocfg, mesh.mesh,
                      seq=batch["tokens"].shape[1])
-        if loss is not None:
-            raise NotImplementedError(
-                "a train step across ranks takes the family's loss_fn; "
-                "the RL loss's global mask sum is not ported")
         batch = _rank_rows(batch, mesh, accum, par)
         B = batch["tokens"].shape[0]
     if accum == 1:
@@ -667,10 +680,12 @@ def train_chunk(cfg: ModelConfig, par: ParallelConfig, ocfg: OptimizerConfig,
 
 def rl_train_chunk(cfg: ModelConfig, par: ParallelConfig,
                    ocfg: OptimizerConfig, params, opt_state, batches, *,
-                   device="cuda"):
+                   device="cuda", mesh=None):
     """The RL learner's chunk: ``train_chunk`` with the advantage-weighted
     policy-gradient loss (the family's ``rl_loss_fn``) over batches of
-    ``rl_batch_specs``' keys (and the family's extras), stacked (K, ...)."""
+    ``rl_batch_specs``' keys (and the family's extras), stacked (K, ...);
+    ``mesh`` as in ``train_step`` (the loss's denominator the whole
+    microbatch's mask sum, ``models.transformer._rl_denominator``)."""
     return train_chunk(cfg, par, ocfg, params, opt_state, batches,
                        device=device, loss=_loss_of(cfg, "rl_loss_fn"),
-                       keys=RL_KEYS)
+                       keys=RL_KEYS, mesh=mesh)

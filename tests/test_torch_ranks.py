@@ -411,7 +411,12 @@ def test_ported_layouts_pass_and_other_kinds_raise():
     tsteps.check_layout(cfg, ParallelConfig(**PAR),
                         OptimizerConfig(moment_dtype="int8"),
                         make_mesh((1, 1), ("data", "model")))
-    for arch in ("zamba2-2.7b", "whisper-small"):
+    # the recurrent kinds on a model axis of 1 (tests/test_torch_ranks_scan.py
+    # trains them under pure FSDP)
+    tsteps.check_layout(treg.get_smoke("zamba2-2.7b"), ParallelConfig(**PAR),
+                        OptimizerConfig(),
+                        make_mesh((2, 1), ("data", "model")))
+    for arch in ("llama-3.2-vision-90b", "whisper-small"):
         with pytest.raises(NotImplementedError, match="dense and MoE"):
             tsteps.check_layout(treg.get_smoke(arch), ParallelConfig(**PAR),
                                 OptimizerConfig(),

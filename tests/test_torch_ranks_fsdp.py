@@ -555,9 +555,9 @@ def test_check_layout_admits_pure_fsdp_on_a_model_axis(arch, shape, B,
 @pytest.mark.parametrize("arch,ocfg,axes,shape,match", [
     (GRANITE, OptimizerConfig(), ("data", "model"), (1, 2), "pure_fsdp"),
     (GRANITE, OptimizerConfig(), ("data", "model"), (2, 2), "pure_fsdp"),
-    ("zamba2-2.7b", OptimizerConfig(), ("data", "model"), (1, 2),
+    ("llama-3.2-vision-90b", OptimizerConfig(), ("data", "model"), (1, 2),
      "dense and MoE"),
-    ("rwkv6-1.6b", OptimizerConfig(), ("data", "model"), (2, 2),
+    ("whisper-small", OptimizerConfig(), ("data", "model"), (2, 2),
      "dense and MoE"),
     ("whisper-small", OptimizerConfig(), ("data", "model"), (1, 2),
      "dense and MoE"),
